@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py                       # all three phases, one card
+    python3 chip_smoke.py --profile results/prof
+                        # then also profile one admission and one decode tick
+
+1. Setup: prints the card's name and power limit (``nvidia-smi``) and
+   builds every kernel of the port from the ``.cu`` sources in this checkout.
+2. Kernels vs plain: each kernel's wrapper against its plain PyTorch version
+   on the card, at every ``FLASH_CASES`` shape of the JAX package's kernel
+   tests and at the serving slice's shape, with the kernel's time, the plain
+   version's time, ``scaled_dot_product_attention``'s time (a yardstick timed
+   here only, never called by the port) and the least time the card could
+   take for the same work.
+3. The slice: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
+   ``use_flash_kernel=True``, batch 8, prompt 1024, 32 generated tokens,
+   seeded random weights.  Checks the kernel's launch count over that call,
+   the generated tokens, and that the prefill logits of one request match the
+   plain-attention path on the same weights.
+
+Imports neither JAX nor the JAX package.  Exits non-zero, printing no result,
+without a CUDA device or without the port next to it; exits non-zero when any
+phase fails.  The last line is the JSON result object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
+# (CUDA-core) operations/s
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+
+SLICE_ARCH = "qwen1p5_0p5b"
+SLICE_BATCH, SLICE_PROMPT, SLICE_GEN = 8, 1024, 32
+# flash vs plain attention, last-token prefill logits of one request, full
+# width, bf16 through 24 layers (see LOGITS_TOL_WHY)
+LOGITS_TOL = 0.125
+LOGITS_TOL_WHY = (
+    "bf16 activations through 24 layers: the kernel returns its f32 "
+    "softmax-weighted sum rounded once to bf16, the plain path rounds the "
+    "probabilities to bf16 before PV; each layer's difference of about one "
+    "bf16 step of the attention output enters the residual stream and grows "
+    "through the remaining layers. Logits here are of size ~1-3, where a bf16 "
+    "step is 2**-7..2**-6 (0.008-0.016); the bound allows eight steps of "
+    "2**-6, about twice the 0.057 seen on an H100 with these seeds")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def flash_cases():
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # B, Sq, Skv, H, K, dh, causal, window, dtype: FLASH_CASES of the JAX
+    # package's kernel tests, then the serving slice's prefill shape
+    return [
+        ("B2S256x256H4K2d64cw0f32", (2, 256, 256, 4, 2, 64, True, 0, f32)),
+        ("B1S300x300H4K4d64cw0f32", (1, 300, 300, 4, 4, 64, True, 0, f32)),
+        ("B2S256x256H8K2d64cw64bf16", (2, 256, 256, 8, 2, 64, True, 64, bf16)),
+        ("B1S128x128H2K1d128bw0f32", (1, 128, 128, 2, 1, 128, False, 0, f32)),
+        ("B1S128x384H4K4d64bw0f32", (1, 128, 384, 4, 4, 64, False, 0, f32)),
+        ("B2S192x192H4K2d32cw0bf16", (2, 192, 192, 4, 2, 32, True, 0, bf16)),
+        # the f32 cases again in bf16: bf16 takes the tensor-core path, so
+        # its ragged edge, dh=128, MQA and Sq != Skv are held here too
+        ("B1S300x300H4K4d64cw0bf16", (1, 300, 300, 4, 4, 64, True, 0, bf16)),
+        ("B1S128x128H2K1d128bw0bf16", (1, 128, 128, 2, 1, 128, False, 0, bf16)),
+        ("B1S128x384H4K4d64bw0bf16", (1, 128, 384, 4, 4, 64, False, 0, bf16)),
+        # causal + window with Sq != Skv: both indices from the same origin
+        ("B1S128x384H4K2d64cw32f32", (1, 128, 384, 4, 2, 64, True, 32, f32)),
+        ("B1S128x384H4K2d64cw32bf16", (1, 128, 384, 4, 2, 64, True, 32, bf16)),
+        # the slice's shape in f32 times the f32 (CUDA-core) path there
+        ("B1S1024H16K16d64cw0f32", (1, 1024, 1024, 16, 16, 64, True, 0, f32)),
+        ("slice_B1S1024H16K16d64c_bf16",
+         (1, 1024, 1024, 16, 16, 64, True, 0, bf16)),
+    ]
+
+
+def _mask(Sq, Skv, causal, window, device):
+    import torch
+
+    pq = torch.arange(Sq, device=device)[:, None]
+    pk = torch.arange(Skv, device=device)[None, :]
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= pq >= pk
+    if window > 0:
+        m &= pq - pk < window
+    return m
+
+
+def phase_kernels(results: dict) -> bool:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops
+    from repro_torch.kernels.flash.ref import attention_ref
+
+    ok = True
+    gen = torch.Generator(device="cuda")
+    for name, (B, Sq, Skv, H, K, dh, causal, window, dt) in flash_cases():
+        gen.manual_seed(0)
+        q = torch.randn((B, Sq, H, dh), generator=gen, device="cuda", dtype=dt)
+        k = torch.randn((B, Skv, K, dh), generator=gen, device="cuda", dtype=dt)
+        v = torch.randn((B, Skv, K, dh), generator=gen, device="cuda", dtype=dt)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = 2.5e-2 if dt == torch.bfloat16 else 1e-5
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        # the share of the bound atol + rtol * |ref| the worst element uses
+        tol_use = float((diff / (tol + tol * ref.float().abs())).max())
+        good = tol_use <= 1.0
+        ok &= good
+        kern_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                      window=window))
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                                 window=window), iters=5)
+        # the yardstick: one library call on the layout it wants; a plain
+        # causal mask goes as is_causal so SDPA may take its flash backend
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = _mask(Sq, Skv, causal, window, "cuda")
+        if causal and window == 0 and Sq == Skv:
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=H != K)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=H != K)
+        lib_ms = time_ms(sdpa)
+        pairs = int(mask.sum())
+        n_bytes = 2 * (q.nbytes + k.nbytes)        # q, k, v read; o written
+        n_ops = 4 * dh * pairs * B * H             # QK^T and PV, 2 ops a MAC
+        peak = PEAK_OPS_S["bfloat16" if dt == torch.bfloat16 else "float32"]
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / peak
+        row = {"case": name, "max_abs_err": err, "tol": tol,
+               "tol_use": tol_use, "ok": good,
+               "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": n_bytes, "ops": n_ops}
+        print("flash_fwd " + json.dumps(row), flush=True)
+        results.setdefault("flash_cases", []).append(row)
+        del q, k, v, out, ref
+    return ok
+
+
+def phase_slice(results: dict, profile_dir: str = "") -> bool:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import ops
+    from repro_torch.launch.serve import serve_benchmark
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import load_params
+
+    ok = True
+    cfg = get_config(SLICE_ARCH).with_(use_flash_kernel=True)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = load_params(model, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"slice: {cfg.name} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}), seeded init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    res = serve_benchmark(model, batch=SLICE_BATCH, prompt_len=SLICE_PROMPT,
+                          gen=SLICE_GEN, seed=0, params=params, device="cuda")
+    launches = ops.launches
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = cfg.n_layers * (SLICE_BATCH + 1)
+    print(f"slice: flash_fwd launches over serve_benchmark: {launches} "
+          f"(want {cfg.n_layers} layers x ({SLICE_BATCH} admissions + 1 "
+          f"warm-up) = {want})", flush=True)
+    if launches != want:
+        ok = False
+    ids = res["generated_ids"]
+    tokens_ok = (len(ids) == SLICE_BATCH and all(
+        len(r) == SLICE_GEN and all(0 <= t < cfg.vocab for t in r) for r in ids))
+    print(f"slice: {len(ids)} requests, each {SLICE_GEN} tokens in "
+          f"[0, {cfg.vocab}): {tokens_ok}", flush=True)
+    ok &= tokens_ok
+    tp = res["tpot_ms"]
+    print(f"slice: prefill_tok_s {res['prefill_tok_s']} decode_tok_s "
+          f"{res['decode_tok_s']} tpot_ms p50 {tp['p50']:.4f} p90 "
+          f"{tp['p90']:.4f} peak_mem_gib {peak_gib:.3f}", flush=True)
+
+    # one request's prefill: flash kernel vs plain attention, same weights
+    prompt = np.random.default_rng(1).integers(
+        3, cfg.vocab, size=(1, SLICE_PROMPT), dtype=np.int32)
+    tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
+    lf, _ = model.prefill(params, {"tokens": tok})
+    plain = build_model(cfg.with_(use_flash_kernel=False))
+    lp, _ = plain.prefill(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    d = (lf.float() - lp.float()).abs()
+    err = float(d.max())
+    size = float(lp.float().abs().max())
+    same_top = int(lf.argmax(-1)) == int(lp.argmax(-1))
+    print(f"slice: prefill logits flash vs plain: max abs diff {err:.6f}, "
+          f"mean {float(d.mean()):.6f}, max |logit| {size:.4f}, same argmax "
+          f"{same_top}; tol {LOGITS_TOL} ({LOGITS_TOL_WHY})", flush=True)
+    finite = bool(torch.isfinite(lf.float()).all())
+    ok &= finite and err <= LOGITS_TOL
+    results["slice_launches"] = launches
+    if profile_dir:
+        profile_slice(model, params, profile_dir)
+    return ok
+
+
+def profile_slice(model, params, out_dir: str) -> None:
+    """Where the time of one admission (prefill into a slot) and one decode
+    tick goes, at the slice's shape: ``torch.profiler`` over each, after the
+    serve run has warmed every path.  Prints wall time, the device's busy
+    time and idle share, and the ops with the most device time; writes the
+    full tables and chrome traces under ``out_dir``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import ServeEngine
+
+    os.makedirs(out_dir, exist_ok=True)
+    engine = ServeEngine(model, params, n_slots=SLICE_BATCH,
+                         max_len=SLICE_PROMPT + SLICE_GEN, greedy=True,
+                         block_len=0)
+    prompt = torch.randint(3, model.cfg.vocab, (SLICE_PROMPT,), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    steps = engine.step_probes(prompt)
+    torch.cuda.synchronize()
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        avg = prof.key_averages()
+        # device work is the kernels' own time; the aten ops that launched
+        # them carry the same time again, so they are left out of the sum
+        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in kern)
+        top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+        row = {"wall_ms": wall_ms, "device_ms": dev_us / 1e3,
+               "idle_share": 1 - dev_us / 1e3 / wall_ms,
+               "kernel_launches": int(sum(e.count for e in kern)),
+               "cpu_ops": int(sum(e.count for e in avg
+                                  if e.key.startswith("aten::"))),
+               "top": [{"op": e.key, "device_ms": e.self_device_time_total / 1e3,
+                        "count": e.count} for e in top[:12]]}
+        print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
+              f"{row['device_ms']:.3f} ms, idle share {row['idle_share']:.4f}, "
+              f"{row['kernel_launches']} kernel launches, {row['cpu_ops']} aten "
+              f"ops", flush=True)
+        for t in row["top"]:
+            print(f"profile {name}:   {t['device_ms']:9.4f} ms  x{t['count']:<5d} "
+                  f"{t['op'][:90]}", flush=True)
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(avg.table(sort_by="self_device_time_total", row_limit=60))
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", default="", metavar="DIR",
+                    help="after the slice, profile one admission and one "
+                         "decode tick; tables and traces go to DIR")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not next to this script ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]}", flush=True)
+    t0 = time.perf_counter()
+    info = build.build_all()
+    print(f"build: {len(info)} kernel libraries in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    for name, i in info.items():
+        print(f"build: {name} nvcc {i['seconds']:.2f}s", flush=True)
+        for line in str(i["log"]).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"build:   {line.strip()}", flush=True)
+
+    results: dict = {}
+    ok = phase_kernels(results)
+    print(f"phase kernels: {'ok' if ok else 'FAILED'}", flush=True)
+    slice_ok = phase_slice(results, args.profile)
+    print(f"phase slice: {'ok' if slice_ok else 'FAILED'}", flush=True)
+    ok &= slice_ok
+    if not ok:
+        return 1
+
+    slice_row = next(r for r in results["flash_cases"]
+                     if r["case"].startswith("slice"))
+    kernels = [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash/kernel.py:67",
+        "launches": results["slice_launches"],
+        "max_abs_err": slice_row["max_abs_err"], "ms": slice_row["ms"],
+        "plain_ms": slice_row["plain_ms"], "bound_ms": slice_row["bound_ms"],
+        "bound_by": slice_row["bound_by"],
+        "library_ms": slice_row["library_ms"]}]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

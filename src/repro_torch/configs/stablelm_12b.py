@@ -1,0 +1,15 @@
+"""StableLM-2-12B. [hf:stabilityai/stablelm-2-1_6b family]"""
+from ..models.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-12b",
+    arch_type="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab=100352,
+    head_dim=160,
+    source="hf:stabilityai/stablelm-2-1_6b",
+)

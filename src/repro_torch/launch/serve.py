@@ -1,0 +1,73 @@
+"""Static-batch serving shim, routed through the dense engine
+(port of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch serve --config examples/configs/serve.yaml
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+
+
+def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
+                    gen: int = 16, ckpt: str = "", seed: int = 0,
+                    params: Any = None, device=None,
+                    log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+    """Prefill + greedy-decode ``batch`` requests; returns throughput metrics.
+
+    ``batch`` identical-length greedy requests are admitted at once into
+    ``batch`` slots of the dense pool (``block_len=0``).  Every request
+    generates ``gen`` tokens: the first comes from the prefill logits
+    (counted in ``prefill_s``), the other ``gen - 1`` are decode ticks
+    (``decode_tok_s`` covers exactly those).
+
+    The prompts are made with ``numpy.random.default_rng(seed + 1)``, over
+    the same range ``[3, vocab)`` as JAX's ``jax.random.randint`` but not
+    the same numbers: the two generators differ, so the tests hand both
+    packages the same numpy prompts instead.  Params come from
+    ``load_params`` (seeded ``torch.Generator``) unless given; ``device`` is
+    the card unless the caller asks for the CPU.
+    """
+    from ..device import resolve_device
+    from ..serve.engine import ServeEngine, load_params
+    from ..serve.workload import static_trace
+
+    log = log or (lambda msg: print(msg, flush=True))
+    cfg = model.cfg
+    dev = resolve_device(device)
+    if params is None:
+        params = load_params(model, ckpt=ckpt, seed=seed, device=dev)
+    B, P, G = int(batch), int(prompt_len), int(gen)
+    prompts = np.random.default_rng(seed + 1).integers(
+        3, cfg.vocab, size=(B, P), dtype=np.int32)
+    # block_len=0 pins the dense slot pool, as in JAX
+    engine = ServeEngine(model, params, n_slots=B, max_len=P + G, greedy=True,
+                         block_len=0)
+    out = engine.run(static_trace(prompts, G, seed=seed), realtime=False)
+
+    rows = out["requests"]
+    t_prefill, t_decode = out["prefill_s"], out["decode_s"]
+    res = {
+        "arch": cfg.name,
+        "batch": B,
+        "prompt_len": P,
+        "gen": G,
+        "prefill_s": round(t_prefill, 3),
+        "prefill_tok_s": int(B * P / max(t_prefill, 1e-9)),
+        "decode_s": round(t_decode, 3),
+        "decode_steps": G - 1,
+        "decode_tokens": out["decode_tokens"],
+        "decode_tok_s": out["decode_tok_s"],
+        "tpot_ms": out["tpot_ms"],
+        "gen_tokens_total": out["generated_tokens"],
+        "generated_ids": [r["gen_ids"] for r in rows],
+        "generated_ids_0": rows[0]["gen_ids"] if rows else [],
+    }
+    log(f"prefill: {B}x{P} tokens in {t_prefill:.3f}s "
+        f"({res['prefill_tok_s']} tok/s, first token of each request "
+        f"sampled here)")
+    log(f"decode:  {B}x{G - 1} tokens in {t_decode:.3f}s "
+        f"({res['decode_tok_s']} tok/s)")
+    log(f"generated ids[0]: {res['generated_ids_0']}")
+    return res

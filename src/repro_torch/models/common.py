@@ -1,0 +1,95 @@
+"""Shared building blocks: norms, rotary embeddings, parameter init
+(port of ``repro.models.common``)."""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               in_axis_size: Optional[int] = None, dtype=torch.float32):
+    """Truncated-normal (±3σ) fan-in init, std ``1/sqrt(fan_in)``.
+
+    Made on ``gen.device`` from ``gen``; the same seed gives other numbers
+    than ``jax.random`` (tests carry JAX's params across instead)."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (out * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32):
+    out = torch.randn(tuple(shape), dtype=torch.float32, device=gen.device,
+                      generator=gen)
+    return (out * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms (computed in f32, cast back to the input dtype)
+# ---------------------------------------------------------------------------
+def rmsnorm(x, weight, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dtype)
+
+
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    out = out * weight.float() + bias.float()
+    return out.to(dtype)
+
+
+def norm_params(cfg, device=None):
+    p = {"scale": torch.ones((cfg.d_model,), dtype=torch.float32, device=device)}
+    if cfg.norm_type != "rmsnorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                device=device)
+    return p
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm_type == "rmsnorm":
+        return rmsnorm(x, p["scale"], cfg.norm_eps)
+    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# rotary: half-split (not interleaved), computed in f32
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, dh]; positions: [..., S] absolute positions."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                  # [dh/2]
+    angles = positions[..., None].float() * freqs            # [..., S, dh/2]
+    cos = torch.cos(angles)[..., None, :]                    # [..., S, 1, dh/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]

@@ -1,0 +1,36 @@
+"""``python -m repro_torch <kind> --config run.yaml [--set path=value]
+[--device cuda|cpu]`` — the port's declarative entry point.
+
+The run runs on the card unless ``--device cpu`` is given; with no card and
+no ``--device cpu`` it stops with an error.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch")
+    ap.add_argument("kind", choices=["serve"])
+    ap.add_argument("--config", required=True, help="run document (YAML)")
+    ap.add_argument("--set", dest="overrides", action="append", default=[],
+                    metavar="PATH=VALUE", help="override a document entry")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from .api import execute_file
+
+    result = execute_file(args.config, kind=args.kind,
+                          overrides=args.overrides, device=args.device,
+                          write_result=True)
+    print(f"done: {result['batch']} requests x {result['gen']} tokens, "
+          f"prefill {result['prefill_tok_s']} tok/s, decode "
+          f"{result['decode_tok_s']} tok/s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
