@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py                       # all three phases, one card
+    python3 chip_smoke.py                       # every phase, one card
     python3 chip_smoke.py --profile results/prof
-                        # then also profile one admission and one decode tick
+                        # then also profile one admission and one decode
+                        # tick of each slice
 
 1. Setup: prints the card's name and power limit (``nvidia-smi``) and
-   builds every kernel of the port from the ``.cu`` sources in this checkout.
+   builds every kernel of the port from the ``.cu`` sources in this checkout
+   (one ``nvcc`` per source, all started together).
 2. Kernels vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, at every ``FLASH_CASES`` shape of the JAX package's kernel
-   tests and at the serving slice's shape, with the kernel's time, the plain
-   version's time, ``scaled_dot_product_attention``'s time (a yardstick timed
-   here only, never called by the port) and the least time the card could
-   take for the same work.
-3. The slice: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
+   on the card, with the kernel's time, the plain version's time, one
+   library call's time where one PyTorch call computes the same function (a
+   yardstick timed here only, never called by the port) and the least time
+   the card could take for the same work.  ``flash_fwd`` at every
+   ``FLASH_CASES`` shape of the JAX package's kernel tests and at the Qwen
+   slice's prefill shape; ``ssd_scan`` at every ``SSD_CASES`` shape, at the
+   Mamba2 slice's shape and on a multi-group case.
+3. Slice 1: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
    ``use_flash_kernel=True``, batch 8, prompt 1024, 32 generated tokens,
-   seeded random weights.  Checks the kernel's launch count over that call,
-   the generated tokens, and that the prefill logits of one request match the
-   plain-attention path on the same weights.
+   seeded random weights.  Checks the flash kernel's launch count over that
+   call, the generated tokens, and that the prefill logits of one request
+   match the plain-attention path on the same weights.
+4. Slice 2: the same on full-width Mamba2-780M, whose prefill runs the SSD
+   kernel in every layer; the plain comparison runs ``ssd_chunked`` in its
+   place on the same weights.
 
-Imports neither JAX nor the JAX package.  Exits non-zero, printing no result,
-without a CUDA device or without the port next to it; exits non-zero when any
-phase fails.  The last line is the JSON result object.
+Every launch counter is set to 0 just before a slice drives the serve path
+and read just after.  Imports neither JAX nor the JAX package.  Exits
+non-zero, printing no result, without a CUDA device or without the port next
+to it; exits non-zero when any phase fails.  The last line is the JSON
+result object.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -40,7 +50,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 
-SLICE_ARCH = "qwen1p5_0p5b"
 SLICE_BATCH, SLICE_PROMPT, SLICE_GEN = 8, 1024, 32
 # flash vs plain attention, last-token prefill logits of one request, full
 # width, bf16 through 24 layers (see LOGITS_TOL_WHY)
@@ -53,6 +62,27 @@ LOGITS_TOL_WHY = (
     "through the remaining layers. Logits here are of size ~1-3, where a bf16 "
     "step is 2**-7..2**-6 (0.008-0.016); the bound allows eight steps of "
     "2**-6, about twice the 0.057 seen on an H100 with these seeds")
+# SSD kernel vs ssd_chunked, the same, bf16 through 48 Mamba2 layers
+SSM_LOGITS_TOL = 0.5
+SSM_LOGITS_TOL_WHY = (
+    "bf16 activations through 48 layers: kernel and plain scan both compute "
+    "y in f32 from the same bf16 inputs and round it once to bf16, so they "
+    "differ only where their f32 sums, taken in other orders, straddle a "
+    "bf16 rounding step, and each such step grows through the remaining "
+    "layers. That is this model's own noise floor, printed beside it: the "
+    "plain scan at chunk 64 (the same function, summed in another order) "
+    "differs from it at chunk 128 by about 0.2 at logits of size ~3.5 on an "
+    "H100 with these seeds; the bound is about twice that")
+# the same prefill with f32 activations, where only f32 sum order differs
+SSM_LOGITS_F32_TOL = 5e-4
+SSM_LOGITS_F32_TOL_WHY = (
+    "f32 activations through 48 layers: the plain scan at chunk 64 differs "
+    "from it at chunk 128 by about 6e-5 on an H100 with these seeds (the "
+    "floor printed beside it); the bound is about ten times that")
+# the final state is f32 on both sides, from the same inputs: each element
+# sums up to S decayed f32 products in other orders, whose rounding stays
+# under S * 2**-24 (6e-5 at S = 1024) of the largest state
+SSD_STATE_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -176,74 +206,225 @@ def phase_kernels(results: dict) -> bool:
     return ok
 
 
-def phase_slice(results: dict, profile_dir: str = "") -> bool:
+def ssd_cases():
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # B, S, H, P, G, N, chunk, dtype: SSD_CASES of the JAX package's kernel
+    # tests, then the Mamba2 slice's prefill shape and a multi-group case
+    return [
+        ("B2S256H4P64G1N64c128f32", (2, 256, 4, 64, 1, 64, 128, f32)),
+        ("B1S128H4P32G2N16c32f32", (1, 128, 4, 32, 2, 16, 32, f32)),
+        ("B2S256H8P64G1N128c128bf16", (2, 256, 8, 64, 1, 128, 128, bf16)),
+        ("B1S96H2P16G1N8c32f32", (1, 96, 2, 16, 1, 8, 32, f32)),
+        ("B2S384H8P32G4N64c128bf16", (2, 384, 8, 32, 4, 64, 128, bf16)),
+        # the slice's shape in f32 takes the most shared memory
+        ("B1S1024H48P64G1N128c128f32", (1, 1024, 48, 64, 1, 128, 128, f32)),
+        ("slice_B1S1024H48P64G1N128c128_bf16",
+         (1, 1024, 48, 64, 1, 128, 128, bf16)),
+    ]
+
+
+def ssd_work(B, S, H, P, G, N, Q, itemsize):
+    """Bytes the scan must move (each input read once, y and h_final written
+    once) and the operations of its products (2 a multiply-add): C B^T over
+    the lower triangle once per group and chunk, M x over the lower triangle,
+    C h^T and x^T (B . decay) per head and chunk."""
+    n_bytes = (2 * B * S * H * P * itemsize          # x, y
+               + 2 * B * S * G * N * itemsize        # Bm, Cm
+               + B * S * H * 4 + 2 * H * 4           # dt; A, D
+               + B * H * P * N * 4)                  # h_final
+    tri = Q * (Q + 1) // 2
+    n_ops = 2 * B * (S // Q) * (G * tri * N + H * (tri * P + 2 * Q * P * N))
+    return n_bytes, n_ops
+
+
+def phase_ssd(results: dict) -> bool:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+
+    ok = True
+    gen = torch.Generator(device="cuda")
+    for name, (B, S, H, P, G, N, Q, dt_) in ssd_cases():
+        gen.manual_seed(1)
+        rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                         device="cuda")
+        x = rnd(B, S, H, P).to(dt_)
+        dt = F.softplus(rnd(B, S, H))
+        A = -torch.exp(rnd(H) * 0.5)
+        Bm = (rnd(B, S, G, N) * 0.3).to(dt_)
+        Cm = (rnd(B, S, G, N) * 0.3).to(dt_)
+        D = torch.ones((H,), device="cuda")
+        args = (x, dt, A, Bm, Cm, D)
+        y, h = ops.ssd_scan(*args, chunk=Q)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ssd_chunked(*args, chunk=Q)
+        torch.cuda.synchronize()
+        rel = 3e-2 if dt_ == torch.bfloat16 else 3e-5
+        tol = rel * float(y_ref.float().abs().max())
+        htol = SSD_STATE_TOL * float(h_ref.abs().max())
+        err = float((y.float() - y_ref.float()).abs().max())
+        herr = float((h - h_ref).abs().max())
+        good = (err <= tol and herr <= htol
+                and bool(torch.isfinite(y.float()).all()))
+        ok &= good
+        kern_ms = time_ms(lambda: ops.ssd_scan(*args, chunk=Q))
+        plain_ms = time_ms(lambda: ssd_chunked(*args, chunk=Q), iters=5)
+        n_bytes, n_ops = ssd_work(B, S, H, P, G, N, Q, x.element_size())
+        peak = PEAK_OPS_S["bfloat16" if dt_ == torch.bfloat16 else "float32"]
+        t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / peak
+        row = {"case": name, "max_abs_err": err, "tol": tol,
+               "tol_use": err / tol, "h_max_abs_err": herr, "h_tol": htol,
+               "h_tol_use": herr / htol, "ok": good,
+               "ms": kern_ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": n_bytes, "ops": n_ops}
+        print("ssd_scan " + json.dumps(row), flush=True)
+        results.setdefault("ssd_cases", []).append(row)
+        del x, dt, Bm, Cm, y, h, y_ref, h_ref
+    return ok
+
+
+def _plain_ssm_scan(chunk_override=0):
+    """``ssd_chunked`` in the SSD wrapper's place; with ``chunk_override``
+    it scans at that chunk instead (the same function, summed in another
+    order), to show the model's own rounding spread."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+
+    def scan(x, dt, A, Bm, Cm, D, *, chunk):
+        return ssd_chunked(x, dt, A, Bm, Cm, D,
+                           chunk=min(chunk, chunk_override or chunk))
+
+    return scan
+
+
+# each slice: the arch and its config, the kernel its prefill runs, and the
+# bound on its kernel-vs-plain prefill logits for each activation dtype
+SLICES = {
+    "qwen": {"arch": "qwen1p5_0p5b", "with": {"use_flash_kernel": True},
+             "kernel": "flash_fwd",
+             "tols": {"bfloat16": (LOGITS_TOL, LOGITS_TOL_WHY)}},
+    "mamba2": {"arch": "mamba2_780m", "with": {}, "kernel": "ssd_scan",
+               "tols": {"bfloat16": (SSM_LOGITS_TOL, SSM_LOGITS_TOL_WHY),
+                        "float32": (SSM_LOGITS_F32_TOL,
+                                    SSM_LOGITS_F32_TOL_WHY)}},
+}
+
+
+def _counters():
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    return {"flash_fwd": flash_ops, "ssd_scan": ssd_ops}
+
+
+def _prefill_logits(key, cfg, params, tok, plain: bool, dtype,
+                    chunk_override: int = 0):
+    """One request's last-token prefill logits with activations in
+    ``dtype``, through the slice's kernel or, with ``plain``, its plain
+    version, on the same weights and the card."""
+    import contextlib
+
+    from repro_torch.models import build_model
+
+    model = build_model(cfg.with_(use_flash_kernel=False)
+                        if plain and key == "qwen" else cfg)
+    embed = model.embed_tokens
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            model, "embed_tokens", lambda p, t: embed(p, t, dtype=dtype)))
+        if plain and key == "mamba2":
+            import repro_torch.models.ssm as ssm
+
+            stack.enter_context(mock.patch.object(
+                ssm, "ssd_scan", _plain_ssm_scan(chunk_override)))
+        logits, _ = model.prefill(params, {"tokens": tok})
+    return logits.float()
+
+
+def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash import ops
     from repro_torch.launch.serve import serve_benchmark
     from repro_torch.models import build_model
     from repro_torch.serve.engine import load_params
 
+    spec = SLICES[key]
     ok = True
-    cfg = get_config(SLICE_ARCH).with_(use_flash_kernel=True)
+    cfg = get_config(spec["arch"]).with_(**spec["with"])
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = load_params(model, seed=0, device="cuda")
     torch.cuda.synchronize()
-    print(f"slice: {cfg.name} full width ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab}), seeded init "
+    print(f"slice {key}: {cfg.name} full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}), seeded init "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
+    counters = _counters()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0
+    for c in counters.values():
+        c.launches = 0
     res = serve_benchmark(model, batch=SLICE_BATCH, prompt_len=SLICE_PROMPT,
                           gen=SLICE_GEN, seed=0, params=params, device="cuda")
-    launches = ops.launches
+    counts = {name: c.launches for name, c in counters.items()}
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts[spec["kernel"]]
     want = cfg.n_layers * (SLICE_BATCH + 1)
-    print(f"slice: flash_fwd launches over serve_benchmark: {launches} "
-          f"(want {cfg.n_layers} layers x ({SLICE_BATCH} admissions + 1 "
-          f"warm-up) = {want})", flush=True)
-    if launches != want:
-        ok = False
+    print(f"slice {key}: launches over serve_benchmark {counts}; "
+          f"{spec['kernel']} {launches} (want {cfg.n_layers} layers x "
+          f"({SLICE_BATCH} admissions + 1 warm-up) = {want})", flush=True)
+    ok &= launches == want
     ids = res["generated_ids"]
     tokens_ok = (len(ids) == SLICE_BATCH and all(
         len(r) == SLICE_GEN and all(0 <= t < cfg.vocab for t in r) for r in ids))
-    print(f"slice: {len(ids)} requests, each {SLICE_GEN} tokens in "
+    print(f"slice {key}: {len(ids)} requests, each {SLICE_GEN} tokens in "
           f"[0, {cfg.vocab}): {tokens_ok}", flush=True)
     ok &= tokens_ok
     tp = res["tpot_ms"]
-    print(f"slice: prefill_tok_s {res['prefill_tok_s']} decode_tok_s "
+    print(f"slice {key}: prefill_tok_s {res['prefill_tok_s']} decode_tok_s "
           f"{res['decode_tok_s']} tpot_ms p50 {tp['p50']:.4f} p90 "
           f"{tp['p90']:.4f} peak_mem_gib {peak_gib:.3f}", flush=True)
 
-    # one request's prefill: flash kernel vs plain attention, same weights
+    # one request's prefill: kernel vs plain version, same weights
     prompt = np.random.default_rng(1).integers(
         3, cfg.vocab, size=(1, SLICE_PROMPT), dtype=np.int32)
     tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
-    lf, _ = model.prefill(params, {"tokens": tok})
-    plain = build_model(cfg.with_(use_flash_kernel=False))
-    lp, _ = plain.prefill(params, {"tokens": tok})
-    torch.cuda.synchronize()
-    d = (lf.float() - lp.float()).abs()
-    err = float(d.max())
-    size = float(lp.float().abs().max())
-    same_top = int(lf.argmax(-1)) == int(lp.argmax(-1))
-    print(f"slice: prefill logits flash vs plain: max abs diff {err:.6f}, "
-          f"mean {float(d.mean()):.6f}, max |logit| {size:.4f}, same argmax "
-          f"{same_top}; tol {LOGITS_TOL} ({LOGITS_TOL_WHY})", flush=True)
-    finite = bool(torch.isfinite(lf.float()).all())
-    ok &= finite and err <= LOGITS_TOL
-    results["slice_launches"] = launches
+    for dname, (tol, why) in spec["tols"].items():
+        dtype = getattr(torch, dname)
+        lk = _prefill_logits(key, cfg, params, tok, False, dtype)
+        lp = _prefill_logits(key, cfg, params, tok, True, dtype)
+        torch.cuda.synchronize()
+        d = (lk - lp).abs()
+        err = float(d.max())
+        size = float(lp.abs().max())
+        same_top = int(lk.argmax(-1)) == int(lp.argmax(-1))
+        floor = ""
+        if key == "mamba2":
+            l64 = _prefill_logits(key, cfg, params, tok, True, dtype, 64)
+            floor = (f", plain chunk 64 vs 128 (the floor) "
+                     f"{float((l64 - lp).abs().max()):.6g}")
+        print(f"slice {key}: prefill logits ({dname}) {spec['kernel']} vs "
+              f"plain: max abs diff {err:.6g}, mean {float(d.mean()):.6g}, "
+              f"max |logit| {size:.4f}, same argmax {same_top}{floor}; tol "
+              f"{tol} ({why})", flush=True)
+        ok &= bool(torch.isfinite(lk).all()) and err <= tol
+    results[f"{key}_launches"] = launches
     if profile_dir:
-        profile_slice(model, params, profile_dir)
+        profile_slice(model, params, profile_dir, key)
+    del params
+    torch.cuda.empty_cache()
     return ok
 
 
-def profile_slice(model, params, out_dir: str) -> None:
+def profile_slice(model, params, out_dir: str, key: str) -> None:
     """Where the time of one admission (prefill into a slot) and one decode
     tick goes, at the slice's shape: ``torch.profiler`` over each, after the
     serve run has warmed every path.  Prints wall time, the device's busy
@@ -285,6 +466,7 @@ def profile_slice(model, params, out_dir: str) -> None:
                                   if e.key.startswith("aten::"))),
                "top": [{"op": e.key, "device_ms": e.self_device_time_total / 1e3,
                         "count": e.count} for e in top[:12]]}
+        name = f"{key}_{name}"
         print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
               f"{row['device_ms']:.3f} ms, idle share {row['idle_share']:.4f}, "
               f"{row['kernel_launches']} kernel launches, {row['cpu_ops']} aten "
@@ -300,7 +482,7 @@ def profile_slice(model, params, out_dir: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR",
-                    help="after the slice, profile one admission and one "
+                    help="after each slice, profile one admission and one "
                          "decode tick; tables and traces go to DIR")
     args = ap.parse_args()
     try:
@@ -336,24 +518,31 @@ def main() -> int:
 
     results: dict = {}
     ok = phase_kernels(results)
+    ok &= phase_ssd(results)
     print(f"phase kernels: {'ok' if ok else 'FAILED'}", flush=True)
-    slice_ok = phase_slice(results, args.profile)
-    print(f"phase slice: {'ok' if slice_ok else 'FAILED'}", flush=True)
-    ok &= slice_ok
+    for key in SLICES:
+        slice_ok = phase_slice(key, results, args.profile)
+        print(f"phase slice {key}: {'ok' if slice_ok else 'FAILED'}",
+              flush=True)
+        ok &= slice_ok
     if not ok:
         return 1
 
-    slice_row = next(r for r in results["flash_cases"]
-                     if r["case"].startswith("slice"))
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash/kernel.py:67",
-        "launches": results["slice_launches"],
-        "max_abs_err": slice_row["max_abs_err"], "ms": slice_row["ms"],
-        "plain_ms": slice_row["plain_ms"], "bound_ms": slice_row["bound_ms"],
-        "bound_by": slice_row["bound_by"],
-        "library_ms": slice_row["library_ms"]}]
+    kernels = []
+    for name, cases, key, src, replaces in (
+            ("flash_fwd", "flash_cases", "qwen",
+             "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash/kernel.py:67"),
+            ("ssd_scan", "ssd_cases", "mamba2",
+             "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd/kernel.py:60")):
+        row = next(r for r in results[cases] if r["case"].startswith("slice"))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": results[f"{key}_launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

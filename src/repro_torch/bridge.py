@@ -27,10 +27,12 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params (or cache) -> nested dict of numpy arrays; bf16
-    leaves come back as f32 (exact), since numpy has no bf16 of its own."""
+    leaves come back as f32 (exact), since numpy has no bf16 of its own.
+    Each array is a private copy: the port updates caches in place, and a
+    snapshot must not follow them."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.numpy()
+    return t.numpy().copy()

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: every kernel source of the port, by library name
 SOURCES: Dict[str, Path] = {
     "flash_fwd": Path(__file__).resolve().parent / "flash" / "csrc" / "flash_fwd.cu",
+    "ssd_scan": Path(__file__).resolve().parent / "ssd" / "csrc" / "ssd_scan.cu",
 }
 
 _lock = threading.Lock()

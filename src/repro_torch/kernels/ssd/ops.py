@@ -1,0 +1,119 @@
+"""Public wrapper of the SSD chunk-scan kernel (port of
+``repro.kernels.ssd.ops``).
+
+``ssd_scan(x, dt, A, Bm, Cm, D, chunk=...)`` returns ``(y, h_final)``: the
+scan's output in x's dtype and its final state ``[B, H, P, N]`` in f32, which
+a prefill hands to decode.  For CUDA tensors it launches the hand-written
+kernel in ``csrc/ssd_scan.cu`` (built with ``nvcc`` at first use, bound with
+``ctypes``) or raises; for tensors on the CPU, and only then, it runs the
+plain ``ref.ssd_chunked``.  The kernel reads x, dt, Bm and Cm in the model's
+``[B, S, H, P]`` / ``[B, S, G, N]`` layouts through their batch and seq
+strides, so the views that ``ssm_forward`` splits off its projection go in
+without a copy.
+
+No backward yet: serving runs under ``torch.no_grad()``; the SSM training
+path adds the ``autograd.Function`` (JAX's backward recomputes through
+``ssd_chunked``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..build import load
+from .ref import ssd_chunked
+
+#: largest chunk and state size the kernel takes
+MAX_CHUNK = 128
+MAX_STATE = 128
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: kernel launches since the last reset; ``chip_smoke.py`` sets it to 0
+#: before driving the serve path and reads it after
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = load("ssd_scan").ssd_scan
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(x, dt, A, Bm, Cm, D, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Cm.dim() != 4:
+        raise ValueError("ssd_scan: x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,G,N]")
+    Bq, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if tuple(dt.shape) != (Bq, S, H) or tuple(Cm.shape) != tuple(Bm.shape) \
+            or tuple(Bm.shape[:2]) != (Bq, S) or tuple(A.shape) != (H,) \
+            or tuple(D.shape) != (H,):
+        raise ValueError(f"ssd_scan: shapes do not match: x {tuple(x.shape)}, "
+                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, D "
+                         f"{tuple(D.shape)}")
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_scan: {H} heads are not a multiple of {G} groups")
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"ssd_scan: seq {S} not divisible by chunk {chunk}")
+    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"ssd_scan: x/Bm/Cm must share a dtype of "
+                        f"{sorted(map(str, _DTYPE_CODES))}, got "
+                        f"{x.dtype}/{Bm.dtype}/{Cm.dtype}")
+    if any(t.dtype != torch.float32 for t in (dt, A, D)):
+        raise TypeError(f"ssd_scan: dt, A and D must be float32, got "
+                        f"{dt.dtype}/{A.dtype}/{D.dtype}")
+    if len({t.device for t in (x, dt, A, Bm, Cm, D)}) != 1:
+        raise ValueError("ssd_scan: inputs on different devices")
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
+    """x [B,S,H,P]; dt [B,S,H] f32 (post-softplus); A [H] f32 (negative);
+    Bm/Cm [B,S,G,N]; D [H] f32.  Returns (y [B,S,H,P] in x's dtype,
+    h_final [B,H,P,N] f32), starting from a zero state.
+
+    The checks (shapes, dtypes, ``S % chunk``) hold on the CPU too, so the
+    CPU tests refuse what the card would.  On the card the kernel also needs
+    ``chunk <= MAX_CHUNK``, ``N <= MAX_STATE``, and the head and feature axes
+    of x, and the group and state axes of Bm/Cm, contiguous (the batch and
+    seq axes may have any stride).
+    """
+    _check(x, dt, A, Bm, Cm, D, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    Bq, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if chunk > MAX_CHUNK or N > MAX_STATE:
+        raise ValueError(f"ssd_scan: chunk {chunk} / state {N} above the "
+                         f"kernel's {MAX_CHUNK} / {MAX_STATE}")
+    if x.stride(3) != 1 or x.stride(2) != P or dt.stride(2) != 1 \
+            or any(t.stride(3) != 1 or t.stride(2) != N for t in (Bm, Cm)) \
+            or not (A.is_contiguous() and D.is_contiguous()):
+        raise ValueError("ssd_scan: x's [H, P], Bm/Cm's [G, N] and dt's head "
+                         "axis must be contiguous")
+    y = torch.empty((Bq, S, H, P), dtype=x.dtype, device=x.device)
+    h_final = torch.empty((Bq, H, P, N), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, h_final.zero_()
+    global launches
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernel()(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            Bq, S, H, P, G, N, int(chunk), _DTYPE_CODES[x.dtype],
+            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
+    launches += 1
+    return y, h_final

@@ -3,13 +3,14 @@ from .base import ArchConfig, MLAConfig, Model, MoEConfig, SSMConfig  # noqa: F4
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    """The model for ``cfg``; this slice ports the dense decoder only."""
+    """The model for ``cfg``; the port has the dense and the ssm (Mamba2)
+    decoders so far."""
     kind = "mla" if cfg.mla else cfg.arch_type
-    if kind != "dense" or cfg.n_patches:
+    if kind not in ("dense", "ssm") or cfg.n_patches:
         raise NotImplementedError(
             f"{cfg.name}: arch {kind!r} is not ported yet (the port serves "
-            f"dense decoders; moe, mla, ssm, hybrid, audio and vlm come in "
-            f"later slices)")
+            f"dense and ssm decoders; moe, mla, hybrid, audio and vlm come "
+            f"in later slices)")
     from .transformer import DecoderLM
 
     return DecoderLM(cfg)

@@ -1,10 +1,13 @@
-"""Decoder-only LM (port of ``repro.models.transformer``), dense blocks only.
+"""Decoder-only LM (port of ``repro.models.transformer``): dense and SSM
+(Mamba2) stacks.
 
 This slice carries the static-batch greedy serving path: ``prefill`` /
 ``prefill_into`` for admission and the dense ``decode_step`` for each tick.
-Params keep the JAX tree (``embed``, ``final_norm``, stacked ``blocks``), so
-``repro_torch.bridge`` copies JAX params in key for key.  MoE, MLA, SSM,
-hybrid, audio and VLM blocks, and the paged cache, come with later slices.
+Params keep the JAX tree (``embed``, ``final_norm``, one stacked tree per
+homogeneous stack: ``blocks`` for dense layers, ``ssm_blocks`` for Mamba2
+layers), so ``repro_torch.bridge`` copies JAX params in key for key.  MoE,
+MLA, hybrid, audio and VLM blocks, and the paged cache, come with later
+slices.
 """
 from __future__ import annotations
 
@@ -15,28 +18,50 @@ import torch
 from . import attention as A
 from . import base as B
 from . import mlp as M
+from . import ssm as S
 from . import stacked as ST
 from .common import apply_norm, embed_init, norm_params
-
-_STACK = "blocks"   # the one homogeneous dense stack, as named in JAX
 
 
 # ---------------------------------------------------------------------------
 # per-layer init / apply
 # ---------------------------------------------------------------------------
+def _layer_kind(cfg: B.ArchConfig, i: int) -> str:
+    """Layer ``i``'s block kind (JAX's hybrid and MoE kinds come with their
+    slices)."""
+    return "ssm" if cfg.arch_type == "ssm" else "dense_block"
+
+
+def _stacked_norm(cfg, gen, lead):
+    return {k: v.expand(lead + v.shape).clone()
+            for k, v in norm_params(cfg, gen.device).items()}
+
+
 def init_dense_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
     lead = tuple(lead)
-    norm = lambda: {k: v.expand(lead + v.shape).clone()  # noqa: E731
-                    for k, v in norm_params(cfg, gen.device).items()}
     return {
-        "attn_norm": norm(),
+        "attn_norm": _stacked_norm(cfg, gen, lead),
         "attn": A.init_gqa(cfg, gen, lead),
-        "mlp_norm": norm(),
+        "mlp_norm": _stacked_norm(cfg, gen, lead),
         "mlp": M.init_mlp(cfg, gen, lead=lead),
     }
 
 
-def decode_block(cfg, p, cache, x, positions):
+def init_ssm_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
+    lead = tuple(lead)
+    return {"norm": _stacked_norm(cfg, gen, lead),
+            "ssm": S.init_ssm(cfg, gen, lead)}
+
+
+_INIT_BY_KIND = {"dense_block": init_dense_block, "ssm": init_ssm_block}
+
+
+def decode_block(cfg, kind, p, cache, x, positions):
+    """One layer of decode; the cache is updated in place."""
+    if kind == "ssm":
+        h, new_cache = S.ssm_decode(cfg, p["ssm"], cache,
+                                    apply_norm(cfg, p["norm"], x))
+        return x + h, new_cache
     h = apply_norm(cfg, p["attn_norm"], x)
     h, new_cache = A.gqa_decode(cfg, p["attn"], cache, h, positions)
     x = x + h
@@ -68,8 +93,12 @@ def _pad_cache_seq(k, max_len, window):
     return out
 
 
-def prefill_block(cfg, p, x, positions, max_len, cache_dtype):
-    """One dense layer of prefill; also returns its decode-ready cache."""
+def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype):
+    """One layer of prefill; also returns its decode-ready cache."""
+    if kind == "ssm":
+        h, st = S.ssm_forward(cfg, p["ssm"], apply_norm(cfg, p["norm"], x),
+                              return_state=True)
+        return x + h, st
     h = apply_norm(cfg, p["attn_norm"], x)
     h, (k, v) = A.gqa_forward(cfg, p["attn"], h, positions, return_kv=True)
     cache = {
@@ -81,15 +110,31 @@ def prefill_block(cfg, p, x, positions, max_len, cache_dtype):
     return x + M.mlp_forward(cfg, p["mlp"], h), cache
 
 
+def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
+    if kind == "ssm":
+        return S.ssm_init_state(cfg, batch, device=device)
+    return A.gqa_init_cache(cfg, batch, max_len, dtype, device)
+
+
 class DecoderLM(B.Model):
-    """Decoder-only language model; this slice serves ``dense`` archs."""
+    """Decoder-only language model; this slice serves ``dense`` and ``ssm``
+    archs."""
 
     def __init__(self, cfg: B.ArchConfig):
-        if cfg.arch_type != "dense" or cfg.mla or cfg.n_patches:
+        if cfg.arch_type not in ("dense", "ssm") or cfg.mla or cfg.n_patches:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense decoder blocks only so "
-                f"far (arch_type {cfg.arch_type!r})")
+                f"{cfg.name}: the port serves dense and ssm decoder blocks "
+                f"only so far (arch_type {cfg.arch_type!r})")
         super().__init__(cfg)
+        self.kinds = [_layer_kind(cfg, i) for i in range(cfg.n_layers)]
+
+    # -- structure -----------------------------------------------------------
+    def _stacks(self):
+        """(name, kind, layer indices) of each homogeneous stack; dense and
+        ssm archs have one."""
+        kind = self.kinds[0]
+        name = {"dense_block": "blocks", "ssm": "ssm_blocks"}[kind]
+        return [(name, kind, list(range(self.cfg.n_layers)))]
 
     # -- params --------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
@@ -101,8 +146,10 @@ class DecoderLM(B.Model):
         }
         if not cfg.tie_embeddings:
             p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab))
-        p[_STACK] = ST.stack_init(
-            lambda g, lead: init_dense_block(cfg, g, lead), gen, cfg.n_layers)
+        for name, kind, idxs in self._stacks():
+            init = _INIT_BY_KIND[kind]
+            p[name] = ST.stack_init(lambda g, lead, init=init: init(cfg, g, lead),
+                                    gen, len(idxs))
         return p
 
     # -- forward pieces ------------------------------------------------------
@@ -127,13 +174,16 @@ class DecoderLM(B.Model):
         S = x.shape[1]
         max_len = max_len or S
         positions = torch.arange(S, device=x.device)
+        cache: Dict[str, Any] = {}
+        for name, kind, idxs in self._stacks():
 
-        def body(x, lp):
-            return prefill_block(cfg, lp, x, positions, max_len, cache_dtype)
+            def body(x, lp, kind=kind):
+                return prefill_block(cfg, kind, lp, x, positions, max_len,
+                                     cache_dtype)
 
-        x, cs = ST.layer_loop(body, params[_STACK], x, cfg.n_layers)
+            x, cache[name] = ST.layer_loop(body, params[name], x, len(idxs))
         logits = self.logits(params, x[:, -1:])[:, 0]
-        return logits, {_STACK: cs}
+        return logits, cache
 
     def prefill_into(self, params, batch, cache, slot, max_len=None,
                      cache_dtype=torch.bfloat16):
@@ -144,14 +194,20 @@ class DecoderLM(B.Model):
         return logits, self.insert_cache(cache, req_cache, slot)
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
-        one = A.gqa_init_cache(self.cfg, batch, max_len, dtype, device)
-        L = self.cfg.n_layers
-        return {_STACK: {k: torch.zeros((L,) + tuple(v.shape), dtype=v.dtype,
-                                        device=v.device)
-                         for k, v in one.items()}}
+        """One stacked cache tree per stack: K/V for dense layers, the f32
+        (conv, ssm) state for ssm layers (JAX's ``init_cache``)."""
+        cache: Dict[str, Any] = {}
+        for name, kind, idxs in self._stacks():
+            one = init_cache_block(self.cfg, kind, batch, max_len, dtype,
+                                   device)
+            cache[name] = {k: torch.zeros((len(idxs),) + tuple(v.shape),
+                                          dtype=v.dtype, device=v.device)
+                           for k, v in one.items()}
+        return cache
 
     def supports_paged_cache(self) -> bool:
-        """The paged cache comes with the paged-engine slice."""
+        """The paged cache comes with the paged-engine slice; an ssm state
+        has no token axis to page, so it stays dense there too."""
         return False
 
     @torch.no_grad()
@@ -160,12 +216,13 @@ class DecoderLM(B.Model):
         in place and returned."""
         cfg = self.cfg
         x = self.embed_tokens(params, tokens[:, None])
+        for name, kind, idxs in self._stacks():
 
-        def body(x, inp):
-            lp, lc = inp
-            x, _ = decode_block(cfg, lp, lc, x, positions)
-            return x, None
+            def body(x, inp, kind=kind):
+                lp, lc = inp
+                x, _ = decode_block(cfg, kind, lp, lc, x, positions)
+                return x, None
 
-        x, _ = ST.layer_loop(body, (params[_STACK], cache[_STACK]), x,
-                             cfg.n_layers)
+            x, _ = ST.layer_loop(body, (params[name], cache[name]), x,
+                                 len(idxs))
         return self.logits(params, x)[:, 0], cache

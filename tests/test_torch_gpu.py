@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here is marked ``gpu`` and skips on a host without a CUDA device
 (the kernel has no CPU mode).  The file imports neither JAX nor the JAX
@@ -7,15 +7,19 @@ package, so it runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 (``--noconftest``: ``tests/conftest.py`` imports JAX.)  Tolerances are the
-JAX kernel tests': 1e-5 in f32, whose path multiplies in f32, and 2.5e-2 in
-bf16, where the outputs and the tensor-core path's probabilities are rounded
-to bf16.
+JAX kernel tests'.  Flash: 1e-5 in f32, whose path multiplies in f32, and
+2.5e-2 in bf16, where the outputs and the tensor-core path's probabilities
+are rounded to bf16.  SSD: y within 3e-5 * max|ref| in f32 and 3e-2 * max|ref|
+in bf16; the final state, f32 on both sides from the same inputs, within
+1e-4 * max|ref| (see ``SSD_STATE_TOL``).
 """
 import pytest
 import torch
 
 from repro_torch.kernels.flash import ops
 from repro_torch.kernels.flash.ref import attention_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunked
 
 f32, bf16 = torch.float32, torch.bfloat16
 # FLASH_CASES of tests/test_kernels.py (test_torch_flash.py holds the two equal)
@@ -113,3 +117,117 @@ def test_flash_prefill_matches_plain_prefill(cuda):
         params, {"tokens": tokens})
     plain, _ = build_model(cfg).prefill(params, {"tokens": tokens})
     torch.testing.assert_close(flash.float(), plain.float(), atol=3e-2, rtol=0)
+
+
+# SSD_CASES of tests/test_kernels.py, then the serving slice's shape (Mamba2
+# 780M: H 48, P 64, N 128, chunk 128) and a multi-group bf16 case
+SSD_CASES = [
+    # B, S, H, P, G, N, chunk, dtype
+    (2, 256, 4, 64, 1, 64, 128, f32),
+    (1, 128, 4, 32, 2, 16, 32, f32),
+    (2, 256, 8, 64, 1, 128, 128, bf16),
+    (1, 96, 2, 16, 1, 8, 32, f32),
+    (1, 1024, 48, 64, 1, 128, 128, bf16),
+    (2, 384, 8, 32, 4, 64, 128, bf16),
+    # a chunk that is no multiple of 16 and a P that is no multiple of 32
+    (1, 72, 4, 48, 2, 24, 24, f32),
+]
+# the final state is f32 on both sides, from the same inputs: each element
+# is a sum over up to S decayed f32 products taken in another order, whose
+# rounding stays under S * 2**-24 (6e-5 at S = 1024) of the largest state
+SSD_STATE_TOL = 1e-4
+
+
+def _ssd_id(c):
+    return (f"B{c[0]}S{c[1]}H{c[2]}P{c[3]}G{c[4]}N{c[5]}c{c[6]}"
+            f"{str(c[7]).split('.')[-1]}")
+
+
+def _ssd_inputs(case, device, seed=1):
+    B, S, H, P, G, N, chunk, dt_ = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    x = rnd(B, S, H, P).to(dt_)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    A = -torch.exp(rnd(H) * 0.5)
+    Bm = (rnd(B, S, G, N) * 0.3).to(dt_)
+    Cm = (rnd(B, S, G, N) * 0.3).to(dt_)
+    D = torch.ones((H,), device=device)
+    return x, dt, A, Bm, Cm, D
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=_ssd_id)
+def test_ssd_kernel_vs_plain(case, cuda):
+    chunk, dt_ = case[6], case[7]
+    args = _ssd_inputs(case, cuda)
+    before = ssd_ops.launches
+    y, h = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    y_ref, h_ref = ssd_chunked(*args, chunk=chunk)
+    assert y.dtype == dt_ and y.shape == args[0].shape
+    assert h.dtype == f32 and h.shape == h_ref.shape
+    tol = (3e-2 if dt_ == bf16 else 3e-5) * float(y_ref.float().abs().max())
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=0)
+    htol = SSD_STATE_TOL * float(h_ref.abs().max())
+    torch.testing.assert_close(h, h_ref, atol=htol, rtol=0)
+
+
+def test_ssd_kernel_reads_strided_views(cuda):
+    """x, Bm and Cm as ``ssm_forward`` makes them: views split off one
+    projection, with a seq stride wider than their rows."""
+    B, S, H, P, G, N = 2, 128, 4, 32, 1, 16
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xbc = torch.randn((B, S, H * P + 2 * G * N + 5), generator=gen,
+                      device=cuda).to(bf16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    assert not x.is_contiguous()
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen,
+                                                  device=cuda))
+    A = -torch.rand((H,), generator=gen, device=cuda) - 0.5
+    D = torch.ones((H,), device=cuda)
+    y, h = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+    y_ref, h_ref = ssd_chunked(x.contiguous(), dt, A, Bm.contiguous(),
+                               Cm.contiguous(), D, chunk=64)
+    tol = 3e-2 * float(y_ref.float().abs().max())
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(h, h_ref, rtol=0,
+                               atol=SSD_STATE_TOL * float(h_ref.abs().max()))
+
+
+def test_ssd_kernel_refuses_what_it_cannot_do(cuda):
+    """A seq that is no multiple of the chunk, and a dtype the kernel does
+    not take, raise on the card: nothing falls back to the plain version."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs((1, 96, 2, 16, 1, 8, 32, f32), cuda)
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="divisible"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+    half = torch.float16
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_ops.ssd_scan(x.to(half), dt, A, Bm.to(half), Cm.to(half), D,
+                         chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_scan(x, dt.to(bf16), A, Bm, Cm, D, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        xl, dtl, Al, Bl, Cl, Dl = _ssd_inputs((1, 256, 2, 16, 1, 8, 256, f32),
+                                              cuda)
+        ssd_ops.ssd_scan(xl, dtl, Al, Bl, Cl, Dl, chunk=256)
+    assert ssd_ops.launches == before
+
+
+def test_reduced_mamba2_serve_goes_through_the_ssd_kernel(cuda):
+    """The static-batch serve path on the card launches the SSD kernel once
+    per layer per admission (the requests plus the warm-up's one)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import serve_benchmark
+    from repro_torch.models import build_model
+
+    cfg = get_reduced("mamba2_780m")
+    before = ssd_ops.launches
+    res = serve_benchmark(build_model(cfg), batch=2, prompt_len=24, gen=4,
+                          device=cuda, log=lambda m: None)
+    assert ssd_ops.launches - before == cfg.n_layers * (2 + 1)
+    assert all(len(ids) == 4 and all(0 <= t < cfg.vocab for t in ids)
+               for ids in res["generated_ids"])
