@@ -13,8 +13,12 @@
    on the card, with the kernel's time, the plain version's time, one
    library call's time where one PyTorch call computes the same function (a
    yardstick timed here only, never called by the port) and the least time
-   the card could take for the same work.  ``flash_fwd`` at every
-   ``FLASH_CASES`` shape of the JAX package's kernel tests and at the Qwen
+   the card could take for the same work.  Kernel and library times
+   (``ms``, ``library_ms``) are device times: calls captured in one CUDA
+   graph and replayed (``graph_ms``); ``ms_stream`` and
+   ``library_ms_stream`` are the same calls issued one by one from the host
+   (``time_ms``), as the rows of earlier runs were timed.  ``flash_fwd`` at
+   every ``FLASH_CASES`` shape of the JAX package's kernel tests and at the Qwen
    slice's prefill shape; ``ssd_scan`` at every ``SSD_CASES`` shape, at the
    Mamba2 slice's shape and on a multi-group case.
 3. Slice 1: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
@@ -93,6 +97,10 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms of ``fn`` over ``iters`` calls issued back to back from the
+    host and timed with two CUDA events: the host's issue rate is part of
+    the number.  Used for the plain versions and, as ``ms_stream``, beside
+    ``graph_ms`` for comparison with earlier stream-timed rows."""
     import torch
 
     for _ in range(warmup):
@@ -106,6 +114,38 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 5) -> float:
+    """Device ms of one ``fn`` call: ``iters`` calls captured in one CUDA
+    graph after ``warmup`` eager calls, the graph replayed ``replays`` times
+    between two CUDA events, so the host's launch rate is out of the number.
+    A failed capture raises (a failed phase, no fallback)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()                       # one untimed replay
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def flash_cases():
@@ -129,6 +169,11 @@ def flash_cases():
         # causal + window with Sq != Skv: both indices from the same origin
         ("B1S128x384H4K2d64cw32f32", (1, 128, 384, 4, 2, 64, True, 32, f32)),
         ("B1S128x384H4K2d64cw32bf16", (1, 128, 384, 4, 2, 64, True, 32, bf16)),
+        # a ragged last kv tile behind a full ring stage, and dh 128 at the
+        # slice's length: the ring's prefetch of partial and wide tiles
+        ("B1S1000H16K16d64cw0bf16", (1, 1000, 1000, 16, 16, 64, True, 0, bf16)),
+        ("B1S1024H16K16d128cw0bf16",
+         (1, 1024, 1024, 16, 16, 128, True, 0, bf16)),
         # the slice's shape in f32 times the f32 (CUDA-core) path there
         ("B1S1024H16K16d64cw0f32", (1, 1024, 1024, 16, 16, 64, True, 0, f32)),
         ("slice_B1S1024H16K16d64c_bf16",
@@ -174,8 +219,9 @@ def phase_kernels(results: dict) -> bool:
         tol_use = float((diff / (tol + tol * ref.float().abs())).max())
         good = tol_use <= 1.0
         ok &= good
-        kern_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                                      window=window))
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                           window=window)
+        kern_ms, kern_stream_ms = graph_ms(kern), time_ms(kern)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal,
                                                  window=window), iters=5)
         # the yardstick: one library call on the layout it wants; a plain
@@ -188,7 +234,7 @@ def phase_kernels(results: dict) -> bool:
         else:
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask, enable_gqa=H != K)
-        lib_ms = time_ms(sdpa)
+        lib_ms, lib_stream_ms = graph_ms(sdpa), time_ms(sdpa)
         pairs = int(mask.sum())
         n_bytes = 2 * (q.nbytes + k.nbytes)        # q, k, v read; o written
         n_ops = 4 * dh * pairs * B * H             # QK^T and PV, 2 ops a MAC
@@ -197,6 +243,7 @@ def phase_kernels(results: dict) -> bool:
         row = {"case": name, "max_abs_err": err, "tol": tol,
                "tol_use": tol_use, "ok": good,
                "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ms_stream": kern_stream_ms, "library_ms_stream": lib_stream_ms,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": n_bytes, "ops": n_ops}
@@ -218,6 +265,11 @@ def ssd_cases():
         ("B2S256H8P64G1N128c128bf16", (2, 256, 8, 64, 1, 128, 128, bf16)),
         ("B1S96H2P16G1N8c32f32", (1, 96, 2, 16, 1, 8, 32, f32)),
         ("B2S384H8P32G4N64c128bf16", (2, 384, 8, 32, 4, 64, 128, bf16)),
+        # the kernel's passes: one chunk, and 3 chunks across B 2 and G 4;
+        # a chunk and a P that are no multiples of 16 or 32
+        ("B1S128H4P64G1N128c128bf16", (1, 128, 4, 64, 1, 128, 128, bf16)),
+        ("B2S96H8P16G4N16c32f32", (2, 96, 8, 16, 4, 16, 32, f32)),
+        ("B1S72H4P48G2N24c24f32", (1, 72, 4, 48, 2, 24, 24, f32)),
         # the slice's shape in f32 takes the most shared memory
         ("B1S1024H48P64G1N128c128f32", (1, 1024, 48, 64, 1, 128, 128, f32)),
         ("slice_B1S1024H48P64G1N128c128_bf16",
@@ -271,7 +323,8 @@ def phase_ssd(results: dict) -> bool:
         good = (err <= tol and herr <= htol
                 and bool(torch.isfinite(y.float()).all()))
         ok &= good
-        kern_ms = time_ms(lambda: ops.ssd_scan(*args, chunk=Q))
+        kern = lambda: ops.ssd_scan(*args, chunk=Q)  # noqa: E731
+        kern_ms, kern_stream_ms = graph_ms(kern), time_ms(kern)
         plain_ms = time_ms(lambda: ssd_chunked(*args, chunk=Q), iters=5)
         n_bytes, n_ops = ssd_work(B, S, H, P, G, N, Q, x.element_size())
         peak = PEAK_OPS_S["bfloat16" if dt_ == torch.bfloat16 else "float32"]
@@ -280,6 +333,7 @@ def phase_ssd(results: dict) -> bool:
                "tol_use": err / tol, "h_max_abs_err": herr, "h_tol": htol,
                "h_tol_use": herr / htol, "ok": good,
                "ms": kern_ms, "plain_ms": plain_ms, "library_ms": None,
+               "ms_stream": kern_stream_ms,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": n_bytes, "ops": n_ops}

@@ -78,9 +78,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     tests refuse what the card would.  Causal and window masks compare 0-based q and k indices with the same
     origin, as the Pallas kernel does, also when ``Sq != Skv``.
     ``block_q``/``block_kv`` are the Pallas kernel's tile sizes, kept for
-    the signature; the CUDA kernel fixes its own tiles (64 x 64).  bf16
-    inputs go through the tensor cores, f32 inputs through f32 FMAs (see the
-    note at the top of ``csrc/flash_fwd.cu``).
+    the signature; the CUDA kernel fixes its own tiles (q tiles of 64 rows,
+    kv tiles of 64).  bf16 inputs go through the tensor cores, f32 inputs
+    through f32 FMAs (see the note at the top of ``csrc/flash_fwd.cu``).
     """
     _check(q, k, v, causal, window, block_q, block_kv)
     if q.device.type == "cpu":

@@ -9,7 +9,11 @@ kernel in ``csrc/ssd_scan.cu`` (built with ``nvcc`` at first use, bound with
 plain ``ref.ssd_chunked``.  The kernel reads x, dt, Bm and Cm in the model's
 ``[B, S, H, P]`` / ``[B, S, G, N]`` layouts through their batch and seq
 strides, so the views that ``ssm_forward`` splits off its projection go in
-without a copy.
+without a copy.  One call launches three CUDA kernels (chunk states and
+C·Bᵀ, the walk over chunks, the outputs); their f32 workspace (the chunk
+states, 12.6 MB at Mamba2-780M's prefill of 1024 tokens) is allocated here
+with ``torch.empty``, and the kernel allocates nothing.  ``ref.py``'s
+``ssd_chunked_passes`` computes the same passes on the CPU, for the tests.
 
 No backward yet: serving runs under ``torch.no_grad()``; the SSM training
 path adds the ``autograd.Function`` (JAX's backward recomputes through
@@ -34,17 +38,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 _fn = None
+_work_fn = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _work_fn
     if _fn is None:
-        fn = load("ssd_scan").ssd_scan
+        lib = load("ssd_scan")
+        work = lib.ssd_scan_workspace_bytes
+        work.argtypes = [ctypes.c_int] * 7
+        work.restype = ctypes.c_longlong
+        fn = lib.ssd_scan
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fn, _work_fn = fn, work
+    return _fn, _work_fn
 
 
 def _check(x, dt, A, Bm, Cm, D, chunk):
@@ -105,14 +114,21 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     if y.numel() == 0:
         return y, h_final.zero_()
     global launches
+    fn, work_bytes = _kernel()
+    n_work = work_bytes(Bq, S, H, P, G, N, int(chunk))
+    if n_work < 0:
+        raise ValueError(f"ssd_scan: the kernel does not take shape "
+                         f"{tuple(x.shape)} / {tuple(Bm.shape)}, chunk {chunk}")
+    work = torch.empty((n_work,), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel()(
+        rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(), h_final.data_ptr(),
             Bq, S, H, P, G, N, int(chunk), _DTYPE_CODES[x.dtype],
             x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), stream)
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     launches += 1

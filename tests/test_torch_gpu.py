@@ -40,6 +40,10 @@ EXTRA_CASES = [
     (1, 128, 384, 4, 2, 64, True, 32, bf16),
     (1, 128, 384, 4, 2, 64, True, 32, f32),
     (1, 1024, 1024, 16, 16, 64, True, 0, bf16),
+    # a ragged last kv tile behind a full ring stage, and dh 128 at the
+    # slice's length: the K/V ring's prefetch of partial and wide tiles
+    (1, 1000, 1000, 16, 16, 64, True, 0, bf16),
+    (1, 1024, 1024, 16, 16, 128, True, 0, bf16),
 ]
 
 pytestmark = pytest.mark.gpu
@@ -131,6 +135,12 @@ SSD_CASES = [
     (2, 384, 8, 32, 4, 64, 128, bf16),
     # a chunk that is no multiple of 16 and a P that is no multiple of 32
     (1, 72, 4, 48, 2, 24, 24, f32),
+    # the kernel's passes: a single chunk (no state enters any chunk), B 2
+    # with 3 chunks and 4 groups (states passed across batch and group),
+    # and the slice's shape in f32
+    (1, 128, 4, 64, 1, 128, 128, bf16),
+    (2, 96, 8, 16, 4, 16, 32, f32),
+    (1, 1024, 48, 64, 1, 128, 128, f32),
 ]
 # the final state is f32 on both sides, from the same inputs: each element
 # is a sum over up to S decayed f32 products taken in another order, whose
