@@ -4,7 +4,8 @@
     python3 chip_smoke.py                       # every phase, one card
     python3 chip_smoke.py --profile results/prof
                         # then also profile one admission and one decode
-                        # tick of each slice
+                        # tick of each serving slice, and one full-width
+                        # training step of each training slice
 
 1. Setup: prints the card's name and power limit (``nvidia-smi``) and
    builds every kernel of the port from the ``.cu`` sources in this checkout
@@ -18,9 +19,10 @@
    graph and replayed (``graph_ms``); ``ms_stream`` and
    ``library_ms_stream`` are the same calls issued one by one from the host
    (``time_ms``), as the rows of earlier runs were timed.  ``flash_fwd`` at
-   every ``FLASH_CASES`` shape of the JAX package's kernel tests and at the Qwen
-   slice's prefill shape; ``ssd_scan`` at every ``SSD_CASES`` shape, at the
-   Mamba2 slice's shape and on a multi-group case.
+   every ``FLASH_CASES`` shape of the JAX package's kernel tests, at the Qwen
+   slice's prefill shape and at the training shape (batch 8); ``ssd_scan``
+   at every ``SSD_CASES`` shape, at the Mamba2 slice's shape, at the
+   training shape and on a multi-group case.
 3. Slice 1: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
    ``use_flash_kernel=True``, batch 8, prompt 1024, 32 generated tokens,
    seeded random weights.  Checks the flash kernel's launch count over that
@@ -29,9 +31,16 @@
 4. Slice 2: the same on full-width Mamba2-780M, whose prefill runs the SSD
    kernel in every layer; the plain comparison runs ``ssd_chunked`` in its
    place on the same weights.
+5. Training (``repro_torch.run.api`` on ``examples/configs/quickstart.yaml``,
+   its dataset written to a temporary directory): the unchanged document's
+   60 steps; then full-width Qwen1.5-0.5B through the flash kernel (10
+   steps at batch 8 × 1024, ``remat: full``), with one step's loss and
+   gradients through the kernel against the plain attention path on the
+   same params and batch; then full-width Mamba2-780M through the SSD kernel
+   (3 steps), the same comparison against ``ssd_chunked``.
 
-Every launch counter is set to 0 just before a slice drives the serve path
-and read just after.  Imports neither JAX nor the JAX package.  Exits
+Every launch counter is set to 0 just before a slice drives its main path
+(the serve run, the training run) and read just after.  Imports neither JAX nor the JAX package.  Exits
 non-zero, printing no result, without a CUDA device or without the port next
 to it; exits non-zero when any phase fails.  The last line is the JSON
 result object.
@@ -43,6 +52,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -89,6 +99,39 @@ SSM_LOGITS_F32_TOL_WHY = (
 SSD_STATE_TOL = 1e-4
 
 
+# training: the quickstart document at full width, the steps of each run,
+# and for each activation dtype the (loss, gradient) tolerances of one step
+# through the kernel against the plain path (see TRAIN_TOL_WHY)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_SLICES = {
+    "qwen": {"arch": "qwen1p5_0p5b", "steps": 10, "kernel": "flash_fwd",
+             "sets": ["arch.config.use_flash_kernel=true"],
+             "tols": {"bfloat16": (1e-3, 0.06), "float32": (1e-5, 1e-4)}},
+    "mamba2": {"arch": "mamba2_780m", "steps": 3, "kernel": "ssd_scan",
+               "sets": ["arch.variant_key=mamba2_780m"],
+               "tols": {"bfloat16": (1e-3, 0.5), "float32": (1e-5, 1e-3)}},
+}
+TRAIN_TOL_WHY = {
+    "bfloat16": (
+        "bf16 activations and their gradients through every layer: kernel "
+        "and plain path round at other places (the flash kernel rounds its "
+        "f32 attention output once, the plain path its probabilities before "
+        "PV; the SSD kernel and ssd_chunked sum in other orders) and each "
+        "difference grows through the remaining layers and the backward; a "
+        "leaf's gradient sums such differences over 8192 tokens, with "
+        "cancellation (A_log, biases). The model's own spread, a second "
+        "plain path of the same function summed in another order, is "
+        "printed beside it: on an H100 with these seeds its worst leaf is "
+        "0.027 (Qwen) and 0.12 (Mamba2), the kernel's 0.028 and 0.24, and "
+        "each gradient bound is about twice the larger; the loss bound "
+        "(1e-4 of the loss) is above the Mamba2 floor's 7.4e-4"),
+    "float32": (
+        "f32 activations, where kernel and plain path differ only in f32 "
+        "summation order (and the SSD kernel's hi/lo bf16 split of f32 "
+        "operands): on an H100 with these seeds the worst leaf is 4.8e-6 "
+        "(Qwen) and 1.0e-4 (Mamba2, floor 3e-5); each bound is about ten "
+        "times that, the loss bound ten times the 9.5e-7 seen"),
+}
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -178,6 +221,9 @@ def flash_cases():
         ("B1S1024H16K16d64cw0f32", (1, 1024, 1024, 16, 16, 64, True, 0, f32)),
         ("slice_B1S1024H16K16d64c_bf16",
          (1, 1024, 1024, 16, 16, 64, True, 0, bf16)),
+        # the training slice's shape (batch 8 x 1024)
+        ("train_B8S1024H16K16d64c_bf16",
+         (8, 1024, 1024, 16, 16, 64, True, 0, bf16)),
     ]
 
 
@@ -274,6 +320,8 @@ def ssd_cases():
         ("B1S1024H48P64G1N128c128f32", (1, 1024, 48, 64, 1, 128, 128, f32)),
         ("slice_B1S1024H48P64G1N128c128_bf16",
          (1, 1024, 48, 64, 1, 128, 128, bf16)),
+        ("train_B8S1024H48P64G1N128c128_bf16",
+         (8, 1024, 48, 64, 1, 128, 128, bf16)),
     ]
 
 
@@ -485,8 +533,6 @@ def profile_slice(model, params, out_dir: str, key: str) -> None:
     time and idle share, and the ops with the most device time; writes the
     full tables and chrome traces under ``out_dir``."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
 
@@ -499,45 +545,316 @@ def profile_slice(model, params, out_dir: str, key: str) -> None:
     steps = engine.step_probes(prompt)
     torch.cuda.synchronize()
     for name, fn in steps.items():
+        profile_call(f"{key}_{name}", fn, out_dir)
+
+
+def profile_call(name: str, fn, out_dir: str) -> dict:
+    """``fn`` once to warm it, then once under ``torch.profiler``: prints
+    the wall time, the device's busy time and idle share, the kernel
+    launches and aten ops and the ops with the most device time; writes the
+    full table and a chrome trace under ``out_dir``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        avg = prof.key_averages()
-        # device work is the kernels' own time; the aten ops that launched
-        # them carry the same time again, so they are left out of the sum
-        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in kern)
-        top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
-        row = {"wall_ms": wall_ms, "device_ms": dev_us / 1e3,
-               "idle_share": 1 - dev_us / 1e3 / wall_ms,
-               "kernel_launches": int(sum(e.count for e in kern)),
-               "cpu_ops": int(sum(e.count for e in avg
-                                  if e.key.startswith("aten::"))),
-               "top": [{"op": e.key, "device_ms": e.self_device_time_total / 1e3,
-                        "count": e.count} for e in top[:12]]}
-        name = f"{key}_{name}"
-        print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
-              f"{row['device_ms']:.3f} ms, idle share {row['idle_share']:.4f}, "
-              f"{row['kernel_launches']} kernel launches, {row['cpu_ops']} aten "
-              f"ops", flush=True)
-        for t in row["top"]:
-            print(f"profile {name}:   {t['device_ms']:9.4f} ms  x{t['count']:<5d} "
-                  f"{t['op'][:90]}", flush=True)
-        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
-            f.write(avg.table(sort_by="self_device_time_total", row_limit=60))
-        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    avg = prof.key_averages()
+    # device work is the kernels' own time; the aten ops that launched
+    # them carry the same time again, so they are left out of the sum
+    kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+    row = {"wall_ms": wall_ms, "device_ms": dev_us / 1e3,
+           "idle_share": 1 - dev_us / 1e3 / wall_ms,
+           "kernel_launches": int(sum(e.count for e in kern)),
+           "cpu_ops": int(sum(e.count for e in avg
+                              if e.key.startswith("aten::"))),
+           "top": [{"op": e.key, "device_ms": e.self_device_time_total / 1e3,
+                    "count": e.count} for e in top[:12]]}
+    print(f"profile {name}: wall {wall_ms:.3f} ms, device busy "
+          f"{row['device_ms']:.3f} ms, idle share {row['idle_share']:.4f}, "
+          f"{row['kernel_launches']} kernel launches, {row['cpu_ops']} aten "
+          f"ops", flush=True)
+    for t in row["top"]:
+        print(f"profile {name}:   {t['device_ms']:9.4f} ms  x{t['count']:<5d} "
+              f"{t['op'][:90]}", flush=True)
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+        f.write(avg.table(sort_by="self_device_time_total", row_limit=60))
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def train_doc(data_dir: str, name: str, *sets: str) -> dict:
+    """``examples/configs/quickstart.yaml`` with ``sets`` applied and its
+    synthetic dataset written to ``data_dir/name.*``."""
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run.overrides import apply_overrides, parse_overrides
+
+    doc = load_yaml(os.path.join(ROOT, "examples", "configs",
+                                 "quickstart.yaml"))
+    return apply_overrides(doc, parse_overrides(
+        [f"dataset.config.prefix={os.path.join(data_dir, name)}",
+         *sets]))
+
+
+def _quiet(_msg):
+    pass
+
+
+def phase_train_quickstart(data_dir: str) -> bool:
+    """The quickstart document's 60 steps on the card.  One batch's loss
+    varies by about 0.015 around a curve that falls by some 0.02 over the
+    run (the tokens are uniform, so ln 509 is the floor), so the check is
+    on the means of the first and last ten logged losses."""
+    import math
+
+    from repro_torch.run import api
+
+    t0 = time.perf_counter()
+    res = api.execute_doc(train_doc(data_dir, "quickstart"), device="cuda",
+                          log=_quiet)
+    losses = [h["loss"] for h in res["history"]]
+    head, tail = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    ok = (len(losses) == 60 and all(math.isfinite(x) for x in losses)
+          and tail < head)
+    print(f"train quickstart: {len(losses)} steps in "
+          f"{time.perf_counter() - t0:.2f}s, first loss {losses[0]:.5f}, "
+          f"final loss {losses[-1]:.5f}, mean of the first 10 {head:.5f}, "
+          f"of the last 10 {tail:.5f}, tokens_per_s {res['tokens_per_s']}, "
+          f"goodput {res['goodput']}: {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _train_graph(doc):
+    from repro_torch.config.resolver import resolve_config
+    from repro_torch.core.components import register_all
+
+    register_all()
+    return resolve_config({k: v for k, v in doc.items() if k != "run"})
+
+
+class _Capture:
+    """An optimizer that keeps the gradients a train step hands it."""
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return params, state
+
+
+def step_grads(model, params, batch):
+    """One ``make_train_step`` of ``model``: (loss, gradient tree)."""
+    import torch
+
+    from repro_torch.train.steps import make_train_step
+
+    cap = _Capture()
+    state = {"params": params, "opt": {},
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    _, metrics = make_train_step(model, cap)(state, batch)
+    return float(metrics["loss"]), cap.grads
+
+
+def grad_diff(a, b):
+    """|loss a - loss b|, per leaf max|dg| / max|g| of ``a``, the worst."""
+    from repro_torch.tree import tree_leaves
+
+    la, ga = a
+    lb, gb = b
+    rel = {}
+    for path, x, y in zip(_leaf_paths(ga), tree_leaves(ga), tree_leaves(gb)):
+        scale = float(x.float().abs().max())
+        rel[path] = float((x.float() - y.float()).abs().max()) / max(
+            scale, 1e-30)
+    worst = max(rel, key=rel.get)
+    return abs(la - lb), rel, worst
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{prefix}/{k}" if prefix else k)]
+    return [prefix]
+
+
+def _acts(model, dtype):
+    """``model`` with its activations (the embedding's output) in
+    ``dtype``, as ``_prefill_logits`` does for serving."""
+    embed = model.embed_tokens
+    model.embed_tokens = lambda p, t: embed(p, t, dtype=dtype)
+    return model
+
+
+def compare_train_step(key, cfg, params, batch) -> bool:
+    """One step's loss and gradients through the slice's kernel against the
+    plain path, in bf16 and in f32 activations, beside the model's own
+    spread (two plain paths)."""
+    import math
+
+    import torch
+
+    import repro_torch.models.attention as attn
+    import repro_torch.models.ssm as ssm
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    ok = True
+    for dname, (loss_tol, grad_tol) in TRAIN_SLICES[key]["tols"].items():
+        dtype = getattr(torch, dname)
+        kernel = step_grads(_acts(build_model(cfg), dtype), params, batch)
+        if key == "qwen":
+            plain_model = _acts(build_model(cfg.with_(use_flash_kernel=False)),
+                                dtype)
+            plain = step_grads(plain_model, params, batch)
+            # the online-softmax path (f32 probabilities) in place of
+            # _full_attn (probabilities rounded to the activation dtype
+            # before PV): the same function summed in another order
+            with mock.patch.object(attn, "_BLOCKWISE_AT", 0):
+                other = step_grads(plain_model, params, batch)
+            floor_what = "plain full vs plain blockwise attention"
+        else:
+            model = _acts(build_model(cfg), dtype)
+            with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan()):
+                plain = step_grads(model, params, batch)
+            with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan(64)):
+                other = step_grads(model, params, batch)
+            floor_what = "plain chunk 128 vs plain chunk 64"
+        torch.cuda.synchronize()
+        dloss, rel, worst = grad_diff(plain, kernel)
+        floss, frel, fworst = grad_diff(plain, other)
+        finite = math.isfinite(kernel[0]) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(kernel[1]))
+        nonzero = all(float(g.float().abs().max()) > 0
+                      for g in tree_leaves(kernel[1]))
+        good = (finite and nonzero and dloss <= loss_tol
+                and rel[worst] <= grad_tol)
+        ok &= good
+        print(f"train {key}: one step ({dname}) kernel vs plain: loss "
+              f"{kernel[0]:.6f} vs {plain[0]:.6f}, |dloss| {dloss:.6g} (tol "
+              f"{loss_tol}); worst leaf {worst} max|dg|/max|g| "
+              f"{rel[worst]:.6g} (tol {grad_tol}); every leaf's gradient "
+              f"finite {finite} and non-zero {nonzero}: "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+        print(f"train {key}: ({dname}) per leaf max|dg|/max|g| kernel vs "
+              f"plain {json.dumps({p: float(f"{v:.4g}") for p, v in rel.items()})}",
+              flush=True)
+        print(f"train {key}: ({dname}) the model's own spread "
+              f"({floor_what}): |dloss| {floss:.6g}, per leaf "
+              f"{json.dumps({p: float(f"{v:.4g}") for p, v in frel.items()})}; "
+              f"tolerances: {TRAIN_TOL_WHY[dname]}", flush=True)
+        del kernel, plain, other
+    return ok
+
+
+def phase_train_full(key: str, data_dir: str, results: dict,
+                     profile_dir: str = "") -> bool:
+    """Full width and depth through the run API on the card, the slice's
+    kernel in every layer, forward and remat recompute; then one step
+    through the kernel against the plain path."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.prefetch import place_batch
+    from repro_torch.run import api
+
+    spec = TRAIN_SLICES[key]
+    steps = spec["steps"]
+    n_tokens = (steps + 2) * TRAIN_BATCH * (TRAIN_SEQ + 1)
+    doc = train_doc(
+        data_dir, key, "arch.config.reduced=false",
+        f"variables.seq_len={TRAIN_SEQ}",
+        f"loader.config.global_batch={TRAIN_BATCH}",
+        f"dataset.config.n_tokens={n_tokens}", f"run.train.steps={steps}",
+        *spec["sets"])
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = api.execute_doc(doc, device="cuda", log=_quiet)
+    counts = {name: c.launches for name, c in counters.items()}
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    graph = _train_graph(doc)
+    cfg = graph["arch"]
+    want = cfg.n_layers * 2 * steps
+    launches = counts[spec["kernel"]]
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    # step s's wall_s is read after step s-1 has finished (its metrics are
+    # fetched one window late) and step s has been issued
+    walls = [h["wall_s"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    med = statistics.median(step_ms)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    ok = (launches == want and len(losses) == steps
+          and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0])
+    print(f"train {key}: {cfg.name} full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat {cfg.remat}, {steps} steps", flush=True)
+    print(f"train {key}: loss per step "
+          f"{json.dumps([round(x, 5) for x in losses])}; final < first "
+          f"{losses[-1] < losses[0]}", flush=True)
+    print(f"train {key}: launches over the run {counts}; {spec['kernel']} "
+          f"{launches} (want {cfg.n_layers} layers x 2 (forward and remat "
+          f"recompute) x {steps} steps = {want})", flush=True)
+    print(f"train {key}: ms/step over steps 2-{steps} "
+          f"{json.dumps([round(x, 3) for x in step_ms])}, median "
+          f"{med:.3f} ms, tokens_per_s {tok_s:.1f} (the run's own "
+          f"{res['tokens_per_s']}, first step included), peak_mem_gib "
+          f"{peak_gib:.3f}", flush=True)
+    results[f"train_{key}_launches"] = launches
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    from repro_torch.models import build_model
+
+    params = build_model(cfg).init(gen)
+    batch = place_batch(next(iter(graph["loader"].batches(1))),
+                        torch.device("cuda"))
+    ok &= compare_train_step(key, cfg, params, batch)
+    if profile_dir:
+        profile_train_step(key, cfg, params, batch, profile_dir)
+    del params, batch
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def profile_train_step(key, cfg, params, batch, out_dir: str) -> None:
+    """One full-width training step (forward, backward, AdamW) under
+    ``torch.profiler``."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.steps import make_train_step
+
+    os.makedirs(out_dir, exist_ok=True)
+    model = build_model(cfg)
+    opt = AdamW(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+    step = make_train_step(model, opt)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    profile_call(f"{key}_train_step", lambda: step(state, batch), out_dir)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR",
-                    help="after each slice, profile one admission and one "
-                         "decode tick; tables and traces go to DIR")
+                    help="after each serving slice, profile one admission "
+                         "and one decode tick, and after each training slice "
+                         "one step; tables and traces go to DIR")
     args = ap.parse_args()
     try:
         import torch
@@ -579,6 +896,16 @@ def main() -> int:
         print(f"phase slice {key}: {'ok' if slice_ok else 'FAILED'}",
               flush=True)
         ok &= slice_ok
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
+        train_ok = phase_train_quickstart(data_dir)
+        print(f"phase train quickstart: {'ok' if train_ok else 'FAILED'}",
+              flush=True)
+        ok &= train_ok
+        for key in TRAIN_SLICES:
+            train_ok = phase_train_full(key, data_dir, results, args.profile)
+            print(f"phase train {key}: {'ok' if train_ok else 'FAILED'}",
+                  flush=True)
+            ok &= train_ok
     if not ok:
         return 1
 
@@ -593,7 +920,8 @@ def main() -> int:
         row = next(r for r in results[cases] if r["case"].startswith("slice"))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": results[f"{key}_launches"],
+            "launches": (results[f"{key}_launches"]
+                         + results[f"train_{key}_launches"]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -2,18 +2,27 @@
 the port's own registry (``repro_torch.config.registry.DEFAULT_REGISTRY``).
 
 Registered: ``arch_config/<arch>`` for every arch of the table (with the
-``reduced`` flag and field overrides), ``arch_config/custom``, and
-``model/auto``.  The names match ``repro.core.components``, so a run YAML of
-the JAX package resolves here unchanged.
+``reduced`` flag and field overrides), ``arch_config/custom``,
+``model/auto``, and the training graph: ``optimizer/adamw``,
+``lr_schedule/*``, ``dataset/synthetic`` and ``dataset/packed_chunked``,
+``loader/sharded`` and ``loader/prefetch``, ``remat_policy/*``,
+``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
+``sink/*`` and ``gym/standard``.  The names and settings match
+``repro.core.components``, so a run YAML of the JAX package resolves here
+unchanged; settings of later slices (mesh and sharding plan, checkpoints)
+raise ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict
 
 from ..config.registry import DEFAULT_REGISTRY as REG
 from ..configs import ARCH_IDS, get_config, get_reduced
 from ..models import build_model
 from ..models.base import ArchConfig, MLAConfig, Model, MoEConfig, SSMConfig
+from ..models.stacked import REMAT_VARIANTS, RematPolicy
 
 _REGISTERED = False
 
@@ -31,6 +40,90 @@ def register_all() -> None:
     REG.register("arch_config", "custom", _custom_cfg, ArchConfig)
     REG.register("model", "auto", lambda arch_config: build_model(arch_config),
                  Model)
+    _register_training()
+
+
+def _register_training() -> None:
+    from ..data.packed_dataset import (ChunkedLMDataset, PackedDataset,
+                                       ShardedLoader)
+    from ..data.prefetch import PrefetchLoader
+    from ..optim import schedules as SCHED
+    from ..optim.adamw import AdamW
+    from ..telemetry.sinks import (CsvSink, JsonlSink, ListSink, MultiSink,
+                                   StdoutSink, TelemetrySink)
+    from .evaluator import PerplexityEvaluator
+    from .gym import Gym
+
+    REG.register("optimizer", "adamw",
+                 lambda lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                 grad_clip=1.0: AdamW(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay,
+                                      grad_clip=grad_clip),
+                 AdamW)
+    REG.register("lr_schedule", "constant", SCHED.constant)
+    REG.register("lr_schedule", "warmup_cosine", SCHED.warmup_cosine)
+    REG.register("lr_schedule", "wsd", SCHED.wsd)
+
+    REG.register("dataset", "packed_chunked",
+                 lambda prefix, seq_len, seed=0, shuffle=True:
+                 ChunkedLMDataset(PackedDataset(prefix), seq_len, seed,
+                                  shuffle))
+    REG.register("dataset", "synthetic", _synthetic_chunked)
+    REG.register("loader", "sharded",
+                 lambda dataset, global_batch, dp_rank=0, dp_size=1:
+                 ShardedLoader(dataset, global_batch, dp_rank, dp_size))
+    REG.register("loader", "prefetch",
+                 lambda loader, depth=2, to_device=True:
+                 PrefetchLoader(loader, depth=depth, to_device=to_device))
+
+    for name in REMAT_VARIANTS:
+        REG.register("remat_policy", name,
+                     (lambda n: (lambda: RematPolicy(n)))(name), RematPolicy)
+    REG.register("evaluator", "perplexity",
+                 lambda dataset, n_samples=16, offset=None, batch=4:
+                 PerplexityEvaluator(dataset, n_samples, offset, batch))
+
+    REG.register("tracker", "stdout", lambda prefix="": _StdoutTracker(prefix))
+    REG.register("tracker", "jsonl", lambda path: _JsonlTracker(path))
+    REG.register("sink", "jsonl", lambda path: JsonlSink(path), TelemetrySink)
+    REG.register("sink", "csv", lambda path: CsvSink(path), TelemetrySink)
+    REG.register("sink", "stdout",
+                 lambda prefix="telemetry ": StdoutSink(prefix), TelemetrySink)
+    REG.register("sink", "memory", lambda: ListSink(), TelemetrySink)
+    REG.register("sink", "multi", lambda sinks: MultiSink(list(sinks)),
+                 TelemetrySink)
+
+    def gym(model, optimizer, loader, mesh_provider=None, sharding_plan=None,
+            seed=0, grad_accum=1, log_every=10, eval_every=0, ckpt_every=0,
+            ckpt_dir="", checkpointer=None, prefetch=2, tracker=None):
+        if mesh_provider is not None or sharding_plan is not None:
+            raise NotImplementedError(
+                "gym mesh_provider/sharding_plan: the port trains on one "
+                "device; meshes and sharding plans come with the "
+                "parallelism slice (ROADMAP A8)")
+        if ckpt_every or ckpt_dir or checkpointer is not None:
+            raise NotImplementedError(
+                "gym ckpt_every/ckpt_dir/checkpointer: checkpoints come with "
+                "the checkpoint slice of the port (ROADMAP A4)")
+        return Gym(model=model, optimizer=optimizer, loader=loader, seed=seed,
+                   grad_accum=grad_accum, log_every=log_every,
+                   eval_every=eval_every, prefetch=prefetch, logger=tracker)
+
+    REG.register("gym", "standard", gym, Gym)
+
+    # components of later slices: a JAX document naming one resolves to a
+    # refusal that names the slice
+    for key, variants, slice_ in (
+            ("mesh_provider", ("single_device", "local", "production",
+                               "split"), "the parallelism slice (ROADMAP A8)"),
+            ("sharding_plan", ("ddp", "fsdp", "hsdp", "fsdp_tp", "hsdp_tp",
+                               "fsdp_tp_ep", "hsdp_tp_ep", "serve_ep",
+                               "pp2_fsdp", "pp2_fsdp_tp", "pp2_fsdp_tp_ep",
+                               "custom"), "the parallelism slice (ROADMAP A8)"),
+            ("checkpointer", ("async", "sync"),
+             "the checkpoint slice (ROADMAP A4)")):
+        for variant in variants:
+            REG.register(key, variant, _refusal(f"{key}/{variant}", slice_))
 
 
 def _cfg(arch: str, reduced: bool, overrides: Dict[str, Any]) -> ArchConfig:
@@ -43,3 +136,40 @@ def _custom_cfg(**kw) -> ArchConfig:
         if isinstance(kw.get(key), dict):
             kw[key] = cls(**kw[key])
     return ArchConfig(**kw)
+
+
+def _refusal(name: str, slice_: str):
+    def refuse(**_config):
+        raise NotImplementedError(f"{name}: comes with {slice_} of the port")
+
+    return refuse
+
+
+def _synthetic_chunked(n_tokens: int, vocab: int, prefix: str, seq_len: int,
+                       seed: int = 0, shuffle: bool = True):
+    """Write the synthetic packed dataset at ``prefix`` unless it is there,
+    then chunk it (JAX's ``dataset/synthetic``)."""
+    from ..data.packed_dataset import (ChunkedLMDataset, PackedDataset,
+                                       synthetic_dataset)
+    from ..data.tokenize_pipeline import TOKENS_SUFFIX
+
+    if not os.path.exists(prefix + TOKENS_SUFFIX):
+        synthetic_dataset(n_tokens, vocab, prefix, seed)
+    return ChunkedLMDataset(PackedDataset(prefix), seq_len, seed, shuffle)
+
+
+class _StdoutTracker:
+    def __init__(self, prefix: str = ""):
+        self.prefix = prefix
+
+    def __call__(self, metrics: Dict[str, Any]) -> None:
+        print(self.prefix + json.dumps(metrics, default=float), flush=True)
+
+
+class _JsonlTracker:
+    def __init__(self, path: str):
+        self.path = path
+
+    def __call__(self, metrics: Dict[str, Any]) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps(metrics, default=float) + "\n")

@@ -9,8 +9,12 @@ the plain version in ``ref.py``.  The kernel reads q/k/v in that layout
 through their strides, so no transpose to the Pallas kernel's
 ``[B·K·G, S, dh]`` layout is made in device memory.
 
-No backward yet: serving runs under ``torch.no_grad()``; the training slice
-adds the ``autograd.Function`` and the backward kernel.
+Differentiable on every device: ``flash_attention`` always goes through
+``_FlashAttention``, an ``autograd.Function`` whose forward is the kernel
+(the plain version on the CPU) and whose backward recomputes the gradient
+through ``ref.attention_ref``, as JAX's ``custom_vjp`` does
+(``repro.kernels.flash.ops._bwd``): no score tensor is kept between the
+passes, and the CPU tests run the same backward as the card.
 """
 from __future__ import annotations
 
@@ -83,6 +87,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     through f32 FMAs (see the note at the top of ``csrc/flash_fwd.cu``).
     """
     _check(q, k, v, causal, window, block_q, block_kv)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; backward = vjp of ``attention_ref`` (recomputed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip((q, k, v), ctx.needs_input_grad)]
+            out = attention_ref(*ins, causal=ctx.causal, window=ctx.window)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None, None)
+
+
+def _forward(q, k, v, causal, window):
+    """The forward on checked inputs: the kernel for CUDA tensors, the plain
+    version for tensors on the CPU."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -15,9 +15,12 @@ states, 12.6 MB at Mamba2-780M's prefill of 1024 tokens) is allocated here
 with ``torch.empty``, and the kernel allocates nothing.  ``ref.py``'s
 ``ssd_chunked_passes`` computes the same passes on the CPU, for the tests.
 
-No backward yet: serving runs under ``torch.no_grad()``; the SSM training
-path adds the ``autograd.Function`` (JAX's backward recomputes through
-``ssd_chunked``).
+Differentiable on every device: ``ssd_scan`` always goes through
+``_SSDScan``, an ``autograd.Function`` whose forward is the kernel (the
+plain version on the CPU) and whose backward recomputes the gradients of x,
+dt, A, Bm, Cm and D through ``ssd_chunked``, as JAX's ``custom_vjp`` does
+(``repro.kernels.ssd.ops._bwd``).  ``h_final`` is marked
+non-differentiable: JAX's ``ssd`` returns y only.
 """
 from __future__ import annotations
 
@@ -95,6 +98,35 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     seq axes may have any stride).
     """
     _check(x, dt, A, Bm, Cm, D, chunk)
+    return _SSDScan.apply(x, dt, A, Bm, Cm, D, int(chunk))
+
+
+class _SSDScan(torch.autograd.Function):
+    """Kernel forward; backward = vjp of ``ssd_chunked``'s y (recomputed)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        y, h_final = _forward(x, dt, A, Bm, Cm, D, chunk)
+        ctx.mark_non_differentiable(h_final)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, gy, _gh):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y, _ = ssd_chunked(*ins, chunk=ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, gy))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None,)
+
+
+def _forward(x, dt, A, Bm, Cm, D, chunk):
+    """The forward on checked inputs: the kernel for CUDA tensors, the plain
+    version for tensors on the CPU."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
     if x.device.type != "cuda":

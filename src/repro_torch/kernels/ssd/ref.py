@@ -50,8 +50,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, D_skip, chunk: int, h0=None):
         # intra-chunk dual (quadratic) form
         CB = torch.einsum("bigr,bjgr->bgij", Cq, Bq_)        # [B,G,Q,Q]
         rel = Sa[:, :, None, :] - Sa[:, None, :, :]          # [B,i,j,H]
-        Lmat = torch.where(causal[None, :, :, None], torch.exp(rel),
-                           torch.zeros((), dtype=f32, device=x.device))
+        # masked before the exp: above the diagonal rel > 0 and exp(rel)
+        # overflows once a chunk's decay passes ~88, and the backward's
+        # 0 * inf would make the dt and A gradients NaN (JAX's
+        # where-after-exp does); the forward values are the same
+        Lmat = torch.exp(torch.where(causal[None, :, :, None], rel,
+                                     torch.full((), -torch.inf, dtype=f32,
+                                                device=x.device)))
         CBh = CB.repeat_interleave(rep, dim=1)               # [B,H,Q,Q]
         M = CBh.permute(0, 2, 3, 1) * Lmat * dtq[:, None, :, :]
         y_intra = torch.einsum("bijh,bjhp->bihp", M, xq)

@@ -8,9 +8,9 @@ def build_model(cfg: ArchConfig) -> Model:
     kind = "mla" if cfg.mla else cfg.arch_type
     if kind not in ("dense", "ssm") or cfg.n_patches:
         raise NotImplementedError(
-            f"{cfg.name}: arch {kind!r} is not ported yet (the port serves "
+            f"{cfg.name}: arch {kind!r} is not ported yet (the port has the "
             f"dense and ssm decoders; moe, mla, hybrid, audio and vlm come "
-            f"in later slices)")
+            f"with ROADMAP A7)")
     from .transformer import DecoderLM
 
     return DecoderLM(cfg)

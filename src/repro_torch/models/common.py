@@ -93,3 +93,34 @@ def act_fn(name: str):
     # jax.nn.gelu defaults to the tanh approximation
     return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# losses (f32)
+# ---------------------------------------------------------------------------
+def _masked_mean(nll, mask):
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def sharded_cross_entropy(logits, labels, mask=None):
+    """Mean token NLL in f32. logits [B,S,V], labels [B,S], mask [B,S].
+
+    JAX takes the gold logit with a one-hot einsum, which stays a partial sum
+    over a vocab-sharded logits tensor under SPMD.  The port runs on one
+    card, where that one-hot would be an f32 ``[B, S, V]`` tensor (5.0 GB
+    for Qwen at batch 8 × 1024); for finite logits a ``gather`` picks out
+    exactly the same f32 value (the one-hot sum adds zeros to it), so it is
+    used here.  The one-hot returns with vocab-sharded SPMD (ROADMAP A8).
+    """
+    return softmax_cross_entropy(logits, labels, mask)
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean token NLL in f32. logits [B,S,V], labels [B,S], mask [B,S]."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return _masked_mean(logz - gold, mask)

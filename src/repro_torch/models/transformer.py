@@ -1,8 +1,9 @@
 """Decoder-only LM (port of ``repro.models.transformer``): dense and SSM
 (Mamba2) stacks.
 
-This slice carries the static-batch greedy serving path: ``prefill`` /
-``prefill_into`` for admission and the dense ``decode_step`` for each tick.
+Training runs ``apply`` (embed, the ``Stacked`` fold with its remat policy,
+logits); serving runs the static-batch greedy path: ``prefill`` /
+``prefill_into`` for admission and ``decode_step`` for each tick.
 Params keep the JAX tree (``embed``, ``final_norm``, one stacked tree per
 homogeneous stack: ``blocks`` for dense layers, ``ssm_blocks`` for Mamba2
 layers), so ``repro_torch.bridge`` copies JAX params in key for key.  MoE,
@@ -54,6 +55,19 @@ def init_ssm_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
 
 
 _INIT_BY_KIND = {"dense_block": init_dense_block, "ssm": init_ssm_block}
+
+
+def apply_block(cfg, kind, p, x, positions):
+    """Residual block of the training forward; returns (x, aux).  ``aux``
+    is the router balance loss of MoE blocks, zero here."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssm":
+        return x + S.ssm_forward(cfg, p["ssm"],
+                                 apply_norm(cfg, p["norm"], x)), aux
+    h = apply_norm(cfg, p["attn_norm"], x)
+    x = x + A.gqa_forward(cfg, p["attn"], h, positions)
+    h = apply_norm(cfg, p["mlp_norm"], x)
+    return x + M.mlp_forward(cfg, p["mlp"], h), aux
 
 
 def decode_block(cfg, kind, p, cache, x, positions):
@@ -152,6 +166,44 @@ class DecoderLM(B.Model):
                                     gen, len(idxs))
         return p
 
+    # -- training forward ------------------------------------------------------
+    def _scan_stack(self, stack_params, kind, x, positions, n_layers):
+        """Fold over layer groups of ``cfg.scan_block_size`` with the
+        arch's remat policy (JAX's ``_scan_stack``)."""
+        cfg = self.cfg
+
+        def body(carry, lp):
+            x, aux = carry
+            x, a = apply_block(cfg, kind, lp, x, positions)
+            return x, aux + a
+
+        stack = ST.Stacked(body, n_layers, block_size=cfg.scan_block_size,
+                           remat=cfg.remat)
+        aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+        return stack.fold(stack_params, (x, aux0))
+
+    def backbone(self, params, x, positions):
+        """Every stack in layer order; returns (x, summed aux).  The
+        hybrid's weight-shared stack and the pipelined backbone come with
+        their slices (``__init__`` refuses the hybrid arch)."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for name, kind, idxs in self._stacks():
+            x, aux = self._scan_stack(params[name], kind, x, positions,
+                                      len(idxs))
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    def apply(self, params, batch):
+        """Training forward: (logits [B, S, vocab], {"router_lb": aux}).
+
+        Activations are bf16 (``embed_tokens``); with tied embeddings the
+        table takes gradient from both uses, the gather and the logits.
+        """
+        x = self.embed_tokens(params, batch["tokens"].long())
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self.backbone(params, x, positions)
+        return self.logits(params, x), {"router_lb": aux}
+
     # -- forward pieces ------------------------------------------------------
     def logits(self, params, x):
         cfg = self.cfg
@@ -160,9 +212,15 @@ class DecoderLM(B.Model):
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
     def embed_tokens(self, params, tokens, dtype=torch.bfloat16):
-        # gather, then cast: the same numbers as JAX's cast-then-gather,
-        # without casting the whole [vocab, D] table every call
-        return params["embed"][tokens].to(dtype)
+        """The token embeddings in ``dtype``.  JAX casts the whole table,
+        then gathers.  Gathering first gives the same numbers without
+        casting the ``[vocab, D]`` table every call, which serving does; when
+        the table takes a gradient, it is cast whole as in JAX, so that its
+        gradient is summed in ``dtype`` there too."""
+        table = params["embed"]
+        if table.requires_grad and torch.is_grad_enabled():
+            return table.to(dtype)[tokens]
+        return table[tokens].to(dtype)
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()

@@ -1,2 +1,3 @@
-"""The port's run API: one document grammar, the serve kind so far."""
-from .config import RunConfig, RunError, ServeSettings, parse_run_doc  # noqa: F401
+"""The port's run API: one document grammar, the train and serve kinds."""
+from .config import (RunConfig, RunError, ServeSettings,  # noqa: F401
+                     TelemetrySettings, TrainSettings, parse_run_doc)

@@ -13,7 +13,7 @@ from typing import List, Optional
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch")
-    ap.add_argument("kind", choices=["serve"])
+    ap.add_argument("kind", choices=["train", "serve"])
     ap.add_argument("--config", required=True, help="run document (YAML)")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     metavar="PATH=VALUE", help="override a document entry")
@@ -26,9 +26,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     result = execute_file(args.config, kind=args.kind,
                           overrides=args.overrides, device=args.device,
                           write_result=True)
-    print(f"done: {result['batch']} requests x {result['gen']} tokens, "
-          f"prefill {result['prefill_tok_s']} tok/s, decode "
-          f"{result['decode_tok_s']} tok/s", flush=True)
+    if args.kind == "train":
+        if "first_loss" in result:
+            print(f"done: {result['logged_points']} logged points; first loss "
+                  f"{result['first_loss']:.4f} -> last "
+                  f"{result['final_loss']:.4f}, {result['tokens_per_s']} "
+                  f"tok/s", flush=True)
+        else:
+            print(f"done: {result['steps']} steps, no logged points",
+                  flush=True)
+    else:
+        print(f"done: {result['batch']} requests x {result['gen']} tokens, "
+              f"prefill {result['prefill_tok_s']} tok/s, decode "
+              f"{result['decode_tok_s']} tok/s", flush=True)
     return 0
 
 

@@ -1,13 +1,105 @@
-"""Serving step functions (port of the serving half of ``repro.train.steps``).
+"""Step functions: train, serve and the engine tick (port of
+``repro.train.steps``).
 
-JAX jits these and donates the cache and slot state; PyTorch runs them
-eagerly and updates both in place.  Train steps come with the training
-slice; the sampling head (temperature, top-k, top-p) with the sampling
-slice, so this slice builds greedy steps only.
+JAX jits these and donates the state; PyTorch runs them eagerly.  The train
+step returns a new state (params and optimizer state are new tensors); the
+serving steps update the cache and slot state in place.  The sampling head
+(temperature, top-k, top-p) comes with the sampling slice, so the engine
+tick is greedy.
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
+
+from ..models.common import sharded_cross_entropy
+from ..tree import tree_leaves, tree_map, tree_unflatten
+
+
+def compute_loss(model, params, batch):
+    """(total loss, {"ce", **aux}) of one batch; ``total`` adds the router
+    balance loss, which is zero for the dense and ssm archs."""
+    logits, aux = model.apply(params, batch)
+    loss = sharded_cross_entropy(logits, batch["labels"],
+                                 batch.get("loss_mask"))
+    total = loss
+    if "router_lb" in aux:
+        total = total + aux["router_lb"]
+    return total, {"ce": loss, **aux}
+
+
+def microbatch(batch: Dict[str, Any], n_micro: int):
+    """``[B, ...]`` leaves -> ``n_micro`` batches of ``[B/n_micro, ...]``,
+    contiguous along the batch (``repro.sharding.pipeline.microbatch``'s
+    reshape to ``[M, B/M, ...]``, then its M rows)."""
+    def split(a):
+        bsz = a.shape[0]
+        if bsz % n_micro:
+            raise ValueError(f"batch {bsz} not divisible by {n_micro} "
+                             f"microbatches")
+        return a.reshape((n_micro, bsz // n_micro) + tuple(a.shape[1:]))
+
+    mbs = tree_map(split, batch)
+    return [tree_map(lambda a, i=i: a[i], mbs) for i in range(n_micro)]
+
+
+def make_train_step(model, optimizer, grad_accum: int = 1):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    Gradients come from ``torch.autograd.grad`` over the param leaves.  With
+    ``grad_accum > 1`` the batch is split into contiguous microbatches, the
+    gradients are summed in a carry of at least f32 (also for bf16 params,
+    as JAX's ``:60-76``: a bf16 carry would round every micro-step) and the
+    gradients and metrics averaged.  Metrics stay 0-d tensors on the device:
+    ``ce``, ``router_lb`` and ``loss``.
+    """
+
+    def value_and_grad(params, batch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        total, metrics = compute_loss(model, tree_unflatten(params, leaves),
+                                      batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return ({k: v.detach() for k, v in metrics.items()},
+                tree_unflatten(params, grads))
+
+    def train_step(state, batch):
+        if grad_accum > 1:
+            gsum = msum = None
+            for mb in microbatch(batch, grad_accum):
+                metrics, grads = value_and_grad(state["params"], mb)
+                if gsum is None:
+                    gsum = tree_map(lambda g: g.to(torch.promote_types(
+                        g.dtype, torch.float32)), grads)
+                    msum = metrics
+                else:
+                    gsum = tree_map(torch.add, gsum, grads)
+                    msum = tree_map(torch.add, msum, metrics)
+            grads = tree_map(lambda g: g / grad_accum, gsum)
+            metrics = tree_map(lambda m: m / grad_accum, msum)
+        else:
+            metrics, grads = value_and_grad(state["params"], batch)
+        new_params, new_opt = optimizer.update(grads, state["opt"],
+                                               state["params"])
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        metrics = dict(metrics)
+        metrics["loss"] = metrics["ce"]
+        return new_state, metrics
+
+    return train_step
+
+
+def init_train_state(model, optimizer, gen: torch.Generator, param_dtype=None):
+    """Seeded params on ``gen.device`` (f32 leaves cast to ``param_dtype``
+    when given), the optimizer's state and a step counter on the device."""
+    params = model.init(gen)
+    if param_dtype is not None:
+        params = tree_map(lambda p: p.to(param_dtype)
+                          if p.dtype == torch.float32 else p, params)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
 
 
 def make_serve_step(model):

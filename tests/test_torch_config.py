@@ -76,8 +76,8 @@ def test_serve_document_parses_and_engine_mode_is_refused():
         parse_run_doc(engine)
     with pytest.raises(RunError):
         parse_run_doc(apply_overrides(doc, parse_overrides(["run.serve.bogus=1"])))
-    with pytest.raises(NotImplementedError):
-        parse_run_doc({"run": {"kind": "train"}})
+    with pytest.raises(NotImplementedError, match="A9"):
+        parse_run_doc({"run": {"kind": "bench"}})
 
 
 def test_custom_arch_config_resolves_as_in_jax():

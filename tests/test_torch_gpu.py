@@ -241,3 +241,83 @@ def test_reduced_mamba2_serve_goes_through_the_ssd_kernel(cuda):
     assert ssd_ops.launches - before == cfg.n_layers * (2 + 1)
     assert all(len(ids) == 4 and all(0 <= t < cfg.vocab for t in ids)
                for ids in res["generated_ids"])
+
+
+# ---------------------------------------------------------------------------
+# training through the kernels (their autograd Functions)
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root: its train-step tolerances."""
+    import importlib
+    import os
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def _train_batch(vocab, device, B=2, S=64):
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(3, vocab, (B, S), generator=gen, device=device)
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+
+@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "mamba2_780m"])
+def test_train_step_through_the_kernel_matches_plain(arch, cuda):
+    """One reduced train step through the kernel against the plain path,
+    within chip_smoke.py's tolerances; the kernel ran forward and in the
+    remat recompute of every layer; every leaf's gradient is non-zero."""
+    from unittest import mock
+
+    import repro_torch.models.ssm as ssm
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.models import build_model
+
+    cs = _chip_smoke()
+    qwen = arch.startswith("qwen")
+    cfg = get_reduced(arch).with_(use_flash_kernel=qwen, remat="full")
+    params = build_model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    batch = _train_batch(cfg.vocab, cuda)
+    counter = ops if qwen else ssd_ops
+    before = counter.launches
+    kernel = cs.step_grads(build_model(cfg), params, batch)
+    assert counter.launches - before == cfg.n_layers * 2
+    if qwen:
+        plain = cs.step_grads(build_model(cfg.with_(use_flash_kernel=False)),
+                              params, batch)
+    else:
+        with mock.patch.object(ssm, "ssd_scan", lambda *a, chunk: ssd_chunked(
+                *a, chunk=chunk)):
+            plain = cs.step_grads(build_model(cfg), params, batch)
+    dloss, rel, worst = cs.grad_diff(plain, kernel)
+    loss_tol, grad_tol = cs.TRAIN_SLICES[
+        "qwen" if qwen else "mamba2"]["tols"]["bfloat16"]
+    assert dloss <= loss_tol
+    assert rel[worst] <= grad_tol, (worst, rel[worst])
+    from repro_torch.tree import tree_leaves
+
+    for g in tree_leaves(kernel[1]):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+def test_kernel_paths_give_attention_and_ssm_gradients(cuda):
+    """The gradients that a wrapper without a backward would lose: q/k/v
+    projections through the flash kernel, in_proj and A_log through the
+    SSD kernel."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+
+    cs = _chip_smoke()
+    for arch, leaves in (("qwen1p5_0p5b", ("wq", "wk", "wv")),
+                         ("mamba2_780m", ("in_proj", "A_log"))):
+        cfg = get_reduced(arch).with_(use_flash_kernel=True)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        _, grads = cs.step_grads(model, params, _train_batch(cfg.vocab, cuda))
+        block = grads["blocks"]["attn"] if arch.startswith("qwen") \
+            else grads["ssm_blocks"]["ssm"]
+        for name in leaves:
+            assert float(block[name].abs().max()) > 0, (arch, name)
