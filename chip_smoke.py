@@ -849,6 +849,333 @@ def profile_train_step(key, cfg, params, batch, out_dir: str) -> None:
     profile_call(f"{key}_train_step", lambda: step(state, batch), out_dir)
 
 
+# ---------------------------------------------------------------------------
+# the continuous-batching engine
+# ---------------------------------------------------------------------------
+# full-width Qwen on the paged engine: a prefix-heavy trace of sampled
+# requests, every fourth greedy, closed loop
+ENGINE_QWEN = {"n_slots": 8, "max_len": 1024, "block_len": 16,
+               "prefill_chunk": 256}
+ENGINE_QWEN_TRACE = {"n_requests": 32, "prefix_len": 512, "n_prefixes": 2,
+                     "prompt_lens": (64, 128, 256), "gen_tokens": (64,)}
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# full-width Mamba2 on the dense engine (an SSM state has no pages)
+ENGINE_MAMBA2 = {"n_slots": 8, "n_requests": 16,
+                 "prompt_lens": (256, 512, 1024), "gen_tokens": (32,)}
+
+
+def _checkout_files() -> dict:
+    """Every file under the checkout with its size and mtime."""
+    out = {}
+    for d, dirs, files in os.walk(ROOT):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def phase_engine_quickstart(out_dir: str) -> bool:
+    """``examples/configs/serve_engine.yaml`` through the run API, unchanged
+    but for ``run.output_dir`` (and so the bench file's directory): reduced
+    Qwen, Poisson arrivals at 4 requests/s, 12 requests, paged, with the
+    static-shim baseline."""
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run import api
+
+    doc = load_yaml(os.path.join(ROOT, "examples", "configs",
+                                 "serve_engine.yaml"))
+    doc["run"]["output_dir"] = os.path.join(out_dir, "serve_quickstart")
+    before = _checkout_files()
+    t0 = time.perf_counter()
+    res = api.execute_doc(doc, device="cuda", write_result=True, log=_quiet)
+    wall = time.perf_counter() - t0
+    written = sorted(p for p, st in _checkout_files().items()
+                     if before.get(p) != st)
+    bench = os.path.join(doc["run"]["output_dir"],
+                         "BENCH_serve_quickstart.json")
+    with open(os.path.join(ROOT, "BENCH_serve_quickstart.json")) as f:
+        keys_jax = set(json.load(f))
+    keys = set(json.load(open(bench))) if os.path.exists(bench) else set()
+    ok = (res["completed"] == res["n_requests"] == 12
+          and res["prefill_cache_hit_rate"] > 0 and keys == keys_jax
+          and not written)
+    print(f"engine quickstart: {res['completed']}/{res['n_requests']} "
+          f"requests in {wall:.2f}s, prefill_cache_hit_rate "
+          f"{res['prefill_cache_hit_rate']}, tok_s {res['tok_s']}, "
+          f"decode_tok_s {res['decode_tok_s']} (static shim "
+          f"{res['static_shim']['decode_tok_s']}), ttft_s p50 "
+          f"{res['ttft_s']['p50']:.4f}, compile_s {res['compile_s']}; "
+          f"{bench} has the JAX artifact's keys {keys == keys_jax}; files "
+          f"written under the checkout {written}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _expected_cached(trace, chunk: int):
+    """Prompt tokens each request should find cached: none for the first
+    request on each prefix, else its prefix floored to the chunk grid and
+    capped one token short of the prompt (``admit_paged``'s match)."""
+    seen, out = set(), []
+    for r in trace:
+        key = tuple(r.prompt[:ENGINE_QWEN_TRACE["prefix_len"]])
+        full = min(ENGINE_QWEN_TRACE["prefix_len"], r.prompt_len - 1)
+        out.append((full // chunk) * chunk if key in seen else 0)
+        seen.add(key)
+    return out
+
+
+def phase_engine_qwen(results: dict, profile_dir: str = "") -> bool:
+    """Full-width Qwen1.5-0.5B (``use_flash_kernel=True``) on the paged
+    engine, seeded random weights: the main run, then the determinism
+    contract on the card (four requests alone, the prefix cache off), the
+    first-token logits of a cold chunked prefill against the plain dense
+    prefill, the dense engine's greedy streams (a diagnostic) and the
+    threefry noise against the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import prng
+    from repro_torch.serve.engine import ServeEngine, load_params
+    from repro_torch.serve.sampling import request_key, token_key
+    from repro_torch.serve.workload import shared_prefix_trace
+
+    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cuda")
+    t = ENGINE_QWEN_TRACE
+    trace = shared_prefix_trace(
+        t["n_requests"], cfg.vocab, prefix_len=t["prefix_len"],
+        n_prefixes=t["n_prefixes"], seed=0, prompt_lens=t["prompt_lens"],
+        gen_tokens=t["gen_tokens"], max_len=ENGINE_QWEN["max_len"],
+        **SAMPLING)
+    for r in trace[::4]:
+        r.temperature = 0.0                  # every fourth request greedy
+    engine = ServeEngine(model, params, **ENGINE_QWEN)
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = engine.run(trace, realtime=False)
+    counts = {name: c.launches for name, c in counters.items()}
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = res["requests"]
+    streams = [r["gen_ids"] for r in rows]
+    pg = res["paging"]
+    ok = True
+    done = (res["completed"] == len(trace) == t["n_requests"]
+            and all(len(s) == r.max_new and all(0 <= x < cfg.vocab for x in s)
+                    for r, s in zip(trace, streams)))
+    want = _expected_cached(trace, ENGINE_QWEN["prefill_chunk"])
+    got = [r["cached_tokens"] for r in rows]
+    rate = round(sum(want) / sum(r.prompt_len for r in trace), 4)
+    lost = sorted({int(trace[i].rid) % t["n_prefixes"]
+                   for i in range(len(trace)) if got[i] < want[i]})
+    hits_ok = got == want and res["prefill_cache_hit_rate"] == rate
+    print(f"engine qwen: {cfg.name} full width, paged (block_len "
+          f"{pg['block_len']}, n_blocks {pg['n_blocks']}, prefill_chunk "
+          f"{pg['prefill_chunk']}), {len(trace)} requests (prefix "
+          f"{t['prefix_len']} x {t['n_prefixes']}, tails {t['prompt_lens']}, "
+          f"{t['gen_tokens'][0]} tokens each, {SAMPLING}, every fourth "
+          f"greedy), closed loop: {res['completed']} complete, tokens in "
+          f"[0, {cfg.vocab}): {done}", flush=True)
+    print(f"engine qwen: prefill_cache_hit_rate {res['prefill_cache_hit_rate']}"
+          f" (want {rate}: 0 cached for the first request on each prefix, "
+          f"{max(want)} for the others), cached tokens as the trace says "
+          f"{got == want}"
+          f"; evictions {pg['evictions']}, prefixes lost {lost}: "
+          f"{'ok' if hits_ok else 'FAILED'}", flush=True)
+    print(f"engine qwen: launches over the run {counts}; flash_fwd must be "
+          f"0: JAX's paged prefill chunk (gqa_prefill_chunk) computes its "
+          f"attention with einsums, outside any Pallas kernel, and the port "
+          f"does the same", flush=True)
+    ok &= done and hits_ok and counts["flash_fwd"] == 0
+    tp = res["tpot_ms"]
+    print(f"engine qwen: tok_s {res['tok_s']} decode_tok_s "
+          f"{res['decode_tok_s']} ttft_s p50 {res['ttft_s']['p50']:.4f} p95 "
+          f"{res['ttft_s']['p95']:.4f} ttft_hit_s p50 "
+          f"{res['ttft_hit_s']['p50']:.4f} ttft_cold_s p50 "
+          f"{res['ttft_cold_s']['p50']:.4f} prefill_hit_s p50 "
+          f"{res['prefill_hit_s']['p50']:.4f} prefill_cold_s p50 "
+          f"{res['prefill_cold_s']['p50']:.4f} tpot_ms p50 {tp['p50']:.4f} "
+          f"p90 {tp['p90']:.4f} slot_utilization {res['slot_utilization']} "
+          f"interleaved_decode_ticks {res['interleaved_decode_ticks']} ticks "
+          f"{res['ticks']} peak_blocks {pg['peak_blocks']} evictions "
+          f"{pg['evictions']} compile_s {res['compile_s']} elapsed_s "
+          f"{res['elapsed_s']} peak_mem_gib {peak_gib:.3f}", flush=True)
+    results["engine_qwen_flash_launches"] = counts["flash_fwd"]
+
+    # the determinism contract on the card: greedy and sampled, cold and hit
+    picks = [0, 1, 4, 5]
+    solo = ServeEngine(model, params, **ENGINE_QWEN)
+    same = {trace[i].rid: solo.run([trace[i]], realtime=False)["requests"][0][
+        "gen_ids"] == streams[i] for i in picks}
+    off = ServeEngine(model, params, prefix_cache=False, **ENGINE_QWEN).run(
+        trace, realtime=False)
+    off_same = [r["gen_ids"] for r in off["requests"]] == streams
+    kinds = {trace[i].rid: ("greedy" if trace[i].temperature == 0
+                            else "sampled") + (" hit" if want[i] else " cold")
+             for i in picks}
+    print(f"engine qwen: alone in a fresh engine of the same pool shape, "
+          f"the same stream {same} ({kinds}); prefix_cache off, the same "
+          f"{len(trace)} streams {off_same} (hit rate "
+          f"{off['prefill_cache_hit_rate']})", flush=True)
+    ok &= all(same.values()) and off_same
+
+    # first-token logits of a cold request: chunked prefill vs plain prefill
+    r0 = trace[0]
+    prompt = torch.as_tensor(np.asarray(r0.prompt, np.int64), device="cuda")
+    C, P = ENGINE_QWEN["prefill_chunk"], r0.prompt_len
+    pool = model.init_paged_cache(engine.max_pages, engine.block_len,
+                                  device="cuda")
+    row = torch.arange(engine.max_pages, dtype=torch.int32, device="cuda")
+    toks = torch.zeros((-(-P // C) * C,), dtype=torch.int64, device="cuda")
+    toks[:P] = prompt
+    for lo in range(0, P, C):
+        lk, pool = model.prefill_chunk(params, pool, row, toks[lo:lo + C], lo,
+                                       min(C, P - lo))
+    plain = build_model(cfg.with_(use_flash_kernel=False))
+    lp, _ = plain.prefill(params, {"tokens": prompt[None]})
+    torch.cuda.synchronize()
+    d = float((lk.float() - lp.float()).abs().max())
+    print(f"engine qwen: first-token logits of request 0 (cold, {P} tokens), "
+          f"paged chunks vs plain dense prefill: max abs diff {d:.6g}, max "
+          f"|logit| {float(lp.float().abs().max()):.4f}; tol {LOGITS_TOL} "
+          f"({LOGITS_TOL_WHY})", flush=True)
+    ok &= bool(torch.isfinite(lk).all()) and d <= LOGITS_TOL
+    del pool
+
+    # a diagnostic: the dense engine's greedy streams
+    greedy = [r for r in trace if r.temperature == 0]
+    dense = ServeEngine(model, params, block_len=0, greedy=True,
+                        n_slots=ENGINE_QWEN["n_slots"],
+                        max_len=ENGINE_QWEN["max_len"]).run(greedy,
+                                                            realtime=False)
+    by_rid = {r["id"]: r["gen_ids"] for r in rows}
+    parts = [next((j for j, (a, b) in enumerate(zip(r["gen_ids"],
+                                                     by_rid[r["id"]]))
+                   if a != b), None) for r in dense["requests"]]
+    print(f"engine qwen: greedy streams equal to the dense engine's "
+          f"(block_len 0, prefill through flash_fwd): "
+          f"{parts.count(None)} of {len(greedy)}; first differing token of "
+          f"each {parts} (a diagnostic: the two paths round in other "
+          f"programs, and random weights leave small top-2 margins)",
+          flush=True)
+
+    # threefry on the card against the CPU, 8 keys x the full vocabulary
+    keys = torch.stack([token_key(request_key(r.seed), 7) for r in trace[:8]])
+    tiny = torch.finfo(torch.float32).tiny
+    bits_ok = torch.equal(prng.random_bits32(keys.cuda(), cfg.vocab).cpu(),
+                          prng.random_bits32(keys, cfg.vocab))
+    u_ok = torch.equal(prng.uniform(keys.cuda(), cfg.vocab, tiny).cpu(),
+                       prng.uniform(keys, cfg.vocab, tiny))
+    g = float((prng.gumbel(keys.cuda(), cfg.vocab).cpu()
+               - prng.gumbel(keys, cfg.vocab)).abs().max())
+    print(f"engine qwen: threefry on the card vs the CPU, 8 keys x "
+          f"{cfg.vocab}: bits equal {bits_ok}, uniforms equal {u_ok}, gumbel "
+          f"max abs diff {g:.3g} (each device's own log)", flush=True)
+    ok &= bits_ok and u_ok
+    if profile_dir:
+        profile_engine(engine, profile_dir)
+    del params, engine, solo
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def profile_engine(engine, out_dir: str) -> None:
+    """One paged admission (a 256-token prompt: one prefill chunk and the
+    first token's sampling) and one paged sampled decode tick of the Qwen
+    engine, and the sampling head alone over the tick's 8 rows."""
+    import torch
+
+    from repro_torch.serve.sampling import sample_tokens, token_key
+
+    os.makedirs(out_dir, exist_ok=True)
+    V = engine.model.cfg.vocab
+    gen = torch.Generator("cuda").manual_seed(2)
+    prompt = torch.randint(3, V, (ENGINE_QWEN["prefill_chunk"],),
+                           device="cuda", generator=gen)
+    steps = engine.step_probes(prompt, **SAMPLING)
+    torch.cuda.synchronize()
+    for name, fn in steps.items():
+        profile_call(f"engine_qwen_{name}", fn, out_dir)
+    n = engine.n_slots
+    logits = torch.randn((n, V), device="cuda", generator=gen)
+    keys = torch.zeros((n, 2), dtype=torch.int64, device="cuda")
+    knobs = (torch.full((n,), SAMPLING["temperature"], device="cuda"),
+             torch.full((n,), SAMPLING["top_k"], dtype=torch.int32,
+                        device="cuda"),
+             torch.full((n,), SAMPLING["top_p"], device="cuda"))
+    n_gen = torch.ones((n,), dtype=torch.int32, device="cuda")
+    profile_call("engine_qwen_sampling_head",
+                 lambda: sample_tokens(logits, token_key(keys, n_gen),
+                                       *knobs), out_dir)
+
+
+def phase_engine_mamba2(results: dict) -> bool:
+    """Full-width Mamba2-780M on the dense engine, sampled, closed loop:
+    every admission's prefill runs the SSD kernel in all 48 layers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, load_params
+    from repro_torch.serve.workload import synthetic_trace
+
+    cfg = get_config("mamba2_780m")
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cuda")
+    m = ENGINE_MAMBA2
+    max_len = max(m["prompt_lens"]) + max(m["gen_tokens"])
+    trace = synthetic_trace(m["n_requests"], cfg.vocab, seed=0,
+                            prompt_lens=m["prompt_lens"],
+                            gen_tokens=m["gen_tokens"], max_len=max_len,
+                            **SAMPLING)
+    engine = ServeEngine(model, params, n_slots=m["n_slots"], max_len=max_len)
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = engine.run(trace, realtime=False)
+    counts = {name: c.launches for name, c in counters.items()}
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lengths = sorted({r.prompt_len for r in trace})
+    want = cfg.n_layers * (len(trace) + len(lengths))
+    streams = [r["gen_ids"] for r in res["requests"]]
+    done = (res["completed"] == len(trace) and not engine.paged
+            and all(len(s) == m["gen_tokens"][0]
+                    and all(0 <= x < cfg.vocab for x in s) for s in streams))
+    solo = ServeEngine(model, params, n_slots=m["n_slots"], max_len=max_len)
+    same = {r.rid: solo.run([r], realtime=False)["requests"][0]["gen_ids"]
+            == streams[r.rid] for r in trace[:2]}
+    tp = res["tpot_ms"]
+    print(f"engine mamba2: {cfg.name} full width, dense engine, "
+          f"{len(trace)} requests (prompts {m['prompt_lens']}, "
+          f"{m['gen_tokens'][0]} tokens each, {SAMPLING}), closed loop: "
+          f"{res['completed']} complete, tokens in [0, {cfg.vocab}): {done}",
+          flush=True)
+    print(f"engine mamba2: launches over the run {counts}; ssd_scan "
+          f"{counts['ssd_scan']} (want {cfg.n_layers} layers x "
+          f"({len(trace)} admissions + {len(lengths)} warm-up admissions, one "
+          f"per prompt length {lengths}) = {want}); alone in a fresh engine "
+          f"the same stream {same}", flush=True)
+    print(f"engine mamba2: tok_s {res['tok_s']} decode_tok_s "
+          f"{res['decode_tok_s']} ttft_s p50 {res['ttft_s']['p50']:.4f} "
+          f"tpot_ms p50 {tp['p50']:.4f} p90 {tp['p90']:.4f} slot_utilization "
+          f"{res['slot_utilization']} compile_s {res['compile_s']} elapsed_s "
+          f"{res['elapsed_s']} peak_mem_gib {peak_gib:.3f}", flush=True)
+    results["engine_mamba2_ssd_launches"] = counts["ssd_scan"]
+    del params, engine, solo
+    torch.cuda.empty_cache()
+    return bool(done and counts["ssd_scan"] == want and all(same.values()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR",
@@ -856,6 +1183,7 @@ def main() -> int:
                          "and one decode tick, and after each training slice "
                          "one step; tables and traces go to DIR")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -906,22 +1234,36 @@ def main() -> int:
             print(f"phase train {key}: {'ok' if train_ok else 'FAILED'}",
                   flush=True)
             ok &= train_ok
+        engine_ok = phase_engine_quickstart(data_dir)
+        print(f"phase engine quickstart: {'ok' if engine_ok else 'FAILED'}",
+              flush=True)
+        ok &= engine_ok
+    engine_ok = phase_engine_qwen(results, args.profile)
+    print(f"phase engine qwen: {'ok' if engine_ok else 'FAILED'}", flush=True)
+    ok &= engine_ok
+    engine_ok = phase_engine_mamba2(results)
+    print(f"phase engine mamba2: {'ok' if engine_ok else 'FAILED'}",
+          flush=True)
+    ok &= engine_ok
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s, the "
+          f"kernels' build included", flush=True)
     if not ok:
         return 1
 
     kernels = []
-    for name, cases, key, src, replaces in (
-            ("flash_fwd", "flash_cases", "qwen",
+    for name, cases, key, engine_key, src, replaces in (
+            ("flash_fwd", "flash_cases", "qwen", "engine_qwen_flash_launches",
              "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
              "src/repro/kernels/flash/kernel.py:67"),
-            ("ssd_scan", "ssd_cases", "mamba2",
+            ("ssd_scan", "ssd_cases", "mamba2", "engine_mamba2_ssd_launches",
              "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd/kernel.py:60")):
         row = next(r for r in results[cases] if r["case"].startswith("slice"))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": (results[f"{key}_launches"]
-                         + results[f"train_{key}_launches"]),
+                         + results[f"train_{key}_launches"]
+                         + results[engine_key]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

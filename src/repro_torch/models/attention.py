@@ -1,5 +1,6 @@
-"""GQA/MQA attention (+bias, sliding window): prefill and dense decode paths
-(port of the GQA half of ``repro.models.attention``).
+"""GQA/MQA attention (+bias, sliding window): prefill, dense decode and
+paged (block-pool) decode and chunked-prefill paths (port of the GQA half
+of ``repro.models.attention``; its MLA half comes with ROADMAP A7.2).
 
 Long sequences (> ``_BLOCKWISE_AT``) use a blockwise online-softmax loop so
 no [S, S] score tensor is ever live.  With ``cfg.use_flash_kernel`` prefill
@@ -192,3 +193,142 @@ def gqa_decode(cfg: B.ArchConfig, p, cache, x, positions):
     o = _gqa_out_einsum(probs, cv)                                   # [B,1,H,dh]
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (serving): [n_blocks + 1, block_len, ...] leaves + page tables
+# ---------------------------------------------------------------------------
+# The serve engine's block allocator hands each request a row of physical
+# block ids; attention reads the cache *through* that row (gather) and
+# writes the current token's K/V into (block, offset) = (row[pos // bl],
+# pos % bl) (scatter).  JAX gathers clamp out-of-range indices and wrap
+# negative ones, and JAX scatters drop out-of-range writes; PyTorch raises
+# on the CPU and trips a device-side assert on the card.  So every such
+# index is made explicit here, with no host sync and no data-dependent
+# shape:
+#
+# - the pool holds one scratch block past the ``n_blocks`` the allocator
+#   owns, which no page table names.  A suppressed write (an inactive
+#   slot, a padding row of a prefill chunk) goes there instead of being
+#   dropped, and a page table's -1 (unallocated) wraps to it on a read.
+#   Its values are finite (K/V rows, or the pool's initial zeros) and are
+#   only ever read behind the causal/validity mask, where softmax gives
+#   them exactly-0 probability (``docs/serving.md``, "finite garbage");
+# - a page index ``pos // bl`` past the page table (a retired slot's
+#   frozen ``pos == max_len``, a padding row) is clamped, and its write
+#   goes to the scratch block.
+
+
+def scratch_block(leaf) -> int:
+    """The pool's scratch block (the last one): where suppressed writes go."""
+    return leaf.shape[0] - 1
+
+
+def paged_view(leaf, pages):
+    """Gather ``leaf [n_blocks + 1, bl, ...]`` through ``pages [..., n_pages]``
+    into a contiguous view ``[..., n_pages * bl, ...]``."""
+    v = leaf[pages.long()]
+    lead = tuple(pages.shape[:-1])
+    return v.reshape(lead + (pages.shape[-1] * leaf.shape[1],)
+                     + tuple(leaf.shape[2:]))
+
+
+def _paged_write(leaf, phys, off, vals):
+    """Write ``vals [N, ...]`` rows into ``leaf[phys[i], off[i]]`` in place
+    (``phys`` is the scratch block for a suppressed write)."""
+    leaf.index_put_((phys.long(), off.long()), vals.to(leaf.dtype))
+
+
+def gqa_init_paged_cache(cfg: B.ArchConfig, n_blocks: int, block_len: int,
+                         dtype=torch.bfloat16, device=None):
+    """``n_blocks`` pages and the scratch block, zeroed (a masked entry's
+    probability is exactly 0, and 0 x finite stays 0)."""
+    K, dh = cfg.n_kv_heads, cfg.head_dim_
+    shape = (n_blocks + 1, block_len, K, dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _page_of(pages, positions, bl):
+    """Physical block of each position: ``pages[..., positions // bl]``, the
+    page index clamped to the table (JAX's gather clamps it)."""
+    idx = torch.clamp(positions // bl, max=pages.shape[-1] - 1).long()
+    if pages.dim() == 1:
+        return pages[idx]
+    return torch.gather(pages, 1, idx[:, None])[:, 0]
+
+
+def gqa_decode_paged(cfg: B.ArchConfig, p, cache, x, positions, pages,
+                     active=None):
+    """Single-token GQA decode through page tables.
+
+    x [B,1,D]; positions [B]; pages int32 [B, n_pages] physical block ids
+    per slot; active bool [B] suppresses cache writes for dead slots (their
+    frozen positions may alias pages since freed and reused).  The cache is
+    updated in place and returned."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions[:, None], cfg.rope_theta)
+    k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    bl = ck.shape[1]
+    phys = _page_of(pages, positions, bl)
+    if active is not None:
+        phys = torch.where(active, phys, scratch_block(ck))
+    _paged_write(ck, phys, positions % bl, k[:, 0])
+    _paged_write(cv, phys, positions % bl, v[:, 0])
+    vk = paged_view(ck, pages)                                   # [B,T,K,dh]
+    vv = paged_view(cv, pages)
+    dh = q.shape[-1]
+    scores = _gqa_scores_einsum(q, vk).float() / math.sqrt(dh)
+    T = vk.shape[1]
+    valid = (torch.arange(T, device=x.device)[None, :]
+             < (positions + 1)[:, None])                         # [B,T]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = _gqa_out_einsum(probs, vv)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def gqa_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
+                      n_valid: int):
+    """One fixed-shape prefill chunk: C prompt rows into one request's pages.
+
+    x [1,C,D]; positions [C] absolute; pages_row int32 [n_pages]; rows at
+    index >= n_valid are padding (writes suppressed, outputs garbage).  The
+    chunk's shapes never depend on the prompt length, so a page's stored K/V
+    is bitwise identical whether the prompt was short or long, cold or a
+    cache hit — the canonical-page property the radix index shares under.
+    """
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    bl = ck.shape[1]
+    row_idx = torch.arange(positions.shape[0], device=x.device)
+    phys = torch.where(row_idx < n_valid, _page_of(pages_row, positions, bl),
+                       scratch_block(ck))
+    _paged_write(ck, phys, positions % bl, k[0])
+    _paged_write(cv, phys, positions % bl, v[0])
+    vk = paged_view(ck, pages_row[None])                        # [1,T,K,dh]
+    vv = paged_view(cv, pages_row[None])
+    dh = q.shape[-1]
+    scores = _gqa_scores_einsum(q, vk).float() / math.sqrt(dh)
+    T = vk.shape[1]
+    valid = (positions[:, None]
+             >= torch.arange(T, device=x.device)[None, :])      # [C,T] causal
+    scores = torch.where(valid[None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = _gqa_out_einsum(probs, vv)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def _mla_paged(*_args, **_kw):
+    raise NotImplementedError(
+        "the paged MLA cache comes with MLA (ROADMAP A7.2)")
+
+
+mla_init_paged_cache = mla_decode_paged = mla_prefill_chunk = _mla_paged

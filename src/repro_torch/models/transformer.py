@@ -2,13 +2,15 @@
 (Mamba2) stacks.
 
 Training runs ``apply`` (embed, the ``Stacked`` fold with its remat policy,
-logits); serving runs the static-batch greedy path: ``prefill`` /
-``prefill_into`` for admission and ``decode_step`` for each tick.
-Params keep the JAX tree (``embed``, ``final_norm``, one stacked tree per
-homogeneous stack: ``blocks`` for dense layers, ``ssm_blocks`` for Mamba2
-layers), so ``repro_torch.bridge`` copies JAX params in key for key.  MoE,
-MLA, hybrid, audio and VLM blocks, and the paged cache, come with later
-slices.
+logits).  Serving has two cache layouts: the dense slot pool (``prefill`` /
+``prefill_into`` for admission, ``decode_step`` for each tick) and, for
+dense full-context attention, the paged block pool (``init_paged_cache``,
+``prefill_chunk`` for admission in fixed-shape chunks, ``decode_step`` with
+``pages``/``active`` for each tick).  Params keep the JAX tree (``embed``,
+``final_norm``, one stacked tree per homogeneous stack: ``blocks`` for
+dense layers, ``ssm_blocks`` for Mamba2 layers), so ``repro_torch.bridge``
+copies JAX params in key for key.  MoE, MLA, hybrid, audio and VLM blocks
+come with later slices.
 """
 from __future__ import annotations
 
@@ -78,6 +80,37 @@ def decode_block(cfg, kind, p, cache, x, positions):
         return x + h, new_cache
     h = apply_norm(cfg, p["attn_norm"], x)
     h, new_cache = A.gqa_decode(cfg, p["attn"], cache, h, positions)
+    x = x + h
+    h = apply_norm(cfg, p["mlp_norm"], x)
+    return x + M.mlp_forward(cfg, p["mlp"], h), new_cache
+
+
+def _paged_refusals(cfg, kind):
+    if cfg.mla:
+        raise NotImplementedError(
+            "the paged MLA branch comes with MLA (ROADMAP A7.2)")
+    if kind == "moe_block":
+        raise NotImplementedError(
+            "the paged MoE branch comes with MoE (ROADMAP A7.1)")
+
+
+def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active):
+    """``decode_block`` reading/writing K/V through page tables."""
+    _paged_refusals(cfg, kind)
+    h = apply_norm(cfg, p["attn_norm"], x)
+    h, new_cache = A.gqa_decode_paged(cfg, p["attn"], cache, h, positions,
+                                      pages, active)
+    x = x + h
+    h = apply_norm(cfg, p["mlp_norm"], x)
+    return x + M.mlp_forward(cfg, p["mlp"], h), new_cache
+
+
+def prefill_chunk_block(cfg, kind, p, cache, x, positions, pages_row, n_valid):
+    """One layer of the fixed-shape chunked-prefill program."""
+    _paged_refusals(cfg, kind)
+    h = apply_norm(cfg, p["attn_norm"], x)
+    h, new_cache = A.gqa_prefill_chunk(cfg, p["attn"], cache, h, positions,
+                                       pages_row, n_valid)
     x = x + h
     h = apply_norm(cfg, p["mlp_norm"], x)
     return x + M.mlp_forward(cfg, p["mlp"], h), new_cache
@@ -264,21 +297,78 @@ class DecoderLM(B.Model):
         return cache
 
     def supports_paged_cache(self) -> bool:
-        """The paged cache comes with the paged-engine slice; an ssm state
-        has no token axis to page, so it stays dense there too."""
-        return False
+        """Paged serving needs every decode layer to be full-context
+        attention over an append-only KV stream: sliding windows re-use
+        ring positions (a page would need rewriting after sharing) and SSM
+        state is a dense recurrence with no token axis to page."""
+        cfg = self.cfg
+        return (cfg.arch_type in ("dense", "moe") and cfg.window == 0
+                and not cfg.n_patches)
+
+    def init_paged_cache(self, n_blocks, block_len, dtype=torch.bfloat16,
+                         device=None):
+        """One stacked block pool per stack, every leaf ``[L, n_blocks + 1,
+        block_len, ...]``: the allocator's ``n_blocks`` pages and the
+        scratch block that takes suppressed writes (``attention.py``)."""
+        cfg = self.cfg
+        if not self.supports_paged_cache():
+            raise NotImplementedError(
+                f"{cfg.name}: paged KV cache needs full-context attention "
+                f"layers (arch {cfg.arch_type}, window {cfg.window})")
+        cache: Dict[str, Any] = {}
+        for name, kind, idxs in self._stacks():
+            one = A.gqa_init_paged_cache(cfg, n_blocks, block_len, dtype,
+                                         device)
+            cache[name] = {k: torch.zeros((len(idxs),) + tuple(v.shape),
+                                          dtype=v.dtype, device=v.device)
+                           for k, v in one.items()}
+        return cache
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, positions):
+    def prefill_chunk(self, params, cache, pages_row, tokens, start: int,
+                      n_valid: int):
+        """Run one fixed-shape prompt chunk into a request's pages.
+
+        ``tokens`` [C] (entries past ``n_valid`` are padding, zeroed by the
+        caller), ``start`` the absolute position of ``tokens[0]``,
+        ``pages_row`` int32 [max_pages] this request's physical block ids.
+        Returns (logits of the last valid row [1, vocab], the cache updated
+        in place) — the logits only matter on an admission's final chunk.
+        """
+        cfg = self.cfg
+        x = self.embed_tokens(params, tokens[None])
+        positions = start + torch.arange(tokens.shape[0], device=x.device)
+        for name, kind, idxs in self._stacks():
+
+            def body(x, inp, kind=kind):
+                lp, lc = inp
+                x, _ = prefill_chunk_block(cfg, kind, lp, lc, x, positions,
+                                           pages_row, n_valid)
+                return x, None
+
+            x, _ = ST.layer_loop(body, (params[name], cache[name]), x,
+                                 len(idxs))
+        last = x[:, n_valid - 1]                                 # [1, D]
+        return self.logits(params, last[:, None])[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, positions, pages=None,
+                    active=None):
         """One token for every slot: logits [B, vocab]; the cache is updated
-        in place and returned."""
+        in place and returned.  With ``pages`` (int32 [B, max_pages]) the
+        cache is the block pool, read and written through the page tables;
+        ``active`` suppresses the writes of dead slots."""
         cfg = self.cfg
         x = self.embed_tokens(params, tokens[:, None])
         for name, kind, idxs in self._stacks():
 
             def body(x, inp, kind=kind):
                 lp, lc = inp
-                x, _ = decode_block(cfg, kind, lp, lc, x, positions)
+                if pages is not None:
+                    x, _ = decode_block_paged(cfg, kind, lp, lc, x, positions,
+                                              pages, active)
+                else:
+                    x, _ = decode_block(cfg, kind, lp, lc, x, positions)
                 return x, None
 
             x, _ = ST.layer_loop(body, (params[name], cache[name]), x,

@@ -5,6 +5,7 @@
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
@@ -22,7 +23,24 @@ def _resolve_graph(graph: Dict[str, Any]) -> Dict[str, Any]:
     return resolve_config(graph)
 
 
-def execute_serve(cfg, *, device=None, log=print) -> Dict[str, Any]:
+def fingerprint(doc: Dict[str, Any]) -> str:
+    """sha256 of the run document as run (sorted keys, no whitespace).  The
+    JAX package hashes its materialized form (factory defaults filled in),
+    so the two packages' fingerprints of one document differ."""
+    text = json.dumps(doc, sort_keys=True, separators=(",", ":"), default=str)
+    return "sha256:" + hashlib.sha256(text.encode()).hexdigest()
+
+
+def execute_serve(cfg, *, device=None, write_files: bool = False,
+                  log=print) -> Dict[str, Any]:
+    """The ``serve`` kind: the static-batch shim, or with ``engine: true``
+    the continuous-batching engine over the workload's seeded trace (JAX's
+    ``run/kinds.py::execute_serve``).  The engine run adds the
+    ``compare_static`` shim baseline on the same params and, with
+    ``write_files``, writes ``BENCH_serve_<name>.json`` into ``bench_dir``,
+    which defaults to the run's ``output_dir``.  (JAX's default is the
+    working directory: run from the repo root, it overwrites the JAX
+    package's tracked ``BENCH_serve_quickstart.json``.)"""
     graph = _resolve_graph(cfg.graph)
     model = graph.get("model")
     if model is None:
@@ -34,9 +52,86 @@ def execute_serve(cfg, *, device=None, log=print) -> Dict[str, Any]:
     from ..launch.serve import serve_benchmark
 
     s = cfg.settings
-    return serve_benchmark(model, batch=s.batch, prompt_len=s.prompt_len,
-                           gen=s.gen, ckpt=s.ckpt, seed=s.seed, device=device,
-                           log=log)
+    if not s.engine:
+        return serve_benchmark(model, batch=s.batch, prompt_len=s.prompt_len,
+                               gen=s.gen, ckpt=s.ckpt, seed=s.seed,
+                               device=device, log=log)
+
+    from ..serve.engine import ServeEngine, load_params
+    from ..serve.workload import (shared_prefix_trace, synthetic_trace,
+                                  trace_summary)
+    from ..telemetry import build_recorder
+
+    w, samp = s.workload, s.sampling
+    longest_prompt = w.prefix_len + max(w.prompt_lens)   # tails when prefixed
+    max_len = s.max_len or (longest_prompt + max(w.gen_tokens))
+    params = load_params(model, ckpt=s.ckpt, seed=s.seed, device=device)
+    rec = build_recorder(s.telemetry, output_dir=cfg.output_dir,
+                         run=cfg.name, kind=cfg.kind, write=write_files,
+                         log=log)
+    engine = ServeEngine(model, params, n_slots=s.n_slots, max_len=max_len,
+                         greedy=samp.temperature <= 0,
+                         block_len=None if s.block_len < 0 else s.block_len,
+                         n_blocks=s.n_blocks, prefill_chunk=s.prefill_chunk,
+                         prefix_cache=s.prefix_cache,
+                         deadline_s=s.deadline_s, watchdog_s=s.watchdog_s,
+                         telemetry=rec, log=log)
+    kw = dict(seed=w.seed, rate=w.rate, prompt_lens=w.prompt_lens,
+              gen_tokens=w.gen_tokens, temperature=samp.temperature,
+              top_k=samp.top_k, top_p=samp.top_p, eos_id=s.eos_id,
+              max_len=max_len)
+    if w.prefix_len:
+        trace = shared_prefix_trace(w.n_requests, model.cfg.vocab,
+                                    prefix_len=w.prefix_len,
+                                    n_prefixes=w.n_prefixes, **kw)
+    else:
+        trace = synthetic_trace(w.n_requests, model.cfg.vocab, **kw)
+    ts = trace_summary(trace)
+    log(f"serve engine: {ts['n_requests']} requests "
+        f"({ts['prompt_tokens']} prompt tokens, gen budget "
+        f"{ts['gen_budget']}, span {ts['span_s']:.2f}s) over "
+        f"{s.n_slots} slots (max_len {max_len}, "
+        f"{'paged' if engine.paged else 'dense'} cache)")
+    if rec is not None:
+        rec.event("run_start", n_requests=ts["n_requests"],
+                  n_slots=s.n_slots)
+    try:
+        result: Dict[str, Any] = engine.run(trace, realtime=w.realtime)
+    except BaseException:
+        if rec is not None:
+            rec.close()
+        raise
+    result["arch"] = model.cfg.name
+    # resilience fields of the BENCH_* schema (serving never rolls back or
+    # checkpoints; a clean engine run reports zeros)
+    result.update(rollback_count=0, retry_count=0, graceful_exit=False)
+    if s.compare_static:
+        # equal-footing baseline: the static-batch shim at batch=n_slots and
+        # the longest workload shape: continuous batching must not decode
+        # slower than a lockstep batch of the same width
+        shim = serve_benchmark(model, batch=s.n_slots,
+                               prompt_len=longest_prompt,
+                               gen=max(w.gen_tokens), seed=s.seed,
+                               params=params, device=device, log=log)
+        shim.pop("generated_ids", None)
+        result["static_shim"] = shim
+    if rec is not None:
+        rec.event("run_end", completed=result.get("completed"),
+                  tok_s=result.get("tok_s"))
+        result["telemetry"] = rec.summary()
+        rec.close()
+    if write_files:
+        bench_dir = s.bench_dir or cfg.output_dir
+        os.makedirs(bench_dir, exist_ok=True)
+        bench = {k: v for k, v in result.items() if k != "requests"}
+        path = os.path.join(bench_dir, f"BENCH_serve_{cfg.name}.json")
+        with open(path, "w") as f:
+            json.dump({**bench, "name": cfg.name,
+                       "fingerprint": fingerprint(cfg.doc)}, f, indent=2,
+                      default=str)
+            f.write("\n")
+        result["bench_file"] = path
+    return result
 
 
 def execute_train(cfg, *, device=None, write_files: bool = False,
@@ -120,7 +215,8 @@ def execute_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
         result = execute_train(cfg, device=device, write_files=write_result,
                                log=log)
     else:
-        result = execute_serve(cfg, device=device, log=log)
+        result = execute_serve(cfg, device=device, write_files=write_result,
+                               log=log)
     if write_result:
         os.makedirs(cfg.output_dir, exist_ok=True)
         path = os.path.join(cfg.output_dir, "result.json")

@@ -35,6 +35,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(f"done: {result['steps']} steps, no logged points",
                   flush=True)
+    elif "bench_file" in result:
+        print(f"done: {result['completed']}/{result['n_requests']} requests, "
+              f"{result['tok_s']} tok/s, decode {result['decode_tok_s']} "
+              f"tok/s, prefix-cache hit rate "
+              f"{result['prefill_cache_hit_rate']}; bench: "
+              f"{result['bench_file']}", flush=True)
     else:
         print(f"done: {result['batch']} requests x {result['gen']} tokens, "
               f"prefill {result['prefill_tok_s']} tok/s, decode "

@@ -5,24 +5,17 @@ A run document is a YAML mapping with a ``run:`` header naming the kind and
 a per-kind settings section; everything else is the component graph the
 resolver builds.  ``train`` drives the resolved gym for ``steps`` steps with
 its telemetry; ``serve`` runs the static-batch shim (``batch``,
-``prompt_len``, ``gen``, ``seed``).  The JAX package's other kinds and
-settings are recognised and refused with the slice that will bring them,
-so a document never runs with settings ignored.
+``prompt_len``, ``gen``, ``seed``) or, with ``engine: true``, the
+continuous-batching engine over a seeded ``workload`` with per-request
+``sampling``.  The JAX package's other kinds and settings are recognised
+and refused with the slice that will bring them, so a document never runs
+with settings ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional
-
-#: settings of ``run.serve`` that only the continuous-batching engine reads
-ENGINE_FIELDS = ("n_slots", "max_len", "eos_id", "block_len", "n_blocks",
-                 "prefill_chunk", "prefix_cache", "sampling", "workload",
-                 "compare_static", "bench_dir", "deadline_s", "watchdog_s",
-                 "faults", "telemetry")
-_ENGINE_SLICE = ("the continuous-batching engine (paged KV cache, sampling, "
-                 "workloads) comes with the paged-engine and sampling slices "
-                 "of the port")
+from typing import Any, Dict, Optional, Type
 
 
 #: the JAX package's other run kinds, and the slice of the port that brings
@@ -126,9 +119,95 @@ class TrainSettings:
 
 
 @dataclasses.dataclass
+class SamplingSettings:
+    """``run.serve.sampling``: default sampling knobs for engine workloads.
+
+    ``temperature <= 0`` is greedy; ``top_k <= 0`` and ``top_p: 1.0``
+    disable those filters."""
+
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+    def __post_init__(self):
+        if not 0.0 < self.top_p <= 1.0:
+            raise RunError(f"run.serve.sampling.top_p must be in (0, 1], "
+                           f"got {self.top_p}")
+        if self.top_k < 0:
+            raise RunError(f"run.serve.sampling.top_k must be >= 0, "
+                           f"got {self.top_k}")
+
+
+@dataclasses.dataclass
+class WorkloadSettings:
+    """``run.serve.workload``: the seeded synthetic trace the engine serves.
+
+    ``rate`` is the Poisson arrival rate in requests/second (0 = all at
+    t=0); ``prompt_lens``/``gen_tokens`` are per-request choice sets;
+    ``prefix_len > 0`` makes it a shared-prefix trace whose ``prompt_lens``
+    are the tails after the prefix."""
+
+    n_requests: int = 8
+    rate: float = 0.0
+    prompt_lens: Any = (16, 32)
+    gen_tokens: Any = (8, 16)
+    seed: int = 0
+    realtime: bool = True
+    prefix_len: int = 0
+    n_prefixes: int = 1
+
+    def __post_init__(self):
+        if self.n_requests < 1:
+            raise RunError("run.serve.workload.n_requests must be >= 1")
+        if self.prefix_len < 0:
+            raise RunError(f"run.serve.workload.prefix_len must be >= 0, "
+                           f"got {self.prefix_len}")
+        if self.n_prefixes < 1:
+            raise RunError(f"run.serve.workload.n_prefixes must be >= 1, "
+                           f"got {self.n_prefixes}")
+        for field in ("prompt_lens", "gen_tokens"):
+            val = getattr(self, field)
+            if isinstance(val, int):
+                val = (val,)
+            if not isinstance(val, (list, tuple)) or not val or not all(
+                    isinstance(v, int) and v > 0 for v in val):
+                raise RunError(f"run.serve.workload.{field} must be a "
+                               f"non-empty list of positive ints, got {val!r}")
+            setattr(self, field, list(val))
+
+
+def _coerce_block(kind: str, name: str, value: Any, cls: Type) -> Any:
+    """Nested settings block: mapping -> dataclass (None -> defaults)."""
+    if value is None:
+        return cls()
+    if isinstance(value, cls):
+        return value
+    if not isinstance(value, dict):
+        raise RunError(f"run.{kind}.{name} must be a mapping")
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(value) - fields
+    if unknown:
+        raise RunError(f"run.{kind}.{name}: unknown keys {sorted(unknown)}; "
+                       f"accepted: {sorted(fields)}")
+    return cls(**value)
+
+
+@dataclasses.dataclass
 class ServeSettings:
-    """``run.serve``: the static-batch shim — ``batch`` greedy requests of
-    ``prompt_len`` random tokens, ``gen`` tokens each."""
+    """``run.serve``: inference serving.
+
+    ``engine: false`` (default) is the static-batch shim — ``batch``
+    identical greedy requests of ``prompt_len`` random tokens, ``gen``
+    tokens each.  ``engine: true`` runs the continuous-batching engine:
+    ``n_slots`` cache slots, a ``workload`` trace with mid-flight
+    admission, per-request ``sampling``, EOS stopping, the paged knobs
+    (``block_len`` -1 auto / 0 dense, ``n_blocks``, ``prefill_chunk``,
+    ``prefix_cache``), deadlines and the watchdog, and a
+    ``BENCH_serve_<name>.json`` artifact (``compare_static`` adds the
+    equal-occupancy static-shim baseline).  ``bench_dir`` empty means the
+    run's ``output_dir`` (see ``run.api.execute_serve``).  ``ckpt``
+    (ROADMAP A4) and ``faults`` (A5) are refused.
+    """
 
     batch: int = 4
     prompt_len: int = 32
@@ -136,13 +215,48 @@ class ServeSettings:
     ckpt: str = ""
     seed: int = 0
     engine: bool = False
+    n_slots: int = 4
+    max_len: int = 0              # 0 => derived from the workload
+    eos_id: int = -1              # -1 => requests only stop on budget
+    block_len: int = -1           # paged KV page size; -1 auto, 0 dense pool
+    n_blocks: int = 0             # 0 => (n_slots + 1) * pages-per-request
+    prefill_chunk: int = 0        # 0 => 2 * block_len (must divide by it)
+    prefix_cache: bool = True     # radix prefix sharing (paged mode only)
+    sampling: Any = None          # mapping -> SamplingSettings
+    workload: Any = None          # mapping -> WorkloadSettings
+    compare_static: bool = True
+    bench_dir: str = ""           # where BENCH_serve_<name>.json lands
+    deadline_s: float = 0.0       # per-request wall deadline (0 = none)
+    watchdog_s: float = 0.0       # no-progress tick watchdog (0 = off)
+    faults: Any = ()              # chaos rows (serve_stall): ROADMAP A5
+    telemetry: Any = None         # mapping/bool -> TelemetrySettings
 
     def __post_init__(self):
-        if self.engine:
-            raise NotImplementedError(f"run.serve.engine: {_ENGINE_SLICE}")
+        self.telemetry = _coerce_telemetry("serve", self.telemetry)
+        self.sampling = _coerce_block("serve", "sampling", self.sampling,
+                                      SamplingSettings)
+        self.workload = _coerce_block("serve", "workload", self.workload,
+                                      WorkloadSettings)
+        if self.faults:
+            raise NotImplementedError(
+                "run.serve.faults: fault injection comes with resilience "
+                "(ROADMAP A5)")
+        self.faults = []
         if min(self.batch, self.prompt_len, self.gen) < 1:
             raise RunError(f"run.serve: batch/prompt_len/gen must be >= 1, got "
                            f"{self.batch}/{self.prompt_len}/{self.gen}")
+        if self.deadline_s < 0 or self.watchdog_s < 0:
+            raise RunError(f"run.serve.deadline_s/watchdog_s must be >= 0, "
+                           f"got {self.deadline_s}/{self.watchdog_s}")
+        if self.engine and self.n_slots < 1:
+            raise RunError(f"run.serve.n_slots must be >= 1, "
+                           f"got {self.n_slots}")
+        if self.block_len < -1:
+            raise RunError(f"run.serve.block_len must be -1 (auto), 0 "
+                           f"(dense), or a page size, got {self.block_len}")
+        if self.n_blocks < 0 or self.prefill_chunk < 0:
+            raise RunError(f"run.serve.n_blocks/prefill_chunk must be >= 0, "
+                           f"got {self.n_blocks}/{self.prefill_chunk}")
 
 
 @dataclasses.dataclass
@@ -152,6 +266,7 @@ class RunConfig:
     output_dir: str
     settings: Any
     graph: Dict[str, Any]
+    doc: Dict[str, Any]           # the whole document, ``run`` included
 
 
 _SETTINGS = {"train": TrainSettings, "serve": ServeSettings}
@@ -160,6 +275,7 @@ _SETTINGS = {"train": TrainSettings, "serve": ServeSettings}
 def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConfig:
     if not isinstance(doc, dict):
         raise RunError("run document must be a mapping")
+    whole = doc
     doc = dict(doc)
     run_sec = dict(doc.pop("run", None) or {})
     doc_kind = run_sec.get("kind") or kind
@@ -176,11 +292,6 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConf
     if unknown:
         raise RunError(f"run section has unknown keys {sorted(unknown)}")
     section = dict(run_sec.get(doc_kind) or {})
-    if doc_kind == "serve":
-        engine_only = sorted(set(section) & set(ENGINE_FIELDS))
-        if engine_only:
-            raise NotImplementedError(f"run.serve {engine_only}: "
-                                      f"{_ENGINE_SLICE}")
     cls = _SETTINGS[doc_kind]
     fields = {f.name for f in dataclasses.fields(cls)}
     if set(section) - fields:
@@ -191,4 +302,4 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConf
     output_dir = str(run_sec.get("output_dir")
                      or os.path.join("results", "runs", name))
     return RunConfig(kind=doc_kind, name=name, output_dir=output_dir,
-                     settings=cls(**section), graph=doc)
+                     settings=cls(**section), graph=doc, doc=whole)

@@ -1,21 +1,41 @@
-"""Continuous-batching serving engine, dense slot pool
-(port of ``repro.serve.engine``).
+"""Continuous-batching serving engine (port of ``repro.serve.engine``).
 
-The KV cache is a dense slot pool (``model.init_cache(n_slots, max_len)``,
-every leaf ``[L, n_slots, max_len, ...]``).  A host scheduler admits queued
-requests into free slots — one prefill per request straight into its slot
-row — and every tick decodes all slots in one step
-(``train.steps.make_engine_step``); slots retire on EOS or budget.  Cache
-and slot state live on the device and are updated in place.  The host read
-of each tick's ``sampled``/``finished`` (and of each admission's first
-token) is the sync point that ``jax.device_get`` was in JAX, so the host
-clock around it measures device work.
+Two cache layouts share one scheduler:
 
-This slice ports the greedy, dense engine that the static-batch shim
-drives.  The paged cache with prefix sharing and chunked prefill, the
-sampling head, request deadlines and the no-progress watchdog, sharded
-serving, telemetry spans and fault injection come with later slices and
-raise here.
+- **Paged** (the default when the arch supports it): the KV cache is a
+  block pool (``model.init_paged_cache(n_blocks, block_len)``, every leaf
+  ``[L, n_blocks + 1, block_len, ...]`` with one scratch block) and each
+  slot owns a page-table row of physical block ids.  A radix prefix index
+  (:mod:`repro_torch.serve.paging`) maps shared prompt prefixes onto
+  refcounted pages, so a request whose prompt extends a cached stream only
+  prefills its tail — and admission is *chunked*: fixed-shape prompt
+  chunks interleave with decode ticks, so a long prefill never stalls
+  in-flight decodes for more than one chunk.
+- **Dense** slot rows (``model.init_cache(n_slots, max_len)``) for archs a
+  block pool cannot express — sliding-window ring buffers, SSM state — and
+  for ``block_len=0`` (the static shim pins it, as in JAX).
+
+Every tick decodes all slots in one step (``train.steps.make_engine_step``:
+decode + sampling head + stop flags); cache and slot state live on the
+device and are updated in place.  The host reads each tick's ``sampled``
+and ``finished`` with one copy, and each admission's first token — the
+sync points that ``jax.device_get`` was in JAX, so the host clock around
+them measures device work.  Slots retire on EOS, budget or deadline,
+releasing their pages at once (prompt pages stay cached in the radix tree
+until LRU eviction needs the space).
+
+Determinism contract: at a fixed pool shape, a request's token stream
+depends only on its own prompt, sampling settings and seed — never on slot
+index, admission order, co-resident requests, or (paged) whether its
+prefix came from the radix cache or a cold prefill.  Every program's
+shapes are independent of the prompt (a chunk is always ``[1,
+prefill_chunk]`` over the full ``max_pages * block_len`` view, a tick always
+covers ``n_slots``), nothing branches on a request's contents, and the
+sampling noise is a hash of ``(seed, generation index)``.
+``docs/serving.md`` spells out the argument.
+
+Sharded serving (``mesh``/``plan``, ROADMAP A8) and fault injection
+(``fault_injector``, A5) come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -23,11 +43,16 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..train import steps as ST
+from .paging import BlockAllocator, RadixPrefixIndex
+from .sampling import request_key, sample_tokens, token_key
 from .workload import Request, percentiles
+
+DEFAULT_BLOCK_LEN = 16
 
 
 class EngineError(Exception):
@@ -41,7 +66,8 @@ def load_params(model, ckpt: str = "", seed: int = 0, device=None):
     if ckpt:
         raise NotImplementedError(
             "serving from a checkpoint comes with the checkpoint slice of "
-            "the port; run without ckpt for seeded random weights")
+            "the port (ROADMAP A4); run without ckpt for seeded random "
+            "weights")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -55,47 +81,114 @@ def _params_device(params) -> torch.device:
 
 
 class ServeEngine:
-    """Continuous-batching engine over one model (dense slot pool)."""
+    """Continuous-batching engine over one model."""
 
     def __init__(self, model, params, *, n_slots: int, max_len: int,
-                 cache_dtype=torch.bfloat16, greedy: bool = True,
-                 block_len: Optional[int] = None,
+                 cache_dtype=torch.bfloat16, mesh=None, plan=None,
+                 greedy: bool = False, block_len: Optional[int] = None,
+                 n_blocks: int = 0, prefill_chunk: int = 0,
+                 prefix_cache: bool = True,
+                 deadline_s: float = 0.0, watchdog_s: float = 0.0,
+                 fault_injector=None, telemetry=None,
                  log: Optional[Callable[[str], None]] = None):
-        """``greedy=True`` is the only tick this slice builds.
-        ``block_len`` must be None or 0 (dense pool): the paged cache comes
-        with the paged-engine slice, and a paged request never goes dense
-        silently."""
+        """``greedy=True`` builds a sampler-free decode tick — use it when
+        every request this engine will serve is greedy (the static shim);
+        the engine rejects sampled requests then.
+
+        ``block_len=None`` (default) auto-selects: paged KV cache with
+        ``DEFAULT_BLOCK_LEN``-token pages when the arch supports it, the
+        dense slot pool otherwise.  ``block_len=0`` forces dense;
+        ``block_len>0`` forces paged (raising for unsupported archs).
+        ``n_blocks=0`` sizes the pool to ``(n_slots + 1) * max_pages`` —
+        full residency plus one request's worth of retained prefix pages.
+        ``prefill_chunk`` (default ``2 * block_len``) is the fixed chunk
+        the admission prefill is split into — the most a prefill may stall
+        co-resident decodes, and the grid cached pages are canonical on
+        (must be a multiple of ``block_len``).  ``prefix_cache=False`` keeps
+        the block pool but disables radix matching/insertion.
+
+        ``deadline_s`` is a wall deadline per request from its arrival (0 =
+        none; ``Request.deadline_s`` overrides it per request);
+        ``watchdog_s`` raises when one tick takes longer (0 = off; only sane
+        with warm-up).  ``telemetry`` (a ``TelemetryRecorder``) gets each
+        request's ``serve/request|queued|prefill|decode`` spans and one
+        ``serve_summary`` metric row a run.
+        """
         cfg = model.cfg
         if cfg.arch_type == "audio" or cfg.n_patches:
             raise EngineError(
-                f"{cfg.name}: the serving engine drives text decoders")
+                f"{cfg.name}: the serving engine drives text decoders; "
+                f"audio/vlm prompts need modality extras the slot scheduler "
+                f"does not carry")
+        if mesh is not None or plan is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh/plan) comes with parallelism "
+                "(ROADMAP A8)")
+        if fault_injector is not None:
+            raise NotImplementedError(
+                "fault injection (serve_stall) comes with resilience "
+                "(ROADMAP A5)")
         if n_slots < 1 or max_len < 2:
             raise EngineError(f"need n_slots >= 1 and max_len >= 2, got "
                               f"{n_slots}/{max_len}")
-        if block_len is not None and block_len > 0 \
-                or (block_len is None and model.supports_paged_cache()):
-            raise NotImplementedError(
-                "the paged KV cache comes with the paged-engine slice of the "
-                "port; set block_len=0 for the dense slot pool")
-        if not greedy:
-            raise NotImplementedError(
-                "sampled requests come with the sampling slice of the port; "
-                "build the engine with greedy=True")
+        if deadline_s < 0 or watchdog_s < 0:
+            raise EngineError(f"deadline_s/watchdog_s must be >= 0, got "
+                              f"{deadline_s}/{watchdog_s}")
         self.model = model
         self.params = params
         self.device = _params_device(params)
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.cache_dtype = cache_dtype
+        self.deadline_s = float(deadline_s)
+        self.watchdog_s = float(watchdog_s)
+        self.telemetry = telemetry
         self.log = log or (lambda msg: None)
-        self.greedy = True
-        self.paged = False
-        self._tick = ST.make_engine_step(model, greedy=True, paged=False)
+        supports_paged = model.supports_paged_cache()
+        if block_len is None:
+            self.block_len = DEFAULT_BLOCK_LEN if supports_paged else 0
+        else:
+            self.block_len = int(block_len)
+            if self.block_len > 0 and not supports_paged:
+                raise EngineError(
+                    f"{cfg.name}: paged KV cache needs full-context "
+                    f"attention decode layers (arch {cfg.arch_type}, window "
+                    f"{cfg.window}); set block_len: 0 for the dense pool")
+        self.paged = self.block_len > 0
+        if self.paged:
+            self.block_len = min(self.block_len, self.max_len)
+            self.max_pages = -(-self.max_len // self.block_len)
+            self.n_blocks = int(n_blocks) or (self.n_slots + 1) * self.max_pages
+            if self.n_blocks < self.max_pages:
+                raise EngineError(
+                    f"n_blocks {self.n_blocks} cannot hold one max_len "
+                    f"request ({self.max_pages} pages of {self.block_len})")
+            chunk = int(prefill_chunk) or 2 * self.block_len
+            if chunk < 1 or chunk % self.block_len:
+                raise EngineError(
+                    f"prefill_chunk {chunk} must be a positive multiple of "
+                    f"block_len {self.block_len}: the chunk grid is what "
+                    f"makes cached pages bitwise canonical")
+            self.prefill_chunk = min(chunk, self.max_pages * self.block_len)
+            self.prefix_cache = bool(prefix_cache)
+            self._chunk = ST.make_prefill_chunk_step(model)
+        else:
+            self.max_pages = 0
+            self.n_blocks = 0
+            self.prefill_chunk = 0
+            self.prefix_cache = False
+        self.greedy = bool(greedy)
+        self._tick = ST.make_engine_step(model, greedy=self.greedy,
+                                         paged=self.paged)
 
     # -- device state --------------------------------------------------------
     def _init_pool(self):
-        cache = self.model.init_cache(self.n_slots, self.max_len,
-                                      self.cache_dtype, self.device)
+        if self.paged:
+            cache = self.model.init_paged_cache(self.n_blocks, self.block_len,
+                                                self.cache_dtype, self.device)
+        else:
+            cache = self.model.init_cache(self.n_slots, self.max_len,
+                                          self.cache_dtype, self.device)
         n, dev = self.n_slots, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         slots = {
@@ -105,26 +198,69 @@ class ServeEngine:
             "n_gen": torch.zeros((n,), **i32),
             "max_gen": torch.ones((n,), **i32),
             "eos": torch.full((n,), -1, **i32),
+            "key": torch.zeros((n, 2), dtype=torch.int64, device=dev),
+            "temperature": torch.zeros((n,), dtype=torch.float32, device=dev),
+            "top_k": torch.zeros((n,), **i32),
+            "top_p": torch.ones((n,), dtype=torch.float32, device=dev),
         }
         return cache, slots
 
-    @torch.no_grad()
-    def _admit(self, cache, slots, prompt, slot: int, max_gen: int, eos: int):
-        """Prefill one request into ``slot`` and write its slot state;
-        returns the first token and whether the request already finished
-        (both still on the device)."""
+    def _reset_paging(self):
+        """Fresh allocator / radix tree / page table for one ``run``."""
+        self._alloc = BlockAllocator(self.n_blocks)
+        self._radix = RadixPrefixIndex(self.block_len, self._alloc)
+        self._pt = np.full((self.n_slots, self.max_pages), -1, np.int32)
+        self._pt_dev = None                  # lazily refreshed device copy
+        self._req_blocks: Dict[int, List[int]] = {}   # rid -> mapped blocks
+
+    def _pages_dev(self):
+        """The device copy of the host page table, copied (a private copy,
+        so later host edits cannot reach it) only after it changed."""
+        if self._pt_dev is None:
+            self._pt_dev = torch.tensor(self._pt, device=self.device)
+        return self._pt_dev
+
+    # -- admission pieces (device work, no host sync) ------------------------
+    def _set_request(self, slots, slot: int, r: Request, budget: int):
+        """A request's sampling key and knobs, budget and stop token."""
+        key = request_key(r.seed).tolist()
+        slots["key"][slot, 0] = key[0]
+        slots["key"][slot, 1] = key[1]
+        slots["temperature"][slot] = float(r.temperature)
+        slots["top_k"][slot] = int(r.top_k)
+        slots["top_p"][slot] = float(r.top_p)
+        slots["max_gen"][slot] = int(budget)
+        slots["eos"][slot] = int(r.eos_id)
+
+    def _first_token(self, logits, slots, slot: int):
+        """Generation index 0 from the prefill's last-row logits [1, V],
+        with the slot's key and knobs (the same head as the tick)."""
+        if self.greedy:
+            return torch.argmax(logits[0], dim=-1).to(torch.int32)
+        s = slice(slot, slot + 1)
+        return sample_tokens(logits, token_key(slots["key"][s], 0),
+                             slots["temperature"][s], slots["top_k"][s],
+                             slots["top_p"][s])[0]
+
+    @staticmethod
+    def _start(slots, slot: int, tok, prompt_len: int) -> None:
+        """The slot decodes from ``prompt_len`` on, ``tok`` its first token;
+        it stays inactive when that token already finishes the request."""
+        slots["tokens"][slot] = tok
+        slots["pos"][slot] = prompt_len
+        slots["n_gen"][slot] = 1
+        slots["active"][slot] = ((tok != slots["eos"][slot])
+                                 & (slots["max_gen"][slot] > 1))
+
+    def _admit_dense(self, cache, slots, prompt, slot: int):
+        """Prefill ``prompt`` (int64 [P] on the device) into a dense slot
+        row; returns the cache and the first token, still on the device."""
         logits, cache = self.model.prefill_into(
             self.params, {"tokens": prompt[None]}, cache, slot,
             max_len=self.max_len, cache_dtype=self.cache_dtype)
-        tok = torch.argmax(logits[0], dim=-1).to(torch.int32)
-        finished = (tok == eos) | (max_gen <= 1)
-        slots["tokens"][slot] = tok
-        slots["pos"][slot] = prompt.shape[0]
-        slots["active"][slot] = ~finished
-        slots["n_gen"][slot] = 1
-        slots["max_gen"][slot] = max_gen
-        slots["eos"][slot] = eos
-        return cache, slots, tok, finished
+        tok = self._first_token(logits, slots, slot)
+        self._start(slots, slot, tok, prompt.shape[0])
+        return cache, tok
 
     def _budget(self, r: Request) -> int:
         P = r.prompt_len
@@ -132,65 +268,119 @@ class ServeEngine:
             raise EngineError(
                 f"request {r.rid}: prompt_len {P} does not fit "
                 f"max_len {self.max_len}")
-        if r.temperature > 0:
+        if self.greedy and r.temperature > 0:
             raise EngineError(
                 f"request {r.rid}: temperature {r.temperature} on a "
-                f"greedy-tick engine")
-        if r.deadline_s > 0:
-            raise EngineError(
-                f"request {r.rid}: deadlines come with the paged-engine slice "
-                f"of the port")
+                f"greedy-tick engine (built with greedy=True)")
         return min(int(r.max_new), self.max_len - P)
 
     def _warmup(self, prompt_lens) -> float:
-        """Run every path a trace will hit once against a sacrificial pool
-        (one admission per distinct prompt length, then one tick), so the
-        timed loop measures serving, not first-call set-up: cuBLAS handles,
-        allocator growth, the kernel library's build and load."""
+        """Run every path a trace will hit once against a sacrificial pool,
+        so the timed loop measures serving, not first-call set-up: cuBLAS
+        handles, allocator growth, the kernel library's build and load.
+        Paged mode runs a fixed set (chunk, first token, tick) whatever the
+        prompt lengths; dense mode one admission per distinct length."""
         t0 = time.perf_counter()
         cache, slots = self._init_pool()
-        for P in sorted(set(prompt_lens)):
-            cache, slots, _, _ = self._admit(
-                cache, slots, torch.zeros((P,), dtype=torch.int64,
-                                          device=self.device), 0, 1, -1)
-        _, _, sampled, _ = self._tick(self.params, cache, slots)
-        sampled.cpu()
+        probe = Request(rid=-1, prompt=np.zeros((1,), np.int32), max_new=1)
+        self._set_request(slots, 0, probe, 1)
+        if self.paged:
+            pages = torch.zeros((self.n_slots, self.max_pages),
+                                dtype=torch.int32, device=self.device)
+            logits, cache = self._chunk(
+                self.params, cache, pages[0],
+                torch.zeros((self.prefill_chunk,), dtype=torch.int64,
+                            device=self.device), 0, 1)
+            self._start(slots, 0, self._first_token(logits, slots, 0), 1)
+            out = self._tick(self.params, cache, slots, pages)
+        else:
+            for P in sorted(set(prompt_lens)):
+                cache, _ = self._admit_dense(
+                    cache, slots, torch.zeros((P,), dtype=torch.int64,
+                                              device=self.device), 0)
+            out = self._tick(self.params, cache, slots)
+        out[2].cpu()
         return time.perf_counter() - t0
 
-    def step_probes(self, prompt: torch.Tensor) -> Dict[str, Callable[[], Any]]:
+    def step_probes(self, prompt: torch.Tensor, *, temperature: float = 0.0,
+                    top_k: int = 0,
+                    top_p: float = 1.0) -> Dict[str, Callable[[], Any]]:
         """One admission and one decode tick, each as a callable that runs
         that step alone, for a profiler or a timer: ``"admit"`` prefills
-        ``prompt`` (int64 ``[P]`` on the engine's device) into slot 0 and
-        ``"tick"`` decodes every slot, over a pool of their own whose slots
-        all hold ``prompt`` already.  Each call returns the step's device
-        tensors without a host sync; the pool is updated in place."""
+        ``prompt`` (int64 ``[P]`` on the engine's device; paged: in
+        ``ceil(P / prefill_chunk)`` chunks, one when it fits a chunk) into
+        slot 0 and samples its first token, and ``"tick"`` decodes every
+        slot, over a pool of their own whose slots all hold ``prompt``
+        already, each with the given sampling knobs (a paged pool gives
+        slot ``s`` the blocks ``s * max_pages ...``).  Each call returns
+        ``(cache, slots, tokens, finished)`` as device tensors without a host
+        sync; the pool is updated in place."""
         cache, slots = self._init_pool()
-        max_gen = self.max_len - int(prompt.shape[0])
+        P = int(prompt.shape[0])
+        max_gen = self.max_len - P
+        pages = None
+        if self.paged:
+            if self.n_blocks < self.n_slots * self.max_pages:
+                raise EngineError("step_probes needs n_blocks >= n_slots * "
+                                  "max_pages")
+            pages = torch.arange(self.n_slots * self.max_pages,
+                                 dtype=torch.int32, device=self.device
+                                 ).reshape(self.n_slots, self.max_pages)
+            C = self.prefill_chunk
+            toks = torch.zeros((-(-P // C) * C,), dtype=torch.int64,
+                               device=self.device)
+            toks[:P] = prompt
+
+        def admit(slot: int = 0):
+            nonlocal cache
+            if self.paged:
+                for lo in range(0, P, C):
+                    logits, cache = self._chunk(self.params, cache,
+                                                pages[slot], toks[lo:lo + C],
+                                                lo, min(C, P - lo))
+                tok = self._first_token(logits, slots, slot)
+                self._start(slots, slot, tok, P)
+            else:
+                cache, tok = self._admit_dense(cache, slots, prompt, slot)
+            return cache, slots, tok, ~slots["active"][slot]
+
         for s in range(self.n_slots):
-            cache, slots, _, _ = self._admit(cache, slots, prompt, s, max_gen,
-                                             -1)
-        return {
-            "admit": lambda: self._admit(cache, slots, prompt, 0, max_gen, -1),
-            "tick": lambda: self._tick(self.params, cache, slots),
-        }
+            r = Request(rid=s, prompt=np.zeros((P,), np.int32),
+                        max_new=max_gen, seed=s, temperature=temperature,
+                        top_k=top_k, top_p=top_p)
+            self._set_request(slots, s, r, max_gen)
+            admit(s)
+
+        def tick():
+            if self.paged:
+                return self._tick(self.params, cache, slots, pages)
+            return self._tick(self.params, cache, slots)
+
+        return {"admit": admit, "tick": tick}
 
     # -- the scheduler loop --------------------------------------------------
+    @torch.no_grad()
     def run(self, requests: Sequence[Request], *, realtime: bool = True,
             warmup: bool = True) -> Dict[str, Any]:
         """Serve a trace to completion; returns per-request rows + metrics.
 
-        ``realtime=False`` ignores arrival offsets (closed loop).  Metrics:
-        TTFT (arrival -> first token, queueing included), per-decode-token
-        latency percentiles, tokens/s, slot utilisation.  The first token of
-        every request comes from the prefill logits and counts to
-        prefill/TTFT; only later tokens count as decode throughput.
-        ``warmup`` time is reported as ``compile_s``, as in JAX.
+        ``realtime=False`` ignores arrival offsets (closed loop, maximum
+        pressure).  Metrics: TTFT (arrival -> first token, queueing
+        included; split hit/cold in paged mode), per-decode-token latency
+        percentiles, tokens/s, slot utilisation, and — paged — prefix-cache
+        hit rate plus allocator/eviction counters.  The first token of every
+        request comes from the prefill logits and counts to prefill/TTFT;
+        only later tokens count as decode throughput.  ``warmup`` time is
+        reported as ``compile_s``, as in JAX.
         """
         pending = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         budgets = {r.rid: self._budget(r) for r in pending}
         compile_s = (self._warmup([r.prompt_len for r in pending])
                      if warmup else 0.0)
         cache, slots = self._init_pool()
+        if self.paged:
+            self._reset_paging()
+        dev = self.device
         free: List[int] = list(range(self.n_slots))[::-1]
         slot_req: Dict[int, Request] = {}
         streams: Dict[int, List[int]] = {}
@@ -201,94 +391,290 @@ class ServeEngine:
         busy_slot_ticks = 0
         prefill_s = 0.0
         decode_s = 0.0
+        interleaved_ticks = 0
+        cached_prompt_tokens = 0
+        total_prompt_tokens = 0
+        timeouts = 0
+        tel = self.telemetry
+        do_spans = tel is not None and getattr(tel, "spans", False)
+        # (t_admit_begin, t_first_token) per rid, absolute perf_counter
+        # readings: the span anchors emitted when the request retires
+        span_times: Dict[int, Any] = {}
+        # one occupancy sample per decode tick: queue depth, busy slots and
+        # (paged) free pool blocks
         timeline: List[Dict[str, Any]] = []
+        # deadlines cost a scan per loop iteration: skip it entirely for the
+        # (default) deadline-free workload
+        deadlines_on = self.deadline_s > 0 or any(
+            r.deadline_s > 0 for r in pending)
+
+        def req_expiry(r: Request):
+            """Absolute wall time (vs t0) this request must finish by."""
+            dl = r.deadline_s or self.deadline_s
+            if dl <= 0:
+                return None
+            return (r.arrival_s if realtime else 0.0) + dl
+
         t0 = time.perf_counter()
 
-        def retire(slot: int, r: Request) -> None:
+        def retire(slot: int, r: Request, finish: str = "") -> None:
             stream = streams[r.rid]
+            t_ret = time.perf_counter()
             rows[r.rid].update(
                 n_gen=len(stream),
                 gen_ids=stream,
-                finish=("eos" if r.eos_id >= 0 and stream[-1] == r.eos_id
-                        else "length"),
-                done_s=round(time.perf_counter() - t0, 6),
+                finish=finish or ("eos" if r.eos_id >= 0
+                                  and stream[-1] == r.eos_id
+                                  else "length"),
+                done_s=round(t_ret - t0, 6),
             )
+            anchors = span_times.pop(r.rid, None)
+            if do_spans and anchors is not None:
+                t_adm, t_first = anchors
+                t_arr = t0 + rows[r.rid]["arrival_s"]
+                row = rows[r.rid]
+                req = tel.span_row(
+                    "serve/request", t_arr, t_ret, rid=r.rid, slot=slot,
+                    prompt_len=r.prompt_len, n_gen=len(stream),
+                    finish=row["finish"])
+                tel.span_row("serve/queued", t_arr, t_adm, parent=req,
+                             rid=r.rid)
+                tel.span_row("serve/prefill", t_adm, t_first, parent=req,
+                             rid=r.rid, cached_tokens=row["cached_tokens"],
+                             chunks=row["prefill_chunks"])
+                tel.span_row("serve/decode", t_first, t_ret, parent=req,
+                             rid=r.rid)
             slot_req.pop(slot, None)
             free.append(slot)
+            if self.paged:
+                # drop this request's references; pages also held by the
+                # radix tree survive for future prefix hits, private tail
+                # pages free immediately
+                blocks = self._req_blocks.pop(r.rid, None)
+                if blocks:
+                    self._alloc.release(blocks)
+                self._pt[slot, :] = -1
+                self._pt_dev = None
 
         def do_tick() -> None:
             nonlocal cache, slots, ticks, busy_slot_ticks, decode_s
             ta = time.perf_counter()
-            cache, slots, sampled, finished = self._tick(self.params, cache,
-                                                         slots)
-            sampled, finished = sampled.cpu(), finished.cpu()   # sync point
+            if self.paged:
+                cache, slots, sampled, finished = self._tick(
+                    self.params, cache, slots, self._pages_dev())
+            else:
+                cache, slots, sampled, finished = self._tick(
+                    self.params, cache, slots)
+            # one copy to the host: the tick's sync point
+            sampled, finished = torch.stack(
+                [sampled, finished.to(torch.int32)]).cpu().tolist()
             dt = time.perf_counter() - ta
+            if self.watchdog_s > 0 and dt > self.watchdog_s:
+                raise EngineError(
+                    f"no-progress watchdog: tick {ticks + 1} took {dt:.3f}s "
+                    f"(> watchdog_s={self.watchdog_s}) with "
+                    f"{len(slot_req)} request(s) in flight")
             decode_s += dt
             ticks += 1
             busy_slot_ticks += len(slot_req)
             for slot in list(slot_req):
                 r = slot_req[slot]
-                streams[r.rid].append(int(sampled[slot]))
+                streams[r.rid].append(sampled[slot])
                 tpot.append(dt)
-                if bool(finished[slot]):
+                if finished[slot]:
                     retire(slot, r)
             if len(timeline) < 100_000:
-                timeline.append({"t_s": round(time.perf_counter() - t0, 6),
-                                 "queue": len(pending), "busy": len(slot_req)})
+                sample = {"t_s": round(time.perf_counter() - t0, 6),
+                          "queue": len(pending), "busy": len(slot_req)}
+                if self.paged:
+                    sample["free_blocks"] = int(self._alloc.n_free)
+                timeline.append(sample)
 
         def admit_dense(r: Request) -> None:
-            nonlocal cache, slots, prefill_s
+            nonlocal cache, prefill_s
             slot = free.pop()
             ta = time.perf_counter()
-            prompt = torch.as_tensor(r.prompt, dtype=torch.int64,
-                                     device=self.device)
-            cache, slots, tok, fin = self._admit(cache, slots, prompt, slot,
-                                                 budgets[r.rid], r.eos_id)
-            tok, fin = int(tok), bool(fin)                      # sync point
+            self._set_request(slots, slot, r, budgets[r.rid])
+            prompt = torch.as_tensor(np.asarray(r.prompt, np.int64),
+                                     device=dev)
+            cache, tok = self._admit_dense(cache, slots, prompt, slot)
+            tok = int(tok)                                   # sync point
             tb = time.perf_counter()
             prefill_s += tb - ta
+            finish_admission(r, slot, tok, tb - ta, tb, cached=0, n_chunks=1,
+                             t_admit0=ta)
+
+        def admit_paged(r: Request) -> bool:
+            """Map pages, prefill the un-cached tail in fixed-size chunks
+            (interleaving one decode tick between chunks so co-resident
+            streams never stall longer than one chunk), sample the first
+            token, and publish the prompt's full pages to the radix tree.
+            Returns False when the pool cannot hold the request yet."""
+            nonlocal cache, prefill_s, interleaved_ticks
+            nonlocal cached_prompt_tokens, total_prompt_tokens
+            P, budget = r.prompt_len, budgets[r.rid]
+            bl, C = self.block_len, self.prefill_chunk
+            prompt = [int(t) for t in r.prompt]
+            n_pages_req = -(-(P + budget) // bl)
+            matched = []
+            if self.prefix_cache:
+                # match whole pages, capped one token short of the prompt
+                # (the last token must be recomputed for first-token logits)
+                # and floored to the chunk grid: the un-cached tail then
+                # starts exactly where a cold prefill's chunk would, which
+                # is what keeps hit == cold bitwise
+                matched = self._radix.match(prompt, ((P - 1) // C) * C)
+                keep = (len(matched) * bl // C) * C // bl
+                matched = matched[:keep]
+            n_fresh = n_pages_req - len(matched)
+            if n_fresh > self._alloc.n_free:
+                self._radix.evict(n_fresh)
+            if n_fresh > self._alloc.n_free:
+                if not slot_req:
+                    raise EngineError(
+                        f"request {r.rid}: needs {n_fresh} blocks, "
+                        f"{self._alloc.n_free}/{self.n_blocks} free with no "
+                        f"requests in flight — pool too small")
+                return False        # wait for a retirement
+            ta = time.perf_counter()
+            t_adm0 = ta             # admission begin (ta moves per chunk)
+            for node in matched:
+                self._alloc.retain(node.block)
+            blocks = [n.block for n in matched] + self._alloc.alloc(n_fresh)
+            slot = free.pop()
+            self._pt[slot, :] = -1
+            self._pt[slot, :len(blocks)] = blocks
+            self._pt_dev = None
+            self._req_blocks[r.rid] = blocks
+            S = len(matched) * bl
+            cached_prompt_tokens += S
+            total_prompt_tokens += P
+            n_chunks = -(-(P - S) // C)
+            # the page row and the zero-padded tail go to the device in one
+            # copy each; chunk ci reads toks[ci * C:(ci + 1) * C]
+            row_dev = torch.tensor(self._pt[slot], device=dev)
+            toks = np.zeros((n_chunks * C,), np.int64)
+            toks[:P - S] = prompt[S:]
+            toks = torch.as_tensor(toks, device=dev)
+            self._set_request(slots, slot, r, budget)
+            logits = None
+            for ci in range(n_chunks):
+                lo = S + ci * C
+                logits, cache = self._chunk(
+                    self.params, cache, row_dev, toks[ci * C:(ci + 1) * C],
+                    lo, min(C, P - lo))
+                if ci < n_chunks - 1 and slot_req:
+                    prefill_s += time.perf_counter() - ta
+                    do_tick()       # co-residents advance between chunks
+                    interleaved_ticks += 1
+                    ta = time.perf_counter()
+            tok = self._first_token(logits, slots, slot)
+            self._start(slots, slot, tok, P)
+            tok = int(tok)                                   # sync point
+            tb = time.perf_counter()
+            prefill_s += tb - ta
+            if self.prefix_cache:
+                # publish the prompt's full pages (chunk-written, canonical);
+                # existing nodes win, so a re-derived duplicate page stays
+                # private and frees at retire
+                self._radix.insert(prompt[:(P // bl) * bl], blocks)
+            finish_admission(r, slot, tok, tb - ta, tb, cached=S,
+                             n_chunks=n_chunks, t_admit0=t_adm0)
+            return True
+
+        def finish_admission(r, slot, tok, admit_s, tb, *, cached, n_chunks,
+                             t_admit0):
             arrival = r.arrival_s if realtime else 0.0
-            ttfts.append(tb - t0 - arrival)
+            ttft = tb - t0 - arrival
+            ttfts.append(ttft)
             streams[r.rid] = [tok]
+            # queue_s is the span the request sat unadmitted (arrival ->
+            # admission begin): with prefill_s it decomposes TTFT into
+            # queueing vs compute (interleaved decode ticks during a chunked
+            # admission account for any remainder)
+            queue_s = max(0.0, (t_admit0 - t0) - arrival)
             rows[r.rid] = {
                 "id": r.rid, "slot": slot, "prompt_len": r.prompt_len,
                 "max_new": budgets[r.rid], "arrival_s": arrival,
-                "ttft_s": round(tb - t0 - arrival, 6),
-                "queue_s": round(max(0.0, (ta - t0) - arrival), 6),
-                "prefill_s": round(tb - ta, 6),
-                "cached_tokens": 0,
-                "prefill_chunks": 1,
+                "ttft_s": round(ttft, 6),
+                "queue_s": round(queue_s, 6),
+                "prefill_s": round(admit_s, 6),
+                "cached_tokens": cached,
+                "prefill_chunks": n_chunks,
             }
+            span_times[r.rid] = (t_admit0, tb)
             slot_req[slot] = r
-            if fin:
+            if (r.eos_id >= 0 and tok == r.eos_id) or budgets[r.rid] <= 1:
                 retire(slot, r)
 
         while pending or slot_req:
             now = time.perf_counter() - t0
+            if deadlines_on and pending:
+                # queued requests past their deadline retire unserved —
+                # admitting them would spend prefill on a dead answer
+                keep: deque = deque()
+                for r in pending:
+                    exp = req_expiry(r)
+                    if exp is not None and now > exp:
+                        rows[r.rid] = {
+                            "id": r.rid, "slot": -1,
+                            "prompt_len": r.prompt_len,
+                            "max_new": budgets[r.rid],
+                            "arrival_s": r.arrival_s if realtime else 0.0,
+                            "cached_tokens": 0, "prefill_chunks": 0,
+                            "n_gen": 0, "gen_ids": [],
+                            "finish": "timeout",
+                            "done_s": round(now, 6),
+                        }
+                        timeouts += 1
+                    else:
+                        keep.append(r)
+                pending = keep
             while free and pending and (not realtime
                                         or pending[0].arrival_s <= now):
-                admit_dense(pending.popleft())
+                r = pending[0]
+                if self.paged:
+                    if not admit_paged(r):
+                        break
+                else:
+                    admit_dense(r)
+                pending.popleft()
                 now = time.perf_counter() - t0
             if not slot_req:
                 if pending and realtime:
                     time.sleep(min(max(pending[0].arrival_s - now, 0.0), 0.05))
                 continue
             do_tick()
+            if deadlines_on and slot_req:
+                now = time.perf_counter() - t0
+                for slot in list(slot_req):
+                    r = slot_req[slot]
+                    exp = req_expiry(r)
+                    if exp is not None and now > exp \
+                            and "n_gen" not in rows[r.rid]:
+                        # stop the slot on the device too (JAX leaves it
+                        # decoding): a live slot's position would run past
+                        # max_len, where the dense cache write has no row
+                        slots["active"][slot] = False
+                        retire(slot, r, finish="timeout")
+                        timeouts += 1
 
         elapsed = time.perf_counter() - t0
         gen_tokens = sum(len(s) for s in streams.values())
         decode_tokens = gen_tokens - len(streams)   # firsts belong to prefill
         util = (busy_slot_ticks / (ticks * self.n_slots)) if ticks else 0.0
         decode_tok_s = decode_tokens / decode_s if decode_s > 0 else 0.0
-        admitted = list(rows.values())
+        # queued-expired rows were never admitted (no prefill/ttft sample)
+        admitted = [w for w in rows.values() if "prefill_s" in w]
+        hit = [w for w in admitted if w["cached_tokens"] > 0]
+        cold = [w for w in admitted if w["cached_tokens"] == 0]
         result: Dict[str, Any] = {
             "n_slots": self.n_slots,
             "max_len": self.max_len,
             "n_requests": len(rows),
-            "completed": len(rows),
-            # deadlines come with the paged-engine slice; the key stays so
-            # the result matches JAX's
-            "timeouts": 0,
+            "completed": sum(1 for row in rows.values()
+                             if row.get("finish") in ("eos", "length")),
+            "timeouts": timeouts,
             "generated_tokens": gen_tokens,
             "decode_tokens": decode_tokens,
             "compile_s": round(compile_s, 4),
@@ -298,25 +684,53 @@ class ServeEngine:
             "ticks": ticks,
             "tok_s": int(gen_tokens / elapsed) if elapsed > 0 else 0,
             "decode_tok_s": int(decode_tok_s),
+            # occupancy-normalised: decode throughput at 100% occupancy
             "decode_tok_s_full": int(decode_tok_s / util) if util > 0 else 0,
             "slot_utilization": round(util, 4),
             "ttft_s": percentiles(ttfts),
             "queue_s": percentiles([w["queue_s"] for w in admitted]),
             # p90 beside JAX's p50/p95/p99: the port's chip run reports it
             "tpot_ms": percentiles([t * 1000 for t in tpot], (50, 90, 95, 99)),
-            # the dense pool has no prefix cache: every admission is cold
-            "prefill_cache_hit_rate": 0.0,
-            "ttft_hit_s": None,
-            "ttft_cold_s": percentiles([w["ttft_s"] for w in admitted]),
-            "prefill_hit_s": None,
-            "prefill_cold_s": percentiles([w["prefill_s"] for w in admitted]),
-            "interleaved_decode_ticks": 0,
+            "prefill_cache_hit_rate": (
+                round(cached_prompt_tokens / total_prompt_tokens, 4)
+                if total_prompt_tokens else 0.0),
+            "ttft_hit_s": percentiles([w["ttft_s"] for w in hit]),
+            "ttft_cold_s": percentiles([w["ttft_s"] for w in cold]),
+            "prefill_hit_s": percentiles([w["prefill_s"] for w in hit]),
+            "prefill_cold_s": percentiles([w["prefill_s"] for w in cold]),
+            "interleaved_decode_ticks": interleaved_ticks,
             "timeline": timeline,
             "requests": [rows[rid] for rid in sorted(rows)],
         }
+        if self.paged:
+            result["paging"] = {
+                "block_len": self.block_len,
+                "n_blocks": self.n_blocks,
+                "max_pages": self.max_pages,
+                "prefill_chunk": self.prefill_chunk,
+                "prefix_cache": self.prefix_cache,
+                "peak_blocks": int(self._alloc.peak_used),
+                "free_blocks": int(self._alloc.n_free),
+                "cached_blocks": int(self._radix.n_nodes),
+                "evictions": int(self._radix.evictions),
+            }
+        if tel is not None:
+            headline = {
+                "tok_s": result["tok_s"],
+                "decode_tok_s": result["decode_tok_s"],
+                "slot_utilization": result["slot_utilization"],
+                "completed": result["completed"],
+                "ticks": ticks,
+            }
+            for key in ("ttft_s", "queue_s", "tpot_ms"):
+                p = result.get(key) or {}
+                if "p50" in p:
+                    headline[f"{key}_p50"] = p["p50"]
+            tel.metric(None, headline, phase="serve_summary")
         self.log(
             f"engine: {result['n_requests']} requests, "
             f"{gen_tokens} tokens in {elapsed:.3f}s "
             f"({result['tok_s']} tok/s, decode {result['decode_tok_s']} "
-            f"tok/s, util {util:.0%})")
+            f"tok/s, util {util:.0%}, "
+            f"hit rate {result['prefill_cache_hit_rate']:.0%})")
         return result

@@ -1,7 +1,7 @@
 """Synthetic serving workloads: seeded request traces for the engine.
 
 The port's own copy of ``repro.serve.workload`` (it imports nothing of
-``repro``); the shared-prefix trace comes with the paged-engine slice.
+``repro``).
 
 A trace is a list of :class:`Request` — Poisson arrivals (or all-at-once
 when ``rate=0``), prompt/generation lengths drawn from small choice sets
@@ -69,6 +69,57 @@ def synthetic_trace(n_requests: int, vocab: int, *, seed: int = 0,
                     f"prompt_len {P} does not fit max_len {max_len}")
             G = min(G, max_len - P)
         prompt = rng.integers(3, vocab, size=P, dtype=np.int32)
+        out.append(Request(
+            rid=i, prompt=prompt, max_new=G, arrival_s=float(arrivals[i]),
+            seed=seed * 100003 + i, temperature=float(temperature),
+            top_k=int(top_k), top_p=float(top_p), eos_id=int(eos_id),
+        ))
+    return out
+
+
+def shared_prefix_trace(n_requests: int, vocab: int, *, prefix_len: int,
+                        n_prefixes: int = 1, seed: int = 0, rate: float = 0.0,
+                        prompt_lens: Sequence[int] = (8, 16),
+                        gen_tokens: Sequence[int] = (8, 16),
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 1.0, eos_id: int = -1,
+                        max_len: int = 0) -> List[Request]:
+    """Prefix-heavy trace: the system-prompt serving pattern.
+
+    ``n_prefixes`` shared prefixes of ``prefix_len`` tokens are drawn once
+    and assigned round-robin; each request's prompt is its prefix plus a
+    unique tail whose length is sampled from ``prompt_lens`` (which are
+    TAIL lengths here — total prompt length is ``prefix_len + tail``).
+    The first request on each prefix is a cold prefill; later ones should
+    hit the radix prefix cache.  Everything else matches
+    :func:`synthetic_trace` (Poisson arrivals, per-request seeds, budget
+    clipping against ``max_len``).
+    """
+    if n_requests <= 0:
+        raise ValueError(f"n_requests must be positive, got {n_requests}")
+    if prefix_len < 1 or n_prefixes < 1:
+        raise ValueError(f"need prefix_len >= 1 and n_prefixes >= 1, got "
+                         f"{prefix_len}/{n_prefixes}")
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(3, vocab, size=prefix_len, dtype=np.int32)
+                for _ in range(n_prefixes)]
+    if rate > 0:
+        arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n_requests))
+    else:
+        arrivals = np.zeros(n_requests)
+    out: List[Request] = []
+    for i in range(n_requests):
+        tail_len = int(rng.choice(list(prompt_lens)))
+        G = int(rng.choice(list(gen_tokens)))
+        P = prefix_len + tail_len
+        if max_len:
+            if P >= max_len:
+                raise ValueError(
+                    f"prompt_len {P} (prefix {prefix_len} + tail "
+                    f"{tail_len}) does not fit max_len {max_len}")
+            G = min(G, max_len - P)
+        tail = rng.integers(3, vocab, size=tail_len, dtype=np.int32)
+        prompt = np.concatenate([prefixes[i % n_prefixes], tail])
         out.append(Request(
             rid=i, prompt=prompt, max_new=G, arrival_s=float(arrivals[i]),
             seed=seed * 100003 + i, temperature=float(temperature),

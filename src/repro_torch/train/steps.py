@@ -3,9 +3,7 @@
 
 JAX jits these and donates the state; PyTorch runs them eagerly.  The train
 step returns a new state (params and optimizer state are new tensors); the
-serving steps update the cache and slot state in place.  The sampling head
-(temperature, top-k, top-p) comes with the sampling slice, so the engine
-tick is greedy.
+serving steps update the cache and slot state in place.
 """
 from __future__ import annotations
 
@@ -113,31 +111,47 @@ def make_serve_step(model):
     return serve_step
 
 
-def make_engine_step(model, greedy: bool = True, paged: bool = False):
+def make_engine_step(model, greedy: bool = False, paged: bool = False):
     """The continuous-batching decode tick over the whole slot pool.
 
-    ``slots`` is a dict of per-slot tensors (``n_slots`` leading dim):
-    ``tokens`` (last sampled token, fed to this tick), ``pos`` (its absolute
-    position), ``active``, ``n_gen`` (tokens generated so far, the prefill
-    token counts), ``max_gen`` (budget) and ``eos`` (-1 disables).
+    Decode every slot at its own position, run the sampling head (greedy /
+    temperature / top-k / top-p, seeded per request) and update the
+    per-slot stop flags.  ``slots`` is a dict of per-slot tensors
+    (``n_slots`` leading dim):
+
+    - ``tokens`` i32: last sampled token (fed to this tick's decode)
+    - ``pos`` i32: absolute position ``tokens`` is written/attended at
+    - ``active`` bool: slot holds a live request
+    - ``n_gen`` i32: tokens generated so far (the prefill token counts)
+    - ``max_gen`` i32: per-request generation budget
+    - ``eos`` i32: per-request stop token (-1 disables)
+    - ``key`` i64[2]: per-request PRNG base key (token t uses fold_in(key, t))
+    - ``temperature``/``top_k``/``top_p``: sampling knobs per slot
 
     Returns ``(cache, slots, sampled, finished)``.  Cache and slots are
-    updated in place (JAX donated them).  Inactive slots keep their token and
-    position frozen; their sampled entry is one the scheduler never reads.
-    """
-    if not greedy:
-        raise NotImplementedError(
-            "sampled decoding (temperature/top-k/top-p) comes with the "
-            "sampling slice of the port; build greedy=True")
-    if paged:
-        raise NotImplementedError(
-            "the paged-cache tick comes with the paged-engine slice of the "
-            "port; build paged=False")
+    updated in place (JAX donated them).  Inactive slots keep their token
+    and position frozen; their sampled entry is one the scheduler never
+    reads.
 
-    def engine_step(params, cache, slots):
-        logits, cache = model.decode_step(params, cache, slots["tokens"],
-                                          slots["pos"])
-        sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+    ``greedy=True`` builds a sampler-free tick (plain argmax — what
+    ``sample_tokens`` returns for ``temperature <= 0``, without the
+    full-vocabulary sorts and the noise).  The variant is fixed per engine,
+    as in JAX, so one determinism comparison never mixes the two.
+
+    ``paged=True`` builds the tick against a block-pool cache: it takes the
+    per-slot page tables as a fourth argument and suppresses the cache
+    writes of inactive slots — a retired slot's blocks may already be freed
+    and remapped, so its frozen-position write must not land there.
+    """
+    from ..serve.sampling import sample_tokens, token_key
+
+    def _sample_and_advance(slots, logits, cache):
+        if greedy:
+            sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            step_keys = token_key(slots["key"], slots["n_gen"])
+            sampled = sample_tokens(logits, step_keys, slots["temperature"],
+                                    slots["top_k"], slots["top_p"])
         active = slots["active"]
         live = active.to(torch.int32)
         sampled = torch.where(active, sampled, slots["tokens"])
@@ -150,4 +164,31 @@ def make_engine_step(model, greedy: bool = True, paged: bool = False):
         slots["active"].copy_(active & ~finished)
         return cache, slots, sampled, finished
 
+    if paged:
+        def engine_step(params, cache, slots, pages):
+            logits, cache = model.decode_step(
+                params, cache, slots["tokens"], slots["pos"], pages=pages,
+                active=slots["active"])
+            return _sample_and_advance(slots, logits, cache)
+    else:
+        def engine_step(params, cache, slots):
+            logits, cache = model.decode_step(params, cache, slots["tokens"],
+                                              slots["pos"])
+            return _sample_and_advance(slots, logits, cache)
+
     return engine_step
+
+
+def make_prefill_chunk_step(model):
+    """One fixed-shape chunk of a paged admission (``model.prefill_chunk``).
+
+    The chunk program's shapes depend only on (chunk length, pool shape) —
+    never on the prompt length — which is what makes a cached page's values
+    bitwise canonical and a long admission splittable across decode ticks.
+    The cache is updated in place."""
+
+    def chunk_step(params, cache, pages_row, tokens, start, n_valid):
+        return model.prefill_chunk(params, cache, pages_row, tokens, start,
+                                   n_valid)
+
+    return chunk_step

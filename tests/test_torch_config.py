@@ -21,6 +21,8 @@ from repro_torch.run.overrides import apply_overrides, parse_overrides
 ARCHS = JCFG.ARCH_IDS + ["llama3_8b"]
 SERVE_YAML = os.path.join(os.path.dirname(__file__), "..", "examples", "configs",
                           "serve.yaml")
+SERVE_ENGINE_YAML = os.path.join(os.path.dirname(SERVE_YAML),
+                                 "serve_engine.yaml")
 
 
 def test_arch_table_is_the_same():
@@ -67,15 +69,33 @@ def test_serve_yaml_resolves_to_the_same_arch_config():
 
 
 def test_serve_document_parses_and_engine_mode_is_refused():
+    """``serve.yaml`` parses to the shim's settings, and the engine document
+    ``serve_engine.yaml`` to JAX's settings field for field (sampling,
+    workload and telemetry blocks included), but for ``bench_dir``: the
+    port's empty default means the run's output directory, JAX's ``"."``
+    the working directory."""
+    from repro.run.config import parse_run_doc as jax_parse_run_doc
+
     doc = load_yaml(SERVE_YAML)
     cfg = parse_run_doc(doc, kind="serve")
     assert (cfg.settings.batch, cfg.settings.prompt_len, cfg.settings.gen) == \
         (4, 32, 16)
-    engine = apply_overrides(doc, parse_overrides(["run.serve.engine=true"]))
-    with pytest.raises(NotImplementedError, match="paged-engine and sampling"):
-        parse_run_doc(engine)
+    engine_doc = load_yaml(SERVE_ENGINE_YAML)
+    port = parse_run_doc(engine_doc, kind="serve").settings
+    ref = jax_parse_run_doc(engine_doc).settings
+    assert port.engine and port.workload.prefix_len == 32
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    for f in dataclasses.fields(ref):
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(b):
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert a == b or (f.name, a, b) == ("bench_dir", "", "."), f.name
     with pytest.raises(RunError):
         parse_run_doc(apply_overrides(doc, parse_overrides(["run.serve.bogus=1"])))
+    with pytest.raises(RunError):
+        parse_run_doc(apply_overrides(engine_doc, parse_overrides(
+            ["run.serve.sampling.top_p=0.0"])))
     with pytest.raises(NotImplementedError, match="A9"):
         parse_run_doc({"run": {"kind": "bench"}})
 

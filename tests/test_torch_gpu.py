@@ -321,3 +321,50 @@ def test_kernel_paths_give_attention_and_ssm_gradients(cuda):
             else grads["ssm_blocks"]["ssm"]
         for name in leaves:
             assert float(block[name].abs().max()) > 0, (arch, name)
+
+
+# ---------------------------------------------------------------------------
+# the paged engine and its sampling head on the card
+# ---------------------------------------------------------------------------
+def test_paged_sampled_engine_on_the_card_matches_solo(cuda):
+    """Reduced Qwen's paged engine on the card, a prefix-heavy trace of
+    sampled and greedy requests over 2 slots: every request completes,
+    later prefixes hit the radix cache, each stream equals the request run
+    alone in a fresh engine of the same pool shape, and a prefix cache off
+    changes no stream (``==``: the determinism contract on the card)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, load_params
+    from repro_torch.serve.workload import shared_prefix_trace
+
+    model = build_model(get_reduced("qwen1p5_0p5b"))
+    params = load_params(model, seed=0, device=cuda)
+    trace = shared_prefix_trace(6, model.cfg.vocab, prefix_len=16, seed=7,
+                                prompt_lens=(4, 8), gen_tokens=(6,),
+                                temperature=0.7, top_k=12, top_p=0.9,
+                                max_len=48)
+    trace[1].temperature = 0.0
+    kw = dict(n_slots=2, max_len=48, block_len=8, prefill_chunk=8)
+    res = ServeEngine(model, params, **kw).run(trace, realtime=False)
+    assert res["completed"] == 6 and res["prefill_cache_hit_rate"] > 0
+    streams = [r["gen_ids"] for r in res["requests"]]
+    assert all(0 <= t < model.cfg.vocab for s in streams for t in s)
+    solo = ServeEngine(model, params, **kw)
+    for r, s in zip(trace, streams):
+        assert solo.run([r], realtime=False)["requests"][0]["gen_ids"] == s
+    off = ServeEngine(model, params, prefix_cache=False, **kw).run(
+        trace, realtime=False)
+    assert [r["gen_ids"] for r in off["requests"]] == streams
+
+
+def test_threefry_noise_on_the_card_is_the_cpus(cuda):
+    from repro_torch.serve import prng
+    from repro_torch.serve.sampling import request_key, token_key
+
+    keys = torch.stack([token_key(request_key(s), s) for s in range(8)])
+    V = 151936
+    bits = prng.random_bits32(keys.to(cuda), V).cpu()
+    assert torch.equal(bits, prng.random_bits32(keys, V))
+    u = prng.uniform(keys.to(cuda), V, torch.finfo(torch.float32).tiny).cpu()
+    assert torch.equal(u, prng.uniform(keys, V,
+                                       torch.finfo(torch.float32).tiny))

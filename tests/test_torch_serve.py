@@ -274,11 +274,17 @@ def test_engine_retires_on_eos(cpu_engine_parts):
 
 
 def test_engine_refuses_request_deadlines(cpu_engine_parts):
+    """A request whose deadline has passed before it could be admitted
+    retires unserved as a timeout; the next one is served in full."""
     model, params = cpu_engine_parts
-    trace = synthetic_trace(1, 512, seed=2, prompt_lens=(6,), gen_tokens=(3,))
-    trace[0].deadline_s = 1.0
-    with pytest.raises(EngineError, match="deadline"):
-        ServeEngine(model, params, n_slots=1, max_len=12).run(trace)
+    trace = synthetic_trace(2, 512, seed=2, prompt_lens=(6,), gen_tokens=(3,),
+                            max_len=12)
+    trace[0].deadline_s = 1e-9
+    out = ServeEngine(model, params, n_slots=1, max_len=12).run(trace)
+    rows = {r["id"]: r for r in out["requests"]}
+    assert rows[0]["finish"] == "timeout" and rows[0]["gen_ids"] == []
+    assert rows[1]["finish"] == "length" and rows[1]["n_gen"] == 3
+    assert out["timeouts"] == 1 and out["completed"] == 1
 
 
 def test_engine_step_probes_match_run(cpu_engine_parts):
@@ -344,16 +350,20 @@ def test_entry_points_without_device_raise_on_a_host_without_card():
 
 
 def test_unported_paths_raise():
-    from repro_torch.train.steps import make_engine_step
+    from repro_torch.run.config import parse_run_doc
 
     model = build_model(get_reduced("qwen1p5_0p5b"))
     params = load_params(model, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine(model, params, n_slots=1, max_len=8, block_len=16)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(model, params, n_slots=1, max_len=8, greedy=False)
-    with pytest.raises(NotImplementedError):
-        make_engine_step(model, greedy=False)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ServeEngine(model, params, n_slots=1, max_len=8, mesh=object())
+    with pytest.raises(NotImplementedError, match="A8"):
+        ServeEngine(model, params, n_slots=1, max_len=8, plan=object())
+    with pytest.raises(NotImplementedError, match="A5"):
+        ServeEngine(model, params, n_slots=1, max_len=8,
+                    fault_injector=object())
+    with pytest.raises(NotImplementedError, match="A5"):
+        parse_run_doc({"run": {"kind": "serve", "serve": {
+            "engine": True, "faults": [{"kind": "serve_stall", "at": 0}]}}})
     with pytest.raises(NotImplementedError):
         load_params(model, ckpt="some/ckpt", device="cpu")
     for arch in ("deepseek_moe_16b", "deepseek_v3_671b", "zamba2_2p7b",
