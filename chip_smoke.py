@@ -20,9 +20,11 @@
    ``library_ms_stream`` are the same calls issued one by one from the host
    (``time_ms``), as the rows of earlier runs were timed.  ``flash_fwd`` at
    every ``FLASH_CASES`` shape of the JAX package's kernel tests, at the Qwen
-   slice's prefill shape and at the training shape (batch 8); ``ssd_scan``
-   at every ``SSD_CASES`` shape, at the Mamba2 slice's shape, at the
-   training shape and on a multi-group case.
+   slice's prefill shape and at the training shape (batch 8), and at head
+   dim 80 (Zamba2's prefill and training shapes, a ragged case in f32 and
+   bf16); ``ssd_scan`` at every ``SSD_CASES`` shape, at the Mamba2 slice's
+   shape, at the training shape, on a multi-group case and at Zamba2's
+   shape (H 80, P 64, N 64).
 3. Slice 1: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
    ``use_flash_kernel=True``, batch 8, prompt 1024, 32 generated tokens,
    seeded random weights.  Checks the flash kernel's launch count over that
@@ -37,10 +39,19 @@
    steps at batch 8 × 1024, ``remat: full``), with one step's loss and
    gradients through the kernel against the plain attention path on the
    same params and batch; then full-width Mamba2-780M through the SSD kernel
-   (3 steps), the same comparison against ``ssd_chunked``.
+   (3 steps), the same comparison against ``ssd_chunked``; then full-width
+   Zamba2-2.7B through both kernels (3 steps), against both plain versions.
+6. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+   its output directory; full-width Qwen on the paged engine; full-width
+   Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
+   dense engine, each 16 sampled requests of 256/512/1024 prompt tokens,
+   with two solo streams, and for Zamba2 three prompts' prefill logits
+   through the kernels against the plain path, beside a control that the
+   bounds must reject.
 
 Every launch counter is set to 0 just before a slice drives its main path
-(the serve run, the training run) and read just after.  Imports neither JAX nor the JAX package.  Exits
+(the serve run, the training run, the engine run) and read just after; the
+``kernels`` line adds up every path's launches.  Imports neither JAX nor the JAX package.  Exits
 non-zero, printing no result, without a CUDA device or without the port next
 to it; exits non-zero when any phase fails.  The last line is the JSON
 result object.
@@ -110,6 +121,13 @@ TRAIN_SLICES = {
     "mamba2": {"arch": "mamba2_780m", "steps": 3, "kernel": "ssd_scan",
                "sets": ["arch.variant_key=mamba2_780m"],
                "tols": {"bfloat16": (1e-3, 0.5), "float32": (1e-5, 1e-3)}},
+    # both kernels: the shared attention block through flash_fwd (9 uses),
+    # the 45 Mamba2 layers through ssd_scan
+    "zamba2": {"arch": "zamba2_2p7b", "steps": 3,
+               "kernel": "flash_fwd and ssd_scan",
+               "sets": ["arch.variant_key=zamba2_2p7b",
+                        "arch.config.use_flash_kernel=true"],
+               "tols": {"bfloat16": (2e-3, 0.25), "float32": (1e-5, 1e-3)}},
 }
 TRAIN_TOL_WHY = {
     "bfloat16": (
@@ -124,19 +142,37 @@ TRAIN_TOL_WHY = {
         "printed beside it: on an H100 with these seeds its worst leaf is "
         "0.027 (Qwen) and 0.12 (Mamba2), the kernel's 0.028 and 0.24, and "
         "each gradient bound is about twice the larger; the loss bound "
-        "(1e-4 of the loss) is above the Mamba2 floor's 7.4e-4"),
+        "(1e-4 of the loss) is above the Mamba2 floor's 7.4e-4. Zamba2 "
+        "(both kernels): floor 0.091 and |dloss| 5.1e-4, the kernels' "
+        "0.106 and 9.8e-4; its bounds are about twice the larger, 0.25 and "
+        "2e-3"),
     "float32": (
         "f32 activations, where kernel and plain path differ only in f32 "
         "summation order (and the SSD kernel's hi/lo bf16 split of f32 "
         "operands): on an H100 with these seeds the worst leaf is 4.8e-6 "
-        "(Qwen) and 1.0e-4 (Mamba2, floor 3e-5); each bound is about ten "
-        "times that, the loss bound ten times the 9.5e-7 seen"),
+        "(Qwen), 1.0e-4 (Mamba2, floor 3e-5) and 7.6e-5 (Zamba2, floor "
+        "3.3e-5); each bound is about ten times that, the loss bound ten "
+        "times the 9.5e-7 seen"),
 }
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def demangle(name: str) -> str:
+    """A kernel's mangled name as ``kernel<template arguments>`` (through
+    ``c++filt``), or as it is where that fails."""
+    import re
+
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return name
+    m = re.search(r"\w+<[^<>]*>", out)
+    return m.group(0) if m else out.strip()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -224,6 +260,14 @@ def flash_cases():
         # the training slice's shape (batch 8 x 1024)
         ("train_B8S1024H16K16d64c_bf16",
          (8, 1024, 1024, 16, 16, 64, True, 0, bf16)),
+        # dh 80, Zamba2's shared attention block: its prefill shape, its
+        # training shape and a ragged case in both paths
+        ("zamba2_B1S1024H32K32d80c_bf16",
+         (1, 1024, 1024, 32, 32, 80, True, 0, bf16)),
+        ("zamba2_train_B8S1024H32K32d80c_bf16",
+         (8, 1024, 1024, 32, 32, 80, True, 0, bf16)),
+        ("B1S300H32K32d80cw0f32", (1, 300, 300, 32, 32, 80, True, 0, f32)),
+        ("B1S300H32K32d80cw0bf16", (1, 300, 300, 32, 32, 80, True, 0, bf16)),
     ]
 
 
@@ -322,6 +366,9 @@ def ssd_cases():
          (1, 1024, 48, 64, 1, 128, 128, bf16)),
         ("train_B8S1024H48P64G1N128c128_bf16",
          (8, 1024, 48, 64, 1, 128, 128, bf16)),
+        # Zamba2's Mamba2 layers: 80 heads of 64, state 64
+        ("zamba2_B1S1024H80P64G1N64c128_bf16",
+         (1, 1024, 80, 64, 1, 64, 128, bf16)),
     ]
 
 
@@ -424,26 +471,60 @@ def _counters():
     return {"flash_fwd": flash_ops, "ssd_scan": ssd_ops}
 
 
-def _prefill_logits(key, cfg, params, tok, plain: bool, dtype,
-                    chunk_override: int = 0):
-    """One request's last-token prefill logits with activations in
-    ``dtype``, through the slice's kernel or, with ``plain``, its plain
-    version, on the same weights and the card."""
-    import contextlib
+def add_launches(results: dict, counts: dict) -> None:
+    """Add one main path's launch counts to the run's totals (the
+    ``kernels`` line)."""
+    total = results.setdefault("launches", {})
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
 
+
+def kernel_layers(cfg) -> dict:
+    """Layers of ``cfg`` that launch each kernel once per forward: its
+    attention layers (dense blocks, or each use of the hybrid's shared
+    block) through ``flash_fwd`` when ``use_flash_kernel`` is set, its
+    Mamba2 layers through ``ssd_scan``."""
     from repro_torch.models import build_model
 
-    model = build_model(cfg.with_(use_flash_kernel=False)
-                        if plain and key == "qwen" else cfg)
+    kinds = build_model(cfg).kinds
+    attn = sum(k in ("dense_block", "attn_block") for k in kinds)
+    return {"flash_fwd": attn if cfg.use_flash_kernel else 0,
+            "ssd_scan": kinds.count("ssm")}
+
+
+def _prefill_logits(cfg, params, tok, dtype, attention="kernel",
+                    ssd="kernel", chunk_override: int = 0):
+    """One request's last-token prefill logits with activations in
+    ``dtype`` on the same weights and the card.  ``attention``: the model's
+    ``flash_fwd`` (``"kernel"``, where ``cfg`` sets ``use_flash_kernel``),
+    the plain attention that rounds its probabilities to ``dtype`` before PV
+    (``"full"``), the plain online-softmax loop that keeps them in f32 as
+    the kernel does (``"blockwise"``), or a function called in the flash
+    wrapper's place (a control).  ``ssd``: the SSD kernel (``"kernel"``) or
+    ``ssd_chunked`` at ``chunk_override`` or the model's chunk
+    (``"plain"``)."""
+    import contextlib
+
+    import repro_torch.models.attention as attn
+    import repro_torch.models.ssm as ssm
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.models import build_model
+
+    plain_attn = attention in ("full", "blockwise")
+    model = build_model(cfg.with_(use_flash_kernel=False) if plain_attn
+                        else cfg)
     embed = model.embed_tokens
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(
             model, "embed_tokens", lambda p, t: embed(p, t, dtype=dtype)))
-        if plain and key == "mamba2":
-            import repro_torch.models.ssm as ssm
-
+        if ssd == "plain":
             stack.enter_context(mock.patch.object(
                 ssm, "ssd_scan", _plain_ssm_scan(chunk_override)))
+        if attention == "blockwise":
+            stack.enter_context(mock.patch.object(attn, "_BLOCKWISE_AT", 0))
+        elif callable(attention):
+            stack.enter_context(mock.patch.object(
+                flash_ops, "flash_attention", attention))
         logits, _ = model.prefill(params, {"tokens": tok})
     return logits.float()
 
@@ -484,6 +565,7 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
           f"{spec['kernel']} {launches} (want {cfg.n_layers} layers x "
           f"({SLICE_BATCH} admissions + 1 warm-up) = {want})", flush=True)
     ok &= launches == want
+    add_launches(results, counts)
     ids = res["generated_ids"]
     tokens_ok = (len(ids) == SLICE_BATCH and all(
         len(r) == SLICE_GEN and all(0 <= t < cfg.vocab for t in r) for r in ids))
@@ -501,8 +583,8 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
     tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
     for dname, (tol, why) in spec["tols"].items():
         dtype = getattr(torch, dname)
-        lk = _prefill_logits(key, cfg, params, tok, False, dtype)
-        lp = _prefill_logits(key, cfg, params, tok, True, dtype)
+        lk = _prefill_logits(cfg, params, tok, dtype)
+        lp = _prefill_logits(cfg, params, tok, dtype, "full", "plain")
         torch.cuda.synchronize()
         d = (lk - lp).abs()
         err = float(d.max())
@@ -510,7 +592,8 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
         same_top = int(lk.argmax(-1)) == int(lp.argmax(-1))
         floor = ""
         if key == "mamba2":
-            l64 = _prefill_logits(key, cfg, params, tok, True, dtype, 64)
+            l64 = _prefill_logits(cfg, params, tok, dtype, "full", "plain",
+                                  64)
             floor = (f", plain chunk 64 vs 128 (the floor) "
                      f"{float((l64 - lp).abs().max()):.6g}")
         print(f"slice {key}: prefill logits ({dname}) {spec['kernel']} vs "
@@ -518,7 +601,6 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
               f"max |logit| {size:.4f}, same argmax {same_top}{floor}; tol "
               f"{tol} ({why})", flush=True)
         ok &= bool(torch.isfinite(lk).all()) and err <= tol
-    results[f"{key}_launches"] = launches
     if profile_dir:
         profile_slice(model, params, profile_dir, key)
     del params
@@ -721,6 +803,16 @@ def compare_train_step(key, cfg, params, batch) -> bool:
             with mock.patch.object(attn, "_BLOCKWISE_AT", 0):
                 other = step_grads(plain_model, params, batch)
             floor_what = "plain full vs plain blockwise attention"
+        elif key == "zamba2":
+            plain_model = _acts(build_model(cfg.with_(use_flash_kernel=False)),
+                                dtype)
+            with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan()):
+                plain = step_grads(plain_model, params, batch)
+            with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan(64)), \
+                    mock.patch.object(attn, "_BLOCKWISE_AT", 0):
+                other = step_grads(plain_model, params, batch)
+            floor_what = ("plain full attention and chunk 128 vs plain "
+                          "blockwise attention and chunk 64")
         else:
             model = _acts(build_model(cfg), dtype)
             with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan()):
@@ -789,8 +881,8 @@ def phase_train_full(key: str, data_dir: str, results: dict,
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     graph = _train_graph(doc)
     cfg = graph["arch"]
-    want = cfg.n_layers * 2 * steps
-    launches = counts[spec["kernel"]]
+    layers = kernel_layers(cfg)
+    want = {name: n * 2 * steps for name, n in layers.items()}
     hist = res["history"]
     losses = [h["loss"] for h in hist]
     # step s's wall_s is read after step s-1 has finished (its metrics are
@@ -799,7 +891,7 @@ def phase_train_full(key: str, data_dir: str, results: dict,
     step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
     med = statistics.median(step_ms)
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
-    ok = (launches == want and len(losses) == steps
+    ok = (counts == want and len(losses) == steps
           and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0])
     print(f"train {key}: {cfg.name} full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab}), batch {TRAIN_BATCH} x "
@@ -807,15 +899,16 @@ def phase_train_full(key: str, data_dir: str, results: dict,
     print(f"train {key}: loss per step "
           f"{json.dumps([round(x, 5) for x in losses])}; final < first "
           f"{losses[-1] < losses[0]}", flush=True)
-    print(f"train {key}: launches over the run {counts}; {spec['kernel']} "
-          f"{launches} (want {cfg.n_layers} layers x 2 (forward and remat "
+    print(f"train {key}: launches over the run {counts} (want, for "
+          f"{spec['kernel']}: {layers['flash_fwd']} attention layers and "
+          f"{layers['ssd_scan']} SSM layers, each x 2 (forward and remat "
           f"recompute) x {steps} steps = {want})", flush=True)
     print(f"train {key}: ms/step over steps 2-{steps} "
           f"{json.dumps([round(x, 3) for x in step_ms])}, median "
           f"{med:.3f} ms, tokens_per_s {tok_s:.1f} (the run's own "
           f"{res['tokens_per_s']}, first step included), peak_mem_gib "
           f"{peak_gib:.3f}", flush=True)
-    results[f"train_{key}_launches"] = launches
+    add_launches(results, counts)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     from repro_torch.models import build_model
@@ -859,9 +952,44 @@ ENGINE_QWEN = {"n_slots": 8, "max_len": 1024, "block_len": 16,
 ENGINE_QWEN_TRACE = {"n_requests": 32, "prefix_len": 512, "n_prefixes": 2,
                      "prompt_lens": (64, 128, 256), "gen_tokens": (64,)}
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
-# full-width Mamba2 on the dense engine (an SSM state has no pages)
-ENGINE_MAMBA2 = {"n_slots": 8, "n_requests": 16,
-                 "prompt_lens": (256, 512, 1024), "gen_tokens": (32,)}
+# full-width Mamba2 and Zamba2 on the dense engine (an SSM state has no
+# pages): one trace of sampled requests, closed loop
+ENGINE_DENSE_TRACE = {"n_slots": 8, "n_requests": 16,
+                      "prompt_lens": (256, 512, 1024), "gen_tokens": (32,)}
+# Zamba2's prefill logits, both kernels against the plain path whose
+# attention keeps f32 probabilities as flash_fwd does (the blockwise online
+# softmax): (activations, what else is plain, bound, whether the control
+# must fail it, why), each checked at the prompts of seeds 1, 2 and 3,
+# whose readings on an H100 the whys quote in that order.
+ZAMBA2_LOGITS = [
+    ("bfloat16", "attention", 0.2, True,
+     "bf16 activations through 54 layers, the SSD kernel on both sides: only "
+     "the 9 uses of the shared block differ, where kernel and plain loop sum "
+     "the same f32 products in other orders and round the output once to "
+     "bf16; each difference grows through the later layers. Kernel 0.148, "
+     "0.148, 0.152; the two plain attentions differ by 0.141-0.174, so "
+     "Qwen's 0.125 is below this model's floor; the control reads 0.242, "
+     "0.25, 0.277. The bound lies between the kernel's largest and the "
+     "control's smallest reading"),
+    ("bfloat16", "attention and SSD scan", SSM_LOGITS_TOL, False,
+     "both kernels against both plain versions: in 45 Mamba2 layers the SSD "
+     "scan's f32 sums, taken in other orders, straddle bf16 rounding steps, "
+     "as in Mamba2 (SSM_LOGITS_TOL_WHY). Kernels 0.234, 0.203, 0.227 against "
+     "a floor of 0.203, 0.191, 0.262 (chunk 64 vs 128); the control's 0.305, "
+     "0.344, 0.313 lies inside that noise, so no bf16 bound can reject it "
+     "here: this row holds Mamba2's bound and the float32 row below is the "
+     "one that catches a wrong kernel"),
+    ("float32", "attention and SSD scan", SSM_LOGITS_F32_TOL, True,
+     "f32 activations: only f32 sum orders differ. Kernels 1.23e-4, "
+     "1.14e-4, 1.61e-4 against a floor of 4.8e-5, 3.7e-5, 5.3e-5 (chunk 64 "
+     "vs 128), the control 0.227, 0.209, 0.209: the bound is Mamba2's, "
+     "about ten times the floor and three times the kernels' largest"),
+]
+ENGINE_DENSE = {
+    "mamba2": {"arch": "mamba2_780m", "with": {}},
+    "zamba2": {"arch": "zamba2_2p7b", "with": {"use_flash_kernel": True},
+               "logits": ZAMBA2_LOGITS, "logit_seeds": (1, 2, 3)},
+}
 
 
 def _checkout_files() -> dict:
@@ -1007,7 +1135,7 @@ def phase_engine_qwen(results: dict, profile_dir: str = "") -> bool:
           f"{res['ticks']} peak_blocks {pg['peak_blocks']} evictions "
           f"{pg['evictions']} compile_s {res['compile_s']} elapsed_s "
           f"{res['elapsed_s']} peak_mem_gib {peak_gib:.3f}", flush=True)
-    results["engine_qwen_flash_launches"] = counts["flash_fwd"]
+    add_launches(results, counts)
 
     # the determinism contract on the card: greedy and sampled, cold and hit
     picks = [0, 1, 4, 5]
@@ -1116,9 +1244,14 @@ def profile_engine(engine, out_dir: str) -> None:
                                        *knobs), out_dir)
 
 
-def phase_engine_mamba2(results: dict) -> bool:
-    """Full-width Mamba2-780M on the dense engine, sampled, closed loop:
-    every admission's prefill runs the SSD kernel in all 48 layers."""
+def phase_engine_dense(key: str, results: dict) -> bool:
+    """A full-width model on the dense engine, sampled, closed loop: every
+    admission's prefill runs the model's kernels in every layer (Mamba2:
+    ``ssd_scan`` in 48 layers; Zamba2: ``ssd_scan`` in 45 Mamba2 layers and
+    ``flash_fwd`` in the 9 uses of the shared attention block).  Then two
+    requests alone in a fresh engine, and for Zamba2 three 1024-token
+    prompts' prefill logits through the kernels against the plain path."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -1126,10 +1259,11 @@ def phase_engine_mamba2(results: dict) -> bool:
     from repro_torch.serve.engine import ServeEngine, load_params
     from repro_torch.serve.workload import synthetic_trace
 
-    cfg = get_config("mamba2_780m")
+    spec = ENGINE_DENSE[key]
+    cfg = get_config(spec["arch"]).with_(**spec["with"])
     model = build_model(cfg)
     params = load_params(model, seed=0, device="cuda")
-    m = ENGINE_MAMBA2
+    m = ENGINE_DENSE_TRACE
     max_len = max(m["prompt_lens"]) + max(m["gen_tokens"])
     trace = synthetic_trace(m["n_requests"], cfg.vocab, seed=0,
                             prompt_lens=m["prompt_lens"],
@@ -1145,8 +1279,11 @@ def phase_engine_mamba2(results: dict) -> bool:
     counts = {name: c.launches for name, c in counters.items()}
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    add_launches(results, counts)
     lengths = sorted({r.prompt_len for r in trace})
-    want = cfg.n_layers * (len(trace) + len(lengths))
+    layers = kernel_layers(cfg)
+    admissions = len(trace) + len(lengths)
+    want = {name: n * admissions for name, n in layers.items()}
     streams = [r["gen_ids"] for r in res["requests"]]
     done = (res["completed"] == len(trace) and not engine.paged
             and all(len(s) == m["gen_tokens"][0]
@@ -1155,25 +1292,91 @@ def phase_engine_mamba2(results: dict) -> bool:
     same = {r.rid: solo.run([r], realtime=False)["requests"][0]["gen_ids"]
             == streams[r.rid] for r in trace[:2]}
     tp = res["tpot_ms"]
-    print(f"engine mamba2: {cfg.name} full width, dense engine, "
-          f"{len(trace)} requests (prompts {m['prompt_lens']}, "
-          f"{m['gen_tokens'][0]} tokens each, {SAMPLING}), closed loop: "
-          f"{res['completed']} complete, tokens in [0, {cfg.vocab}): {done}",
-          flush=True)
-    print(f"engine mamba2: launches over the run {counts}; ssd_scan "
-          f"{counts['ssd_scan']} (want {cfg.n_layers} layers x "
-          f"({len(trace)} admissions + {len(lengths)} warm-up admissions, one "
-          f"per prompt length {lengths}) = {want}); alone in a fresh engine "
-          f"the same stream {same}", flush=True)
-    print(f"engine mamba2: tok_s {res['tok_s']} decode_tok_s "
-          f"{res['decode_tok_s']} ttft_s p50 {res['ttft_s']['p50']:.4f} "
-          f"tpot_ms p50 {tp['p50']:.4f} p90 {tp['p90']:.4f} slot_utilization "
-          f"{res['slot_utilization']} compile_s {res['compile_s']} elapsed_s "
-          f"{res['elapsed_s']} peak_mem_gib {peak_gib:.3f}", flush=True)
-    results["engine_mamba2_ssd_launches"] = counts["ssd_scan"]
+    print(f"engine {key}: {cfg.name} full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}), dense engine, {len(trace)} requests "
+          f"(prompts {m['prompt_lens']}, {m['gen_tokens'][0]} tokens each, "
+          f"{SAMPLING}), closed loop: {res['completed']} complete, tokens in "
+          f"[0, {cfg.vocab}): {done}", flush=True)
+    print(f"engine {key}: launches over the run {counts} (want "
+          f"{layers['flash_fwd']} attention and {layers['ssd_scan']} SSM "
+          f"layers x ({len(trace)} admissions + {len(lengths)} warm-up "
+          f"admissions, one per prompt length {lengths}) = {want}); alone in "
+          f"a fresh engine the same stream {same}", flush=True)
+    print(f"engine {key}: tok_s {res['tok_s']} decode_tok_s "
+          f"{res['decode_tok_s']} ttft_s p50 {res['ttft_s']['p50']:.4f} p95 "
+          f"{res['ttft_s']['p95']:.4f} tpot_ms p50 {tp['p50']:.4f} p90 "
+          f"{tp['p90']:.4f} slot_utilization {res['slot_utilization']} "
+          f"compile_s {res['compile_s']} elapsed_s {res['elapsed_s']} "
+          f"peak_mem_gib {peak_gib:.3f}", flush=True)
+    ok = done and counts == want and all(same.values())
+    for seed in spec.get("logit_seeds", ()):
+        prompt = np.random.default_rng(seed).integers(
+            3, cfg.vocab, size=(1, max(m["prompt_lens"])), dtype=np.int32)
+        tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
+        ok &= check_hybrid_logits(key, seed, cfg, params, tok,
+                                  spec["logits"])
     del params, engine, solo
     torch.cuda.empty_cache()
-    return bool(done and counts["ssd_scan"] == want and all(same.values()))
+    return bool(ok)
+
+
+def _flash_without_last_kstep(flash_attention):
+    """``flash_attention`` with head dims 64-79 left out of Q·Kᵀ (at dh 80,
+    the bf16 kernel's fifth k-step dropped): a control that a bound on the
+    kernel's logits has to reject."""
+    def attention(q, k, v, **kw):
+        q = q.clone()
+        q[..., 64:] = 0
+        return flash_attention(q, k, v, **kw)
+
+    return attention
+
+
+def check_hybrid_logits(key, seed, cfg, params, tok, checks) -> bool:
+    """One prompt's prefill logits through both kernels against the plain
+    path, for each of ``checks``: with only the attention plain (the SSD
+    kernel on both sides) or both.  Beside each: the plain path's own
+    spread (the attention that rounds its probabilities to bf16, or
+    ``ssd_chunked`` at chunk 64 against the model's 128) and a control, the
+    flash kernel with its fifth k-step dropped, which must fail the bound
+    where the check says so."""
+    import torch
+
+    from repro_torch.kernels.flash import ops as flash_ops
+
+    control = _flash_without_last_kstep(flash_ops.flash_attention)
+    ok = True
+    for dname, plain, tol, control_fails, why in checks:
+        dtype = getattr(torch, dname)
+        ssd = "plain" if "SSD" in plain else "kernel"
+        lk = _prefill_logits(cfg, params, tok, dtype)
+        lp = _prefill_logits(cfg, params, tok, dtype, "blockwise", ssd)
+        if ssd == "plain":
+            lo = _prefill_logits(cfg, params, tok, dtype, "blockwise", ssd, 64)
+            floor_what = "plain chunk 64 vs 128"
+        else:
+            lo = _prefill_logits(cfg, params, tok, dtype, "full", ssd)
+            floor_what = ("plain attention with its probabilities rounded "
+                          "to the activations' dtype vs blockwise")
+        lc = _prefill_logits(cfg, params, tok, dtype, control)
+        torch.cuda.synchronize()
+        err = float((lk - lp).abs().max())
+        floor = float((lo - lp).abs().max())
+        ctl = float((lc - lp).abs().max())
+        good = (bool(torch.isfinite(lk).all()) and err <= tol
+                and (ctl > tol or not control_fails))
+        print(f"engine {key}: prefill logits of one {tok.shape[1]}-token "
+              f"prompt (seed {seed}, {dname}), both kernels vs plain {plain} (blockwise "
+              f"attention): max abs diff {err:.6g}, max |logit| "
+              f"{float(lp.abs().max()):.4f}, same argmax "
+              f"{int(lk.argmax(-1)) == int(lp.argmax(-1))}; {floor_what} "
+              f"(the floor) {floor:.6g}; control, flash_fwd with its fifth "
+              f"k-step dropped, {ctl:.6g}; tol {tol}, kernel within"
+              f"{' and control outside' if control_fails else ''}: "
+              f"{'ok' if good else 'FAILED'} ({why})",
+              flush=True)
+        ok &= good
+    return ok
 
 
 def main() -> int:
@@ -1212,7 +1415,12 @@ def main() -> int:
     for name, i in info.items():
         print(f"build: {name} nvcc {i['seconds']:.2f}s", flush=True)
         for line in str(i["log"]).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:
+                # the kernel (with its template arguments) whose counts
+                # follow
+                print(f"build:   entry {demangle(line.split(chr(39))[1])}",
+                      flush=True)
+            elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"build:   {line.strip()}", flush=True)
 
     results: dict = {}
@@ -1241,29 +1449,28 @@ def main() -> int:
     engine_ok = phase_engine_qwen(results, args.profile)
     print(f"phase engine qwen: {'ok' if engine_ok else 'FAILED'}", flush=True)
     ok &= engine_ok
-    engine_ok = phase_engine_mamba2(results)
-    print(f"phase engine mamba2: {'ok' if engine_ok else 'FAILED'}",
-          flush=True)
-    ok &= engine_ok
+    for key in ENGINE_DENSE:
+        engine_ok = phase_engine_dense(key, results)
+        print(f"phase engine {key}: {'ok' if engine_ok else 'FAILED'}",
+              flush=True)
+        ok &= engine_ok
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s, the "
           f"kernels' build included", flush=True)
     if not ok:
         return 1
 
     kernels = []
-    for name, cases, key, engine_key, src, replaces in (
-            ("flash_fwd", "flash_cases", "qwen", "engine_qwen_flash_launches",
+    for name, cases, src, replaces in (
+            ("flash_fwd", "flash_cases",
              "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
              "src/repro/kernels/flash/kernel.py:67"),
-            ("ssd_scan", "ssd_cases", "mamba2", "engine_mamba2_ssd_launches",
+            ("ssd_scan", "ssd_cases",
              "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd/kernel.py:60")):
         row = next(r for r in results[cases] if r["case"].startswith("slice"))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": (results[f"{key}_launches"]
-                         + results[f"train_{key}_launches"]
-                         + results[engine_key]),
+            "launches": results["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -41,8 +41,15 @@
 //     per 16-row m-tile of each warp.  Under a causal mask every block then
 //     has the same kv work, t + 1 + n - t tiles, where one 128-row tile per
 //     block gave the last block twice the mean.  A kv tile that only one
-//     m-tile sees runs a step compiled for that m-tile alone.  (dh 128:
-//     one 64-row q tile per block, whose accumulator fills the registers.)
+//     m-tile sees runs a step compiled for that m-tile alone.  (dh 80 and
+//     128: one 64-row q tile per block, whose accumulator fills the
+//     registers.)
+//   * dh 80 (Zamba2's shared attention block) is no power of two: Q K^T
+//     takes 5 k-steps of 16, the last one alone through an x2 ldmatrix, and
+//     a row of K or V is 10 chunks of 16 B, which do not divide a group's
+//     128 threads, so each thread copies 5 chunks whose rows it works out
+//     one by one.  Rows of 88 bf16 (176 B) keep the 8 rows of an ldmatrix
+//     phase in 8 distinct bank groups (176 / 16 = 11 is odd).
 //   * Two kv groups of 4 warps hold the same q rows and walk alternate kv
 //     tiles, each with its own m, l and accumulator; at the end the second
 //     group's partial results pass through shared memory and merge into the
@@ -334,6 +341,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
+// two 8x8 b16 matrices from the row addresses of lanes 0-15 (the other
+// lanes' addresses are not read)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -374,7 +388,8 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
   constexpr int MT = Bf16Tile<DH>::MT;
   constexpr int NKG = Bf16Tile<DH>::NKG;
   constexpr int BQ16 = Bf16Tile<DH>::BQ;
-  constexpr int NKS = DH / 16;    // k-steps over dh for Q K^T
+  constexpr int NKS = DH / 16;    // k-steps over dh for Q K^T (5 at dh 80:
+                                  // the last one pairs with no other)
   constexpr int NNB = BKV / 8;    // n-blocks of 8 keys
   constexpr int NDB = DH / 8;     // n-blocks of 8 dims for P V
   constexpr int TILE = BKV * LD;
@@ -426,24 +441,43 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
   }
   const int n_t = max(0, (t_end - t_begin - kg + NKG - 1) / NKG);
   // each of the group's threads copies 16 B of rows lrow, lrow + RSTEP, ...
-  // of a K and a V tile, at shared addresses fixed but for the stage
-  constexpr int CH = DH / 8, RSTEP = NTG / CH;
-  static_assert(NTG % CH == 0 && BKV % RSTEP == 0, "tile copy layout");
+  // of a K and a V tile, at shared addresses fixed but for the stage.  That
+  // needs the CH 16-byte chunks of a row to divide the group's NTG threads;
+  // at dh 80 (CH = 10) they do not, and each thread takes the chunks
+  // gtid, gtid + NTG, ... of the tile, BKV * CH / NTG = 5 of them, with the
+  // row and column worked out for each
+  constexpr int CH = DH / 8;
+  constexpr bool FIXED_ROWS = NTG % CH == 0 && BKV % (NTG / CH) == 0;
+  constexpr int RSTEP = FIXED_ROWS ? NTG / CH : 1;
+  static_assert(FIXED_ROWS || (BKV * CH) % NTG == 0, "tile copy layout");
   const int lrow = gtid / CH, lch = gtid % CH;
   const uint32_t kv_dst = B2 * (lrow * LD + lch * 8);
   const uint32_t k_dst = smem_addr(sK) + kv_dst, v_dst = smem_addr(sV) + kv_dst;
   auto fetch = [&](int i, int stage) {  // the group's i-th tile, or nothing
     if (i < n_t) {
       const int k0 = (t_begin + kg + i * NKG) * BKV;
+      if constexpr (FIXED_ROWS) {
 #pragma unroll
-      for (int r = 0; r < BKV / RSTEP; ++r) {
-        const int row = k0 + lrow + r * RSTEP;
-        const bool in = row < Skv;
-        // rows past the end are zero-filled; their address is never read
-        const size_t off = in ? (size_t)row * krow + lch * 8 : 0;
-        const uint32_t d = B2 * (stage * TILE + r * RSTEP * LD);
-        cp_async16(k_dst + d, kb + off, in);
-        cp_async16(v_dst + d, vb + off, in);
+        for (int r = 0; r < BKV / RSTEP; ++r) {
+          const int row = k0 + lrow + r * RSTEP;
+          const bool in = row < Skv;
+          // rows past the end are zero-filled; their address is never read
+          const size_t off = in ? (size_t)row * krow + lch * 8 : 0;
+          const uint32_t d = B2 * (stage * TILE + r * RSTEP * LD);
+          cp_async16(k_dst + d, kb + off, in);
+          cp_async16(v_dst + d, vb + off, in);
+        }
+      } else {
+#pragma unroll
+        for (int e = gtid; e < BKV * CH; e += NTG) {
+          const int r = e / CH, ch = e % CH;
+          const int row = k0 + r;
+          const bool in = row < Skv;
+          const size_t off = in ? (size_t)row * krow + ch * 8 : 0;
+          const uint32_t d = B2 * (stage * TILE + r * LD + ch * 8);
+          cp_async16(smem_addr(sK) + d, kb + off, in);
+          cp_async16(smem_addr(sV) + d, vb + off, in);
+        }
       }
     }
     cp_async_commit();
@@ -529,7 +563,7 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
         for (int mt = 0; mt < MT; ++mt)
           s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks < NKS; ks += 2) {
+        for (int ks = 0; ks + 1 < NKS; ks += 2) {
           uint32_t kf[4];
           ldsm_x4(kf, tK + B2 * (nb * 8 * LD + ks * 16));
 #pragma unroll
@@ -537,6 +571,17 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
             if (!((ACT >> mt) & 1)) continue;
             mma_bf16(s[mt][nb], qa[mt][ks], kf[0], kf[1]);
             mma_bf16(s[mt][nb], qa[mt][ks + 1], kf[2], kf[3]);
+          }
+        }
+        if constexpr (NKS % 2) {
+          // the odd last k-step (dh 80): one x2, lanes 0-15's addresses
+          // name its two 8-column blocks
+          uint32_t kf[2];
+          ldsm_x2(kf, tK + B2 * (nb * 8 * LD + (NKS - 1) * 16));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (!((ACT >> mt) & 1)) continue;
+            mma_bf16(s[mt][nb], qa[mt][NKS - 1], kf[0], kf[1]);
           }
         }
       }
@@ -763,12 +808,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     switch (dh) {
       case 32: return launch_f32<32>(FLASH_ARGS);
       case 64: return launch_f32<64>(FLASH_ARGS);
+      case 80: return launch_f32<80>(FLASH_ARGS);
       case 128: return launch_f32<128>(FLASH_ARGS);
     }
   } else if (dtype == 1) {
     switch (dh) {
       case 32: return launch_bf16<32>(FLASH_ARGS);
       case 64: return launch_bf16<64>(FLASH_ARGS);
+      case 80: return launch_bf16<80>(FLASH_ARGS);
       case 128: return launch_bf16<128>(FLASH_ARGS);
     }
   }

@@ -3,13 +3,13 @@ from .base import ArchConfig, MLAConfig, Model, MoEConfig, SSMConfig  # noqa: F4
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    """The model for ``cfg``; the port has the dense and the ssm (Mamba2)
-    decoders so far."""
+    """The model for ``cfg``; the port has the dense, the ssm (Mamba2) and
+    the hybrid (Zamba2) decoders so far."""
     kind = "mla" if cfg.mla else cfg.arch_type
-    if kind not in ("dense", "ssm") or cfg.n_patches:
+    if kind not in ("dense", "ssm", "hybrid") or cfg.n_patches:
         raise NotImplementedError(
             f"{cfg.name}: arch {kind!r} is not ported yet (the port has the "
-            f"dense and ssm decoders; moe, mla, hybrid, audio and vlm come "
+            f"dense, ssm and hybrid decoders; moe, mla, audio and vlm come "
             f"with ROADMAP A7)")
     from .transformer import DecoderLM
 

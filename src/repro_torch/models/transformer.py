@@ -1,5 +1,6 @@
-"""Decoder-only LM (port of ``repro.models.transformer``): dense and SSM
-(Mamba2) stacks.
+"""Decoder-only LM (port of ``repro.models.transformer``): dense, SSM
+(Mamba2) and hybrid (Zamba2: Mamba2 layers with one weight-shared attention
+block after every ``attn_every - 1`` of them) stacks.
 
 Training runs ``apply`` (embed, the ``Stacked`` fold with its remat policy,
 logits).  Serving has two cache layouts: the dense slot pool (``prefill`` /
@@ -8,9 +9,10 @@ dense full-context attention, the paged block pool (``init_paged_cache``,
 ``prefill_chunk`` for admission in fixed-shape chunks, ``decode_step`` with
 ``pages``/``active`` for each tick).  Params keep the JAX tree (``embed``,
 ``final_norm``, one stacked tree per homogeneous stack: ``blocks`` for
-dense layers, ``ssm_blocks`` for Mamba2 layers), so ``repro_torch.bridge``
-copies JAX params in key for key.  MoE, MLA, hybrid, audio and VLM blocks
-come with later slices.
+dense layers, ``ssm_blocks`` for Mamba2 layers, and for the hybrid one
+unstacked ``shared_attn`` dense block), so ``repro_torch.bridge`` copies JAX
+params in key for key.  MoE, MLA, audio and VLM blocks come with later
+slices.
 """
 from __future__ import annotations
 
@@ -30,9 +32,12 @@ from .common import apply_norm, embed_init, norm_params
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 def _layer_kind(cfg: B.ArchConfig, i: int) -> str:
-    """Layer ``i``'s block kind (JAX's hybrid and MoE kinds come with their
-    slices)."""
-    return "ssm" if cfg.arch_type == "ssm" else "dense_block"
+    """Layer ``i``'s block kind (JAX's MoE kind comes with its slice)."""
+    if cfg.arch_type == "ssm":
+        return "ssm"
+    if cfg.arch_type == "hybrid":
+        return "attn_block" if (i + 1) % cfg.attn_every == 0 else "ssm"
+    return "dense_block"
 
 
 def _stacked_norm(cfg, gen, lead):
@@ -164,21 +169,26 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
 
 
 class DecoderLM(B.Model):
-    """Decoder-only language model; this slice serves ``dense`` and ``ssm``
+    """Decoder-only language model: ``dense``, ``ssm`` and ``hybrid``
     archs."""
 
     def __init__(self, cfg: B.ArchConfig):
-        if cfg.arch_type not in ("dense", "ssm") or cfg.mla or cfg.n_patches:
+        if (cfg.arch_type not in ("dense", "ssm", "hybrid") or cfg.mla
+                or cfg.n_patches):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense and ssm decoder blocks "
-                f"only so far (arch_type {cfg.arch_type!r})")
+                f"{cfg.name}: the port has dense, ssm and hybrid decoder "
+                f"blocks only so far (arch_type {cfg.arch_type!r})")
         super().__init__(cfg)
         self.kinds = [_layer_kind(cfg, i) for i in range(cfg.n_layers)]
 
     # -- structure -----------------------------------------------------------
     def _stacks(self):
         """(name, kind, layer indices) of each homogeneous stack; dense and
-        ssm archs have one."""
+        ssm archs have one, and so has the hybrid: its Mamba2 layers (the
+        shared attention block is one unstacked tree)."""
+        if self.cfg.arch_type == "hybrid":
+            return [("ssm_blocks", "ssm",
+                     [i for i, k in enumerate(self.kinds) if k == "ssm"])]
         kind = self.kinds[0]
         name = {"dense_block": "blocks", "ssm": "ssm_blocks"}[kind]
         return [(name, kind, list(range(self.cfg.n_layers)))]
@@ -197,12 +207,24 @@ class DecoderLM(B.Model):
             init = _INIT_BY_KIND[kind]
             p[name] = ST.stack_init(lambda g, lead, init=init: init(cfg, g, lead),
                                     gen, len(idxs))
+        if cfg.arch_type == "hybrid":
+            p["shared_attn"] = init_dense_block(cfg, gen)
         return p
 
+    def _hybrid_groups(self):
+        """(groups, layers a group): the hybrid runs ``attn_every - 1``
+        Mamba2 layers, then the shared block, ``groups`` times."""
+        seg = self.cfg.attn_every - 1
+        return len(self._stacks()[0][2]) // seg, seg
+
     # -- training forward ------------------------------------------------------
-    def _scan_stack(self, stack_params, kind, x, positions, n_layers):
-        """Fold over layer groups of ``cfg.scan_block_size`` with the
-        arch's remat policy (JAX's ``_scan_stack``)."""
+    def _scan_stack(self, stack_params, kind, x, positions, n_layers,
+                    shared_attn=None, force_group=None):
+        """Fold over layer groups of ``cfg.scan_block_size`` (or
+        ``force_group``) with the arch's remat policy (JAX's
+        ``_scan_stack``).  With ``shared_attn`` the weight-shared dense
+        block runs after each group, inside its remat wrap, so the backward
+        recomputes it too."""
         cfg = self.cfg
 
         def body(carry, lp):
@@ -210,15 +232,29 @@ class DecoderLM(B.Model):
             x, a = apply_block(cfg, kind, lp, x, positions)
             return x, aux + a
 
-        stack = ST.Stacked(body, n_layers, block_size=cfg.scan_block_size,
-                           remat=cfg.remat)
+        def tail(carry):
+            x, aux = carry
+            x, _ = apply_block(cfg, "dense_block", shared_attn, x, positions)
+            return x, aux
+
+        stack = ST.Stacked(body, n_layers,
+                           block_size=force_group or cfg.scan_block_size,
+                           remat=cfg.remat,
+                           tail=tail if shared_attn is not None else None)
         aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
         return stack.fold(stack_params, (x, aux0))
 
     def backbone(self, params, x, positions):
-        """Every stack in layer order; returns (x, summed aux).  The
-        hybrid's weight-shared stack and the pipelined backbone come with
-        their slices (``__init__`` refuses the hybrid arch)."""
+        """Every stack in layer order; returns (x, summed aux).  The hybrid
+        folds its Mamba2 layers in groups of ``attn_every - 1`` with the
+        shared block as each group's tail.  The pipelined backbone comes
+        with parallelism (ROADMAP A8)."""
+        if self.cfg.arch_type == "hybrid":
+            n_groups, seg = self._hybrid_groups()
+            return self._scan_stack(params["ssm_blocks"], "ssm", x, positions,
+                                    n_groups * seg,
+                                    shared_attn=params["shared_attn"],
+                                    force_group=seg)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for name, kind, idxs in self._stacks():
             x, aux = self._scan_stack(params[name], kind, x, positions,
@@ -265,6 +301,10 @@ class DecoderLM(B.Model):
         S = x.shape[1]
         max_len = max_len or S
         positions = torch.arange(S, device=x.device)
+        if cfg.arch_type == "hybrid":
+            x, cache = self._prefill_hybrid(params, x, positions, max_len,
+                                            cache_dtype)
+            return self.logits(params, x[:, -1:])[:, 0], cache
         cache: Dict[str, Any] = {}
         for name, kind, idxs in self._stacks():
 
@@ -276,6 +316,25 @@ class DecoderLM(B.Model):
         logits = self.logits(params, x[:, -1:])[:, 0]
         return logits, cache
 
+    def _prefill_hybrid(self, params, x, positions, max_len, cache_dtype):
+        """Each group's Mamba2 layers, then the shared block, whose K/V of
+        this use go to row ``g`` of the ``shared_attn`` cache ``[n_attn, B,
+        max_len, K, dh]`` (JAX's ``_prefill_hybrid``)."""
+        cfg = self.cfg
+        n_groups, seg = self._hybrid_groups()
+        ssm_c, attn_c = [], []
+        for g in range(n_groups):
+            for i in range(seg):
+                lp = ST.take_layer(params["ssm_blocks"], g * seg + i)
+                x, c = prefill_block(cfg, "ssm", lp, x, positions, max_len,
+                                     cache_dtype)
+                ssm_c.append(c)
+            x, c = prefill_block(cfg, "dense_block", params["shared_attn"], x,
+                                 positions, max_len, cache_dtype)
+            attn_c.append(c)
+        return x, {"ssm_blocks": ST.stack_layers(ssm_c),
+                   "shared_attn": ST.stack_layers(attn_c)}
+
     def prefill_into(self, params, batch, cache, slot, max_len=None,
                      cache_dtype=torch.bfloat16):
         """Prefill one batch=1 request into slot ``slot`` of a slot-pool
@@ -286,12 +345,18 @@ class DecoderLM(B.Model):
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """One stacked cache tree per stack: K/V for dense layers, the f32
-        (conv, ssm) state for ssm layers (JAX's ``init_cache``)."""
+        (conv, ssm) state for ssm layers, and for the hybrid the K/V of
+        each use of the shared block (JAX's ``init_cache``)."""
+        cfg = self.cfg
         cache: Dict[str, Any] = {}
-        for name, kind, idxs in self._stacks():
-            one = init_cache_block(self.cfg, kind, batch, max_len, dtype,
-                                   device)
-            cache[name] = {k: torch.zeros((len(idxs),) + tuple(v.shape),
+        stacks = [(name, kind, len(idxs)) for name, kind, idxs
+                  in self._stacks()]
+        if cfg.arch_type == "hybrid":
+            stacks.append(("shared_attn", "dense_block",
+                           self.kinds.count("attn_block")))
+        for name, kind, n in stacks:
+            one = init_cache_block(cfg, kind, batch, max_len, dtype, device)
+            cache[name] = {k: torch.zeros((n,) + tuple(v.shape),
                                           dtype=v.dtype, device=v.device)
                            for k, v in one.items()}
         return cache
@@ -360,6 +425,9 @@ class DecoderLM(B.Model):
         ``active`` suppresses the writes of dead slots."""
         cfg = self.cfg
         x = self.embed_tokens(params, tokens[:, None])
+        if cfg.arch_type == "hybrid" and pages is None:
+            x = self._decode_hybrid(params, cache, x, positions)
+            return self.logits(params, x)[:, 0], cache
         for name, kind, idxs in self._stacks():
 
             def body(x, inp, kind=kind):
@@ -374,3 +442,21 @@ class DecoderLM(B.Model):
             x, _ = ST.layer_loop(body, (params[name], cache[name]), x,
                                  len(idxs))
         return self.logits(params, x)[:, 0], cache
+
+    def _decode_hybrid(self, params, cache, x, positions):
+        """One token through each group's Mamba2 layers and the shared
+        block, with that use's K/V cache (JAX's ``_decode_hybrid``); the
+        cache is updated in place."""
+        cfg = self.cfg
+        n_groups, seg = self._hybrid_groups()
+        for g in range(n_groups):
+            for i in range(seg):
+                li = g * seg + i
+                x, _ = decode_block(cfg, "ssm",
+                                    ST.take_layer(params["ssm_blocks"], li),
+                                    ST.take_layer(cache["ssm_blocks"], li),
+                                    x, positions)
+            x, _ = decode_block(cfg, "dense_block", params["shared_attn"],
+                                ST.take_layer(cache["shared_attn"], g), x,
+                                positions)
+        return x

@@ -1,7 +1,8 @@
 """AdamW over a param tree (port of ``repro.optim.adamw``).
 
-State (m, v) mirrors the param tree in f32.  ``count`` and the learning
-rate stay tensors on the params' device, so an update issues no host sync.
+State (m, v) mirrors the param tree in f32; ``update`` writes it and the
+params in place.  ``count`` and the learning rate stay tensors on the
+params' device, so an update issues no host sync.
 Weight decay follows JAX's rule ``p.ndim >= 2`` on the *stacked* leaves:
 per-layer norm weights ``[L, D]`` and biases ``[L, H, dh]`` are decayed, the
 unstacked ``final_norm [D]`` is not.
@@ -45,37 +46,51 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params) -> Tuple[Any, Dict[str, Any]]:
-        grads = tree_map(lambda g: g.float(), grads)
+        """One AdamW step.  JAX returns new trees; the port writes m, v and
+        the params (and the master copies) in place, one leaf at a time,
+        with JAX's arithmetic op for op, and returns the same trees.  A
+        second copy of the f32 state does not fit one card for the largest
+        model it trains (Zamba2-2.7B: params, gradients, m and v are 33 GB
+        in f32), so the old state does not survive the step."""
+        scale = None
         if self.grad_clip > 0:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
         count = state["count"] + 1
         b1, b2 = self.b1, self.b2
-        m = tree_map(lambda mm, g: b1 * mm + (1 - b1) * g, state["m"], grads)
-        v = tree_map(lambda vv, g: b2 * vv + (1 - b2) * torch.square(g),
-                     state["v"], grads)
         cf = count.float()
         c1 = 1 - torch.pow(b1, cf)
         c2 = 1 - torch.pow(b2, cf)
         lr = self._lr(count)
-
-        def upd(p, mm, vv):
+        target = state["master"] if self.master_weights else params
+        for p, g, mm, vv, t in _zip_leaves(params, grads, state["m"],
+                                           state["v"], target):
+            g = g.float()
+            if scale is not None:
+                g = g * scale
+            mm.mul_(b1).add_((1 - b1) * g)
+            vv.mul_(b2).add_((1 - b2) * torch.square(g))
             step = (mm / c1) / (torch.sqrt(vv / c2) + self.eps)
-            if self.weight_decay > 0 and p.dim() >= 2:
-                step = step + self.weight_decay * p.float()
-            return p.float() - lr * step
-
+            if self.weight_decay > 0 and t.dim() >= 2:
+                step = step + self.weight_decay * t.float()
+            t.copy_(t.float() - lr * step)
+            if t is not p:
+                p.copy_(t)
+        new_state = {"m": state["m"], "v": state["v"], "count": count}
         if self.master_weights:
-            new_master = tree_map(upd, state["master"], m, v)
-            new_params = tree_map(lambda nm, p: nm.to(p.dtype), new_master,
-                                  params)
-            return new_params, {"m": m, "v": v, "count": count,
-                                "master": new_master}
-        new_params = tree_map(lambda p, mm, vv: upd(p, mm, vv).to(p.dtype),
-                              params, m, v)
-        return new_params, {"m": m, "v": v, "count": count}
+            new_state["master"] = state["master"]
+        return params, new_state
+
+
+def _zip_leaves(tree, *rest):
+    """The leaves of ``tree`` with the leaves at the same keys of ``rest``
+    (which may hold their keys in another order)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _zip_leaves(v, *(r[k] for r in rest))
+    else:
+        yield (tree,) + rest
 
 
 def global_norm(tree) -> torch.Tensor:

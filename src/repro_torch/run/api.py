@@ -5,7 +5,6 @@
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import time
@@ -24,11 +23,16 @@ def _resolve_graph(graph: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def fingerprint(doc: Dict[str, Any]) -> str:
-    """sha256 of the run document as run (sorted keys, no whitespace).  The
-    JAX package hashes its materialized form (factory defaults filled in),
-    so the two packages' fingerprints of one document differ."""
-    text = json.dumps(doc, sort_keys=True, separators=(",", ":"), default=str)
-    return "sha256:" + hashlib.sha256(text.encode()).hexdigest()
+    """The fingerprint of a normalized run document (``RunConfig.doc``):
+    sha256 of its materialized form, factory defaults filled in, as JAX's
+    ``run.api.execute`` computes it, so one document has one fingerprint in
+    both packages."""
+    from ..core.components import register_all
+    from .fingerprint import fingerprint as _fingerprint
+    from .fingerprint import materialize
+
+    register_all()
+    return _fingerprint(materialize(doc))
 
 
 def execute_serve(cfg, *, device=None, write_files: bool = False,
@@ -38,9 +42,10 @@ def execute_serve(cfg, *, device=None, write_files: bool = False,
     ``run/kinds.py::execute_serve``).  The engine run adds the
     ``compare_static`` shim baseline on the same params and, with
     ``write_files``, writes ``BENCH_serve_<name>.json`` into ``bench_dir``,
-    which defaults to the run's ``output_dir``.  (JAX's default is the
-    working directory: run from the repo root, it overwrites the JAX
-    package's tracked ``BENCH_serve_quickstart.json``.)"""
+    where ``"."`` (the default) means the run's ``output_dir`` and ``""``
+    writes none, as in JAX.  (JAX reads ``"."`` as the working directory:
+    run from the repo root, it overwrites the JAX package's tracked
+    ``BENCH_serve_quickstart.json``.)"""
     graph = _resolve_graph(cfg.graph)
     model = graph.get("model")
     if model is None:
@@ -120,8 +125,8 @@ def execute_serve(cfg, *, device=None, write_files: bool = False,
                   tok_s=result.get("tok_s"))
         result["telemetry"] = rec.summary()
         rec.close()
-    if write_files:
-        bench_dir = s.bench_dir or cfg.output_dir
+    if write_files and s.bench_dir:
+        bench_dir = cfg.output_dir if s.bench_dir == "." else s.bench_dir
         os.makedirs(bench_dir, exist_ok=True)
         bench = {k: v for k, v in result.items() if k != "requests"}
         path = os.path.join(bench_dir, f"BENCH_serve_{cfg.name}.json")

@@ -204,8 +204,10 @@ class ServeSettings:
     (``block_len`` -1 auto / 0 dense, ``n_blocks``, ``prefill_chunk``,
     ``prefix_cache``), deadlines and the watchdog, and a
     ``BENCH_serve_<name>.json`` artifact (``compare_static`` adds the
-    equal-occupancy static-shim baseline).  ``bench_dir`` empty means the
-    run's ``output_dir`` (see ``run.api.execute_serve``).  ``ckpt``
+    equal-occupancy static-shim baseline).  ``bench_dir`` keeps JAX's
+    default ``"."`` (so the run document's fingerprint is JAX's), but the
+    port reads ``"."`` as the run's ``output_dir`` (see
+    ``run.api.execute_serve``).  ``ckpt``
     (ROADMAP A4) and ``faults`` (A5) are refused.
     """
 
@@ -225,7 +227,7 @@ class ServeSettings:
     sampling: Any = None          # mapping -> SamplingSettings
     workload: Any = None          # mapping -> WorkloadSettings
     compare_static: bool = True
-    bench_dir: str = ""           # where BENCH_serve_<name>.json lands
+    bench_dir: str = "."          # where BENCH_serve_<name>.json lands
     deadline_s: float = 0.0       # per-request wall deadline (0 = none)
     watchdog_s: float = 0.0       # no-progress tick watchdog (0 = off)
     faults: Any = ()              # chaos rows (serve_stall): ROADMAP A5
@@ -266,7 +268,8 @@ class RunConfig:
     output_dir: str
     settings: Any
     graph: Dict[str, Any]
-    doc: Dict[str, Any]           # the whole document, ``run`` included
+    doc: Dict[str, Any]           # the normalized document, as JAX's: the
+                                  # run section with every setting filled
 
 
 _SETTINGS = {"train": TrainSettings, "serve": ServeSettings}
@@ -275,7 +278,6 @@ _SETTINGS = {"train": TrainSettings, "serve": ServeSettings}
 def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConfig:
     if not isinstance(doc, dict):
         raise RunError("run document must be a mapping")
-    whole = doc
     doc = dict(doc)
     run_sec = dict(doc.pop("run", None) or {})
     doc_kind = run_sec.get("kind") or kind
@@ -301,5 +303,9 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConf
     name = str(run_sec.get("name") or "run")
     output_dir = str(run_sec.get("output_dir")
                      or os.path.join("results", "runs", name))
+    settings = cls(**section)
+    normalized_run = {"kind": doc_kind, "name": name, "output_dir": output_dir,
+                      doc_kind: dataclasses.asdict(settings)}
     return RunConfig(kind=doc_kind, name=name, output_dir=output_dir,
-                     settings=cls(**section), graph=doc, doc=whole)
+                     settings=settings, graph=doc,
+                     doc={"run": normalized_run, **doc})

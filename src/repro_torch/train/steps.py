@@ -51,6 +51,11 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
     as JAX's ``:60-76``: a bf16 carry would round every micro-step) and the
     gradients and metrics averaged.  Metrics stay 0-d tensors on the device:
     ``ce``, ``router_lb`` and ``loss``.
+
+    Unlike JAX's pure step, the step updates ``state`` in place: the
+    optimizer writes the params and its state leaf by leaf (see
+    ``AdamW.update``), so the returned state holds the same tensors and the
+    caller's ``state["params"]`` and ``state["opt"]`` hold the new values.
     """
 
     def value_and_grad(params, batch):

@@ -44,6 +44,12 @@ EXTRA_CASES = [
     # slice's length: the K/V ring's prefetch of partial and wide tiles
     (1, 1000, 1000, 16, 16, 64, True, 0, bf16),
     (1, 1024, 1024, 16, 16, 128, True, 0, bf16),
+    # dh 80 (Zamba2's shared block): its prefill shape, GQA with a window
+    # and a ragged edge in both paths
+    (1, 1024, 1024, 32, 32, 80, True, 0, bf16),
+    (1, 300, 300, 4, 2, 80, True, 64, bf16),
+    (1, 300, 300, 4, 2, 80, True, 64, f32),
+    (2, 192, 192, 4, 2, 80, True, 0, bf16),
 ]
 
 pytestmark = pytest.mark.gpu
@@ -241,6 +247,59 @@ def test_reduced_mamba2_serve_goes_through_the_ssd_kernel(cuda):
     assert ssd_ops.launches - before == cfg.n_layers * (2 + 1)
     assert all(len(ids) == 4 and all(0 <= t < cfg.vocab for t in ids)
                for ids in res["generated_ids"])
+
+
+def _hybrid(cuda, **kw):
+    """Reduced Zamba2 at dh 80 through the flash kernel, seeded params."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+
+    cfg = get_reduced("zamba2_2p7b").with_(head_dim=80, use_flash_kernel=True,
+                                           **kw)
+    params = build_model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    return cfg, params
+
+
+def test_hybrid_prefill_through_both_kernels_matches_plain(cuda):
+    """Reduced Zamba2 at dh 80: the prefill launches flash_fwd once per use
+    of the shared block and ssd_scan once per Mamba2 layer, and its logits
+    match the plain path's (plain attention, ``ssd_chunked``) within the
+    bf16 logit bound of the CPU parity tests, 3e-2."""
+    from unittest import mock
+
+    import repro_torch.models.ssm as ssm
+    from repro_torch.models import build_model
+
+    cfg, params = _hybrid(cuda)
+    tokens = torch.randint(3, cfg.vocab, (1, 64), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    f0, s0 = ops.launches, ssd_ops.launches
+    kern, _ = build_model(cfg).prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert (ops.launches - f0, ssd_ops.launches - s0) == (2, 2)
+    with mock.patch.object(ssm, "ssd_scan", lambda *a, chunk: ssd_chunked(
+            *a, chunk=chunk)):
+        plain, _ = build_model(cfg.with_(use_flash_kernel=False)).prefill(
+            params, {"tokens": tokens})
+    torch.testing.assert_close(kern.float(), plain.float(), atol=3e-2, rtol=0)
+
+
+def test_hybrid_train_step_goes_through_both_kernels(cuda):
+    """One reduced Zamba2 train step (dh 80, remat full): each kernel runs
+    forward and in the remat recompute, the shared block's twice a use;
+    every leaf's gradient is finite and non-zero."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cs = _chip_smoke()
+    cfg, params = _hybrid(cuda, remat="full")
+    f0, s0 = ops.launches, ssd_ops.launches
+    loss, grads = cs.step_grads(build_model(cfg), params,
+                                _train_batch(cfg.vocab, cuda))
+    assert (ops.launches - f0, ssd_ops.launches - s0) == (2 * 2, 2 * 2)
+    assert loss == loss
+    for g in tree_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -250,7 +250,7 @@ REFUSED = [
      "variant_key: fsdp}", "A8"),
     ("gym.config.mesh_provider={component_key: mesh_provider, "
      "variant_key: single_device}", "A8"),
-    ("arch.variant_key=zamba2_2p7b", "A7"),
+    ("arch.variant_key=whisper_tiny", "A7"),
     ("arch.variant_key=deepseek_moe_16b", "A7"),
 ]
 

@@ -366,7 +366,7 @@ def test_unported_paths_raise():
             "engine": True, "faults": [{"kind": "serve_stall", "at": 0}]}}})
     with pytest.raises(NotImplementedError):
         load_params(model, ckpt="some/ckpt", device="cpu")
-    for arch in ("deepseek_moe_16b", "deepseek_v3_671b", "zamba2_2p7b",
-                 "whisper_tiny", "llava_next_34b"):
+    for arch in ("deepseek_moe_16b", "deepseek_v3_671b", "whisper_tiny",
+                 "llava_next_34b"):
         with pytest.raises(NotImplementedError):
             build_model(get_reduced(arch))
