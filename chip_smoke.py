@@ -41,7 +41,19 @@
    same params and batch; then full-width Mamba2-780M through the SSD kernel
    (3 steps), the same comparison against ``ssd_chunked``; then full-width
    Zamba2-2.7B through both kernels (3 steps), against both plain versions.
-6. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+6. Checkpoints: the two commands in ``warmstart.yaml``'s header (the
+   unchanged quickstart with ``gym.config.ckpt_every=20``, then the
+   unchanged ``warmstart.yaml`` from its checkpoint); then full-width
+   Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``' document, batch
+   8 × 1024): 6 steps straight; 3 steps with an async checkpoint at step
+   3, its ``resolved.yaml`` and ``manifest.json``; resumed in a new run to
+   the budget of 6 (losses and params against the straight run within
+   ``RESUME_TOL``, bit-equality printed); its params served from the
+   checkpoint (``==`` the step-3 params; one prefill's logits ``==``); a
+   warmstart of 2 steps from it; ``replay`` of the interrupted run's
+   directory (the same fingerprint, the same losses).  Prints the
+   snapshot's stall, the writer's seconds and bytes and the restore time.
+7. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine, each 16 sampled requests of 256/512/1024 prompt tokens,
@@ -943,6 +955,328 @@ def profile_train_step(key, cfg, params, batch, out_dir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# checkpoints: save, resume, serve, warmstart, replay
+# ---------------------------------------------------------------------------
+CKPT_STEPS, CKPT_AT, WARM_STEPS = 6, 3, 2
+# the resumed run against the straight one (JAX's bound in
+# tests/test_ckpt.py); the step is deterministic on the card, so the run
+# prints whether they are also bit-equal
+RESUME_TOL = 1e-6
+
+
+class _RunCapture:
+    """Wraps ``Gym.run`` and ``Gym.restore`` for one run-API call: keeps
+    the gym, its final state, the seconds ``restore`` took (None when the
+    run restored nothing), and ``check(gym, state)``'s verdict on the state
+    ``run`` was handed, taken before any step writes it in place."""
+
+    def __init__(self, check=None):
+        self.check, self.entry_ok, self.gym, self.out = check, None, None, None
+        self.restore_s = None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core.gym import Gym
+
+        run, restore = Gym.run, Gym.restore
+
+        def wrapped_run(gym, steps, state=None):
+            if self.check is not None:
+                self.entry_ok = self.check(gym, state)
+            self.gym = gym
+            self.out = run(gym, steps, state=state)
+            return self.out
+
+        def wrapped_restore(gym, state_like, source=""):
+            t0 = time.perf_counter()
+            out = restore(gym, state_like, source)
+            torch.cuda.synchronize()
+            self.restore_s = time.perf_counter() - t0
+            return out
+
+        self._patches = [mock.patch.object(Gym, "run", wrapped_run),
+                         mock.patch.object(Gym, "restore", wrapped_restore)]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+        return False
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.ckpt.format import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def _max_diff(a, b) -> float:
+    from repro_torch.ckpt.format import flatten_with_paths
+
+    return max(float((x.float() - y.float()).abs().max())
+               for (_, x), (_, y) in zip(flatten_with_paths(a),
+                                         flatten_with_paths(b)))
+
+
+def _step_ms(hist) -> list:
+    walls = [h["wall_s"] for h in hist]
+    return [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+
+
+def phase_ckpt_quickstart(data_dir: str) -> bool:
+    """The two commands in ``warmstart.yaml``'s header on the card: the
+    unchanged quickstart with ``gym.config.ckpt_every=20`` (the donor), then
+    the unchanged ``warmstart.yaml`` from its checkpoint, both with their
+    output (and the donor's data) in the temporary directory."""
+    import math
+
+    from repro_torch.ckpt import list_checkpoints
+    from repro_torch.run import api
+
+    donor = os.path.join(data_dir, "qs_donor")
+    data = f"dataset.config.prefix={os.path.join(data_dir, 'qs_ckpt')}"
+    t0 = time.perf_counter()
+    res = api.execute_file(
+        os.path.join(ROOT, "examples", "configs", "quickstart.yaml"),
+        device="cuda", write_result=True, log=_quiet,
+        overrides=["gym.config.ckpt_every=20", data,
+                   f"run.output_dir={donor}"])
+    t1 = time.perf_counter()
+    warm = api.execute_file(
+        os.path.join(ROOT, "examples", "configs", "warmstart.yaml"),
+        device="cuda", write_result=True, log=_quiet,
+        overrides=[f"run.warmstart.source={os.path.join(donor, 'ckpt')}",
+                   data, f"run.output_dir={os.path.join(data_dir, 'qs_warm')}"])
+    t2 = time.perf_counter()
+    donor_ckpts = [s for s, _ in list_checkpoints(os.path.join(donor, "ckpt"))]
+    warm_ckpts = [s for s, _ in list_checkpoints(
+        os.path.join(data_dir, "qs_warm", "ckpt"))]
+    losses = [h["loss"] for h in warm["history"]]
+    ok = (donor_ckpts == [20, 40, 60] and warm["kind"] == "warmstart"
+          and len(losses) == 40 and all(math.isfinite(x) for x in losses)
+          and warm_ckpts == [20, 40])
+    print(f"ckpt quickstart: donor {res['steps']} steps in {t1 - t0:.2f}s, "
+          f"checkpoints {donor_ckpts}, final loss {res['final_loss']:.5f}; "
+          f"warmstart.yaml {len(losses)} steps in {t2 - t1:.2f}s from "
+          f"{warm['warmstart']['source']}, first loss {losses[0]:.5f}, final "
+          f"{losses[-1]:.5f}, its own checkpoints {warm_ckpts}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def phase_ckpt_qwen(data_dir: str, results: dict) -> bool:
+    """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
+    document and sets, batch 8 x 1024, ``remat: full``) through the run API
+    on the card: a straight run of CKPT_STEPS steps; the same document
+    stopped at CKPT_AT with a checkpoint there; resumed in the same output
+    directory to the total budget; its params served from the checkpoint;
+    a warmstart from it; and a replay of the interrupted run's directory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import read_manifest
+    from repro_torch.run import api
+    from repro_torch.serve.engine import load_params
+
+    spec = TRAIN_SLICES["qwen"]
+    n_tokens = (CKPT_STEPS + 2) * TRAIN_BATCH * (TRAIN_SEQ + 1)
+    base = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
+            f"loader.config.global_batch={TRAIN_BATCH}",
+            f"dataset.config.n_tokens={n_tokens}", *spec["sets"]]
+    out_dir = os.path.join(data_dir, "ckpt_qwen_run")
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    step_dir = os.path.join(ckpt_dir, f"step_{CKPT_AT:08d}")
+    counters = _counters()
+    runs: dict = {}
+
+    def drive(name, *sets, doc=None, replay=False, check=None, write=False):
+        doc = doc or train_doc(data_dir, "ckpt_qwen", *base, *sets)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with _RunCapture(check) as cap:
+            if replay:
+                res = api.replay(out_dir, device="cuda", log=_quiet)
+            else:
+                res = api.execute_doc(doc, device="cuda", write_result=write,
+                                      log=_quiet)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        runs[name] = dict(res=res, cap=cap, counts=counts,
+                          wall=time.perf_counter() - t0,
+                          losses=[h["loss"] for h in res["history"]])
+        return runs[name]
+
+    layers = 24 * 2     # attention layers x (forward + remat recompute)
+    straight = drive("straight", f"run.train.steps={CKPT_STEPS}")
+    part = drive("interrupted", f"run.train.steps={CKPT_AT}",
+                 f"gym.config.ckpt_every={CKPT_AT}",
+                 f"run.output_dir={out_dir}", write=True)
+    resumed = drive("resumed", f"run.train.steps={CKPT_STEPS}",
+                    f"gym.config.ckpt_every={CKPT_AT}",
+                    f"run.output_dir={out_dir}", "run.train.resume=auto")
+    ok = True
+    for name, r in runs.items():
+        want = layers * r["res"]["steps_this_run"]
+        good = (r["counts"]["flash_fwd"] == want
+                and all(math.isfinite(x) for x in r["losses"]))
+        print(f"ckpt qwen: {name}: {r['res']['steps_this_run']} steps in "
+              f"{r['wall']:.2f}s, losses "
+              f"{json.dumps([round(x, 5) for x in r['losses']])}, flash_fwd "
+              f"launches {r['counts']['flash_fwd']} (want {want}): "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+        ok &= good
+
+    # the interrupted run: its checkpoint and artifacts
+    man = read_manifest(step_dir) if os.path.isdir(step_dir) else {}
+    fp_graph = part["cap"].gym.run_fingerprint
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        run_man = json.load(f)
+    art_ok = (man.get("n_leaves") == 44 and man.get("step") == CKPT_AT
+              and man.get("fingerprint") == fp_graph
+              and os.path.isfile(os.path.join(out_dir, "resolved.yaml"))
+              and run_man["fingerprint"] == part["res"]["fingerprint"])
+    save = part["res"]["ckpt_saves"][0]
+    print(f"ckpt qwen: interrupted: step_{CKPT_AT:08d} committed with "
+          f"{man.get('n_leaves')} leaves, manifest fingerprint "
+          f"{man.get('fingerprint')} (the run's component graph "
+          f"{fp_graph}); resolved.yaml + manifest.json "
+          f"({run_man['fingerprint']}): {'ok' if art_ok else 'FAILED'}",
+          flush=True)
+    print(f"ckpt qwen: snapshot caller-thread stall "
+          f"{1e3 * save['stall_s']:.3f} ms (of which allocating the pinned "
+          f"host buffers {1e3 * save['alloc_s']:.3f} ms), writer "
+          f"{save['write_s']:.3f} s for {save['bytes'] / 1e9:.4f} GB "
+          f"({save['bytes']} bytes, "
+          f"{save['bytes'] / 1e9 / save['write_s']:.3f} GB/s)", flush=True)
+    ms_s, ms_p = _step_ms(straight["res"]["history"]), \
+        _step_ms(part["res"]["history"])
+    print(f"ckpt qwen: ms/step straight {json.dumps([round(x, 3) for x in ms_s])}"
+          f" (median {float(np.median(ms_s)):.3f}), interrupted "
+          f"{json.dumps([round(x, 3) for x in ms_p])} (median "
+          f"{float(np.median(ms_p)):.3f})", flush=True)
+    ok &= art_ok
+
+    # the resumed run against the straight one
+    res_r = resumed["res"]
+    want_l = straight["losses"][CKPT_AT:]
+    got_l = resumed["losses"]
+    p_straight = straight["cap"].out["state"]["params"]
+    p_resumed = resumed["cap"].out["state"]["params"]
+    loss_diff = max(abs(a - b) for a, b in zip(got_l, want_l)) \
+        if len(got_l) == len(want_l) else math.inf
+    param_diff = _max_diff(p_resumed, p_straight)
+    bit = got_l == want_l and _trees_equal(p_resumed, p_straight)
+    res_ok = (res_r.get("resumed_from") == CKPT_AT
+              and res_r["steps_this_run"] == CKPT_STEPS - CKPT_AT
+              and loss_diff <= RESUME_TOL and param_diff <= RESUME_TOL)
+    print(f"ckpt qwen: resumed from {res_r.get('resumed_from')} (restore "
+          f"of the train state {resumed['cap'].restore_s:.3f} s; step "
+          f"{res_r.get('ckpt_saves', [{}])[0].get('step')} saved on the "
+          f"way), losses {CKPT_AT + 1}-{CKPT_STEPS} vs straight: max abs "
+          f"diff {loss_diff:.3g}, final params {param_diff:.3g} (tol "
+          f"{RESUME_TOL}); bit-equal {bit}: {'ok' if res_ok else 'FAILED'}",
+          flush=True)
+    ok &= res_ok
+    del straight["cap"].out, resumed["cap"].out, p_straight, p_resumed
+    import shutil
+
+    shutil.rmtree(os.path.join(ckpt_dir, f"step_{CKPT_STEPS:08d}"),
+                  ignore_errors=True)      # keep the temp dir's disk small
+
+    # serve the checkpoint's params: == the step-3 params in memory, and
+    # one 1024-token prefill through the flash kernel == from memory
+    from repro_torch.models import build_model
+
+    cfg = part["cap"].gym.model.cfg
+    p_mem = part["cap"].out["state"]["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_ckpt = load_params(build_model(cfg), ckpt=step_dir, device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    prompt = np.random.default_rng(1).integers(
+        3, cfg.vocab, size=(1, SLICE_PROMPT), dtype=np.int32)
+    tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
+    for c in counters.values():
+        c.launches = 0
+    l_ckpt = _prefill_logits(cfg, p_ckpt, tok, torch.bfloat16)
+    l_mem = _prefill_logits(cfg, p_mem, tok, torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = {n: c.launches for n, c in counters.items()}
+    add_launches(results, counts)
+    serve_ok = (_trees_equal(p_ckpt, p_mem) and torch.equal(l_ckpt, l_mem)
+                and bool(torch.isfinite(l_ckpt).all())
+                and counts["flash_fwd"] == 2 * 24)
+    print(f"ckpt qwen: load_params(ckpt=step_{CKPT_AT:08d}) in "
+          f"{t_restore:.3f}s: params == step {CKPT_AT}'s "
+          f"{_trees_equal(p_ckpt, p_mem)}; prefill logits (1 x "
+          f"{SLICE_PROMPT}, bf16) == from memory {torch.equal(l_ckpt, l_mem)}"
+          f"; flash_fwd launches {counts['flash_fwd']} (want 48): "
+          f"{'ok' if serve_ok else 'FAILED'}", flush=True)
+    ok &= serve_ok
+    del p_ckpt, l_ckpt, l_mem
+
+    # warmstart from the checkpoint: fresh optimizer, 2 steps
+    def warm_entry(gym, state):
+        from repro_torch.tree import tree_leaves
+
+        moments = tree_leaves(state["opt"]["m"]) + tree_leaves(
+            state["opt"]["v"])
+        return (_trees_equal(state["params"], p_mem)
+                and all(bool((t == 0).all()) for t in moments)
+                and int(state["step"]) == 0)
+
+    wdoc = train_doc(data_dir, "ckpt_qwen", *base)
+    wdoc["run"] = {"kind": "warmstart", "name": "ckpt_qwen_warm",
+                   "output_dir": os.path.join(data_dir, "ckpt_qwen_warm"),
+                   "warmstart": {"source": step_dir, "steps": WARM_STEPS,
+                                 "optimizer": "fresh"}}
+    warm = drive("warmstart", doc=wdoc, check=warm_entry)
+    warm_ok = (warm["cap"].entry_ok and warm["res"]["kind"] == "warmstart"
+               and len(warm["losses"]) == WARM_STEPS
+               and all(math.isfinite(x) for x in warm["losses"])
+               and warm["counts"]["flash_fwd"] == layers * WARM_STEPS)
+    print(f"ckpt qwen: warmstart from step_{CKPT_AT:08d} (optimizer fresh): "
+          f"params == donor's, m = v = 0, step 0 before step 1 "
+          f"{warm['cap'].entry_ok}; losses "
+          f"{json.dumps([round(x, 5) for x in warm['losses']])}; flash_fwd "
+          f"{warm['counts']['flash_fwd']} (want {layers * WARM_STEPS}): "
+          f"{'ok' if warm_ok else 'FAILED'}", flush=True)
+    ok &= warm_ok
+    del p_mem, part["cap"].out, warm["cap"].out
+
+    # replay the interrupted run's directory
+    rep = drive("replay", replay=True)
+    rep_ok = (rep["res"]["fingerprint"] == part["res"]["fingerprint"]
+              and rep["losses"] == part["losses"]
+              and rep["counts"]["flash_fwd"] == layers * CKPT_AT)
+    print(f"ckpt qwen: replay of {out_dir}: fingerprint "
+          f"{rep['res']['fingerprint']} (interrupted run's "
+          f"{part['res']['fingerprint']}); losses "
+          f"{json.dumps([round(x, 5) for x in rep['losses']])}, bit-equal "
+          f"to the interrupted run's {rep['losses'] == part['losses']}; "
+          f"flash_fwd {rep['counts']['flash_fwd']} (want {layers * CKPT_AT}): "
+          f"{'ok' if rep_ok else 'FAILED'}", flush=True)
+    ok &= rep_ok
+    del rep["cap"].out
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+# ---------------------------------------------------------------------------
 # the continuous-batching engine
 # ---------------------------------------------------------------------------
 # full-width Qwen on the paged engine: a prefix-heavy trace of sampled
@@ -1442,6 +1776,10 @@ def main() -> int:
             print(f"phase train {key}: {'ok' if train_ok else 'FAILED'}",
                   flush=True)
             ok &= train_ok
+        ckpt_ok = phase_ckpt_quickstart(data_dir)
+        ckpt_ok &= phase_ckpt_qwen(data_dir, results)
+        print(f"phase ckpt qwen: {'ok' if ckpt_ok else 'FAILED'}", flush=True)
+        ok &= ckpt_ok
         engine_ok = phase_engine_quickstart(data_dir)
         print(f"phase engine quickstart: {'ok' if engine_ok else 'FAILED'}",
               flush=True)

@@ -125,6 +125,96 @@ def resolve_config(raw: Dict[str, Any], registry: Optional[Registry] = None) -> 
     return Resolver(registry).resolve(raw)
 
 
+def validate_config(raw: Dict[str, Any],
+                    registry: Optional[Registry] = None) -> Dict[str, int]:
+    """Schema + registry validation WITHOUT building anything (JAX's
+    ``validate_config``).
+
+    Walks the document exactly like :class:`Resolver` but never calls a
+    factory: variables must be defined, reference targets must exist (and be
+    acyclic), component/variant pairs must be registered, and each component
+    node's config keys are checked against the factory signature (unknown and
+    missing-required keys).  A component of a later slice of the port (a
+    factory with a ``not_ported`` message) raises ``NotImplementedError``
+    with that message.  Returns ``{"components": n, "top_level": m}``.
+    """
+    reg = registry or DEFAULT_REGISTRY
+    if not isinstance(raw, dict):
+        raise ConfigError("top-level config must be a mapping")
+    variables = dict(raw.get("variables", {}) or {})
+    top = {k: v for k, v in raw.items() if k != "variables"}
+    counts = {"components": 0, "top_level": len(top)}
+    visited: Set[str] = set()
+    in_progress: Set[str] = set()
+
+    def visit_top(name: str) -> None:
+        if name in visited:
+            return
+        if name not in top:
+            raise ConfigError(
+                f"reference to unknown top-level entry {name!r}; "
+                f"available: {sorted(top)}"
+            )
+        if name in in_progress:
+            raise ConfigError(
+                f"cyclic reference involving {name!r} "
+                f"(cycle: {sorted(in_progress)})"
+            )
+        in_progress.add(name)
+        try:
+            check_node(top[name], path=name)
+        finally:
+            in_progress.discard(name)
+        visited.add(name)
+
+    def check_node(node: Any, path: str) -> None:
+        if isinstance(node, str):
+            interpolate(node, variables)
+            return
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                check_node(v, f"{path}[{i}]")
+            return
+        if not isinstance(node, dict):
+            return
+        if "instance_key" in node:
+            pass_type = node.get("pass_type", "BY_REFERENCE")
+            if pass_type != "BY_REFERENCE":
+                raise ConfigError(f"{path}: unsupported pass_type {pass_type!r}")
+            extra = set(node) - {"instance_key", "pass_type"}
+            if extra:
+                raise ConfigError(f"{path}: reference node has extra keys {extra}")
+            visit_top(node["instance_key"])
+            return
+        if "component_key" in node:
+            if "variant_key" not in node:
+                raise ConfigError(f"{path}: component node missing variant_key")
+            extra = set(node) - {"component_key", "variant_key", "config"}
+            if extra:
+                raise ConfigError(f"{path}: component node has extra keys {extra}")
+            cfg = node.get("config", {}) or {}
+            if not isinstance(cfg, dict):
+                raise ConfigError(f"{path}: config must be a mapping")
+            try:
+                entry = reg.entry(node["component_key"], node["variant_key"])
+                reg.validate_kwargs(entry, cfg)
+            except RegistryError as e:
+                raise ConfigError(f"{path}: {e}") from e
+            not_ported = getattr(entry.factory, "not_ported", None)
+            if not_ported:
+                raise NotImplementedError(f"{path}: {not_ported}")
+            counts["components"] += 1
+            for k, v in cfg.items():
+                check_node(v, f"{path}.{k}")
+            return
+        for k, v in node.items():
+            check_node(v, f"{path}.{k}")
+
+    for name in top:
+        visit_top(name)
+    return counts
+
+
 def load_yaml(path: str) -> Dict[str, Any]:
     import yaml
 

@@ -7,10 +7,11 @@ Registered: ``arch_config/<arch>`` for every arch of the table (with the
 ``lr_schedule/*``, ``dataset/synthetic`` and ``dataset/packed_chunked``,
 ``loader/sharded`` and ``loader/prefetch``, ``remat_policy/*``,
 ``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
-``sink/*`` and ``gym/standard``.  The names and settings match
-``repro.core.components``, so a run YAML of the JAX package resolves here
-unchanged; settings of later slices (mesh and sharding plan, checkpoints)
-raise ``NotImplementedError`` naming the slice.
+``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``, and
+``gym/standard``.  The names and settings match ``repro.core.components``,
+so a run YAML of the JAX package resolves here unchanged; settings of later
+slices (mesh and sharding plan) raise ``NotImplementedError`` naming the
+slice.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ def register_all() -> None:
 
 
 def _register_training() -> None:
+    from ..ckpt import AsyncCheckpointer, RetentionPolicy
     from ..data.packed_dataset import (ChunkedLMDataset, PackedDataset,
                                        ShardedLoader)
     from ..data.prefetch import PrefetchLoader
@@ -101,15 +103,24 @@ def _register_training() -> None:
                 "gym mesh_provider/sharding_plan: the port trains on one "
                 "device; meshes and sharding plans come with the "
                 "parallelism slice (ROADMAP A8)")
-        if ckpt_every or ckpt_dir or checkpointer is not None:
-            raise NotImplementedError(
-                "gym ckpt_every/ckpt_dir/checkpointer: checkpoints come with "
-                "the checkpoint slice of the port (ROADMAP A4)")
         return Gym(model=model, optimizer=optimizer, loader=loader, seed=seed,
                    grad_accum=grad_accum, log_every=log_every,
-                   eval_every=eval_every, prefetch=prefetch, logger=tracker)
+                   eval_every=eval_every, ckpt_every=ckpt_every,
+                   ckpt_dir=ckpt_dir or getattr(checkpointer, "ckpt_dir", ""),
+                   checkpointer=checkpointer, prefetch=prefetch,
+                   logger=tracker)
 
     REG.register("gym", "standard", gym, Gym)
+    REG.register("checkpointer", "async",
+                 lambda ckpt_dir, keep_last=3, keep_every=0:
+                 AsyncCheckpointer(ckpt_dir, RetentionPolicy(
+                     int(keep_last), int(keep_every))),
+                 AsyncCheckpointer)
+    REG.register("checkpointer", "sync",
+                 lambda ckpt_dir, keep_last=3, keep_every=0:
+                 AsyncCheckpointer(ckpt_dir, RetentionPolicy(
+                     int(keep_last), int(keep_every)), background=False),
+                 AsyncCheckpointer)
 
     # components of later slices: a JAX document naming one resolves to a
     # refusal that names the slice
@@ -119,9 +130,7 @@ def _register_training() -> None:
             ("sharding_plan", ("ddp", "fsdp", "hsdp", "fsdp_tp", "hsdp_tp",
                                "fsdp_tp_ep", "hsdp_tp_ep", "serve_ep",
                                "pp2_fsdp", "pp2_fsdp_tp", "pp2_fsdp_tp_ep",
-                               "custom"), "the parallelism slice (ROADMAP A8)"),
-            ("checkpointer", ("async", "sync"),
-             "the checkpoint slice (ROADMAP A4)")):
+                               "custom"), "the parallelism slice (ROADMAP A8)")):
         for variant in variants:
             REG.register(key, variant, _refusal(f"{key}/{variant}", slice_))
 
@@ -139,9 +148,12 @@ def _custom_cfg(**kw) -> ArchConfig:
 
 
 def _refusal(name: str, slice_: str):
-    def refuse(**_config):
-        raise NotImplementedError(f"{name}: comes with {slice_} of the port")
+    message = f"{name}: comes with {slice_} of the port"
 
+    def refuse(**_config):
+        raise NotImplementedError(message)
+
+    refuse.not_ported = message   # read by config.resolver.validate_config
     return refuse
 
 

@@ -6,22 +6,29 @@ wrapped in a :class:`PrefetchLoader` (a worker thread keeps the next
 ``prefetch`` batches on the device), and metrics stay on the device between
 log points: one host fetch per ``log_every`` window, made one window late,
 so the host never waits for the step it has just issued.  No ``.item()``
-per step: that would serialize the host and the card.
+per step: that would serialize the host and the card.  Checkpoints route
+through the async engine (:mod:`repro_torch.ckpt`): the loop pays for
+issuing the device-to-host copies, serialization happens on a writer
+thread.
 
 This slice trains on one device.  The mesh and sharding plan (ROADMAP A8),
-checkpoints (A4), resilience and the profiler (A5) are refused where they
-are configured (``core/components.py``, ``run/config.py``).
+resilience (rollback, preemption, retries and fault injection) and the
+profiler (A5) are refused where they are configured
+(``core/components.py``, ``run/config.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..data.prefetch import PrefetchLoader, place_batch
 from ..device import resolve_device
+from ..train import checkpoint as CK
 from ..train import steps as ST
 
 
@@ -34,6 +41,10 @@ class Gym:
     grad_accum: int = 1
     log_every: int = 10
     eval_every: int = 0
+    ckpt_every: int = 0
+    ckpt_dir: str = ""
+    checkpointer: Any = None              # AsyncCheckpointer (default: async)
+    run_fingerprint: str = ""             # stamped into manifests; checked on restore
     prefetch: int = 2                     # device-prefetch depth (0 = sync)
     eval_fn: Optional[Callable] = None
     logger: Optional[Callable[[Dict[str, Any]], None]] = None
@@ -63,6 +74,71 @@ class Gym:
     def _step_extra_args(self) -> tuple:
         """Extra positional arguments appended to every step call."""
         return ()
+
+    # -- checkpointing -----------------------------------------------------
+    def _ckpt(self):
+        """The checkpointer this gym saves/restores through: the injected
+        registry component, or a default async engine on ``ckpt_dir``."""
+        if self.checkpointer is None and self.ckpt_dir:
+            from ..ckpt import AsyncCheckpointer
+
+            self.checkpointer = AsyncCheckpointer(self.ckpt_dir)
+        return self.checkpointer
+
+    def save_policy(self, step: int) -> bool:
+        """Does this step checkpoint? The ``ckpt_every`` knob (override for
+        custom cadences — e.g. denser early saves)."""
+        return bool(self.ckpt_every) and step % self.ckpt_every == 0
+
+    def restore(self, state_like, source: str = "") -> Tuple[Any, Optional[int]]:
+        """Restore the newest committed checkpoint (onto the device of
+        ``state_like``'s leaves, this gym's after ``setup``).
+
+        ``source`` may be a checkpoint directory (either format), one
+        committed ``step_XXXXXXXX`` dir, or a legacy ``.npz`` file; empty
+        means the gym's own ``ckpt_dir``.  Returns ``(state, step)`` —
+        unchanged ``(state_like, None)`` when there is nothing to restore.
+        A checkpoint stamped with another run fingerprint restores with a
+        warning.
+        """
+        from ..ckpt import elastic as EL
+        from ..ckpt import format as CF
+
+        ck = self._ckpt()
+        if ck is not None:
+            ck.wait()  # queued saves must commit before "latest" is resolved
+        src = source or self.ckpt_dir
+        if not src:
+            return state_like, None
+        if os.path.isfile(src) or (os.path.isdir(src)
+                                   and CF.is_committed(src)):
+            path = src
+        else:
+            latest = CK.latest_checkpoint(src)
+            if latest is None:
+                return state_like, None
+            path = latest[1]
+        if os.path.isdir(path):
+            saved_fp = CF.read_manifest(path).get("fingerprint", "")
+            if saved_fp and self.run_fingerprint \
+                    and saved_fp != self.run_fingerprint:
+                # the checkpoint was written by a DIFFERENT resolved config
+                warnings.warn(
+                    f"restoring {path} saved under fingerprint "
+                    f"{saved_fp[:22]}… into a run fingerprinted "
+                    f"{self.run_fingerprint[:22]}… — the resolved configs "
+                    f"differ", UserWarning, stacklevel=2)
+            state = EL.restore(state_like, path)
+        else:
+            state = CK.restore_checkpoint(state_like, path)
+        return state, int(state["step"])
+
+    def _ckpt_extra(self) -> Optional[Dict[str, Any]]:
+        """Manifest extras: the run fingerprint, so a restore can tell when
+        a checkpoint came from a different resolved config."""
+        if not self.run_fingerprint:
+            return None
+        return {"fingerprint": self.run_fingerprint}
 
     # -- input pipeline ----------------------------------------------------
     def _wrapped_loader(self):
@@ -119,6 +195,7 @@ class Gym:
                 tel.span_row("gym/flush", t_f0, time.perf_counter(),
                              step=last_step)
 
+        ckpt = self._ckpt()
         batches = self._wrapped_loader().batches(steps, start_step=start)
         try:
             it = iter(batches)
@@ -159,11 +236,24 @@ class Gym:
                                           if k != "step"})
                     if self.logger:
                         self.logger(row)
+                if ckpt is not None and self.save_policy(step):
+                    # the copies are queued on the stream before the next
+                    # step's in-place updates; serialization runs on the
+                    # writer thread
+                    t_ck0 = time.perf_counter()
+                    ckpt.save(state, step, extra=self._ckpt_extra())
+                    if do_spans:
+                        tel.span_row("gym/ckpt", t_ck0, time.perf_counter(),
+                                     step=step)
             flush()
         finally:
             close = getattr(batches, "close", None)
             if callable(close):
                 close()  # stop an abandoned prefetch worker
+            if ckpt is not None:
+                # the run's last checkpoint must be committed and the writer
+                # thread must not outlive the run, even when the loop raised
+                ckpt.close()
         final_step = int(state["step"])
         return {"state": state, "history": history,
                 "steps_dispatched": dispatched,

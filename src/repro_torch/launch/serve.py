@@ -26,8 +26,9 @@ def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
     the same range ``[3, vocab)`` as JAX's ``jax.random.randint`` but not
     the same numbers: the two generators differ, so the tests hand both
     packages the same numpy prompts instead.  Params come from
-    ``load_params`` (seeded ``torch.Generator``) unless given; ``device`` is
-    the card unless the caller asks for the CPU.
+    ``load_params`` unless given: a training checkpoint's params with
+    ``ckpt`` (either format), else a seeded ``torch.Generator``; ``device``
+    is the card unless the caller asks for the CPU.
     """
     from ..device import resolve_device
     from ..serve.engine import ServeEngine, load_params

@@ -1,3 +1,5 @@
-"""The port's run API: one document grammar, the train and serve kinds."""
+"""The port's run API: one document grammar; the train, warmstart and
+serve kinds; run artifacts and replay."""
 from .config import (RunConfig, RunError, ServeSettings,  # noqa: F401
-                     TelemetrySettings, TrainSettings, parse_run_doc)
+                     TelemetrySettings, TrainSettings, WarmstartKindSettings,
+                     WarmstartSettings, parse_run_doc)

@@ -1,24 +1,41 @@
-"""Run API of the port: run document -> resolved graph -> result.
+"""Run API of the port: run document -> materialize -> fingerprint ->
+resolved graph -> result (JAX's ``repro.run.api`` and the train-shaped
+parts of ``repro.run.kinds``).
 
     from repro_torch.run import api
     result = api.execute_doc(doc, device="cpu")
+
+With ``write_result`` every run writes ``resolved.yaml`` + ``manifest.json``
+(the replay artifact, byte-equal to JAX's) and ``result.json`` into its
+output directory; :func:`replay` re-executes a run directory of either
+package.  Every result carries the run's ``fingerprint`` and
+``output_dir``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
-from .config import RunError, parse_run_doc
+from .config import (RunError, TrainSettings, WarmstartSettings,
+                     parse_run_doc)
 from .overrides import apply_overrides, parse_overrides
+
+RESULT_FILE = "result.json"
+
+
+def _register() -> None:
+    from ..core.components import register_all
+
+    register_all()
 
 
 def _resolve_graph(graph: Dict[str, Any]) -> Dict[str, Any]:
     from ..config.resolver import resolve_config
-    from ..core.components import register_all
 
-    register_all()
+    _register()
     return resolve_config(graph)
 
 
@@ -27,16 +44,15 @@ def fingerprint(doc: Dict[str, Any]) -> str:
     sha256 of its materialized form, factory defaults filled in, as JAX's
     ``run.api.execute`` computes it, so one document has one fingerprint in
     both packages."""
-    from ..core.components import register_all
     from .fingerprint import fingerprint as _fingerprint
     from .fingerprint import materialize
 
-    register_all()
+    _register()
     return _fingerprint(materialize(doc))
 
 
-def execute_serve(cfg, *, device=None, write_files: bool = False,
-                  log=print) -> Dict[str, Any]:
+def execute_serve(cfg, *, device, write_files: bool, log,
+                  fp: str) -> Dict[str, Any]:
     """The ``serve`` kind: the static-batch shim, or with ``engine: true``
     the continuous-batching engine over the workload's seeded trace (JAX's
     ``run/kinds.py::execute_serve``).  The engine run adds the
@@ -72,8 +88,8 @@ def execute_serve(cfg, *, device=None, write_files: bool = False,
     max_len = s.max_len or (longest_prompt + max(w.gen_tokens))
     params = load_params(model, ckpt=s.ckpt, seed=s.seed, device=device)
     rec = build_recorder(s.telemetry, output_dir=cfg.output_dir,
-                         run=cfg.name, kind=cfg.kind, write=write_files,
-                         log=log)
+                         run=cfg.name, kind=cfg.kind, fingerprint=fp,
+                         write=write_files, log=log)
     engine = ServeEngine(model, params, n_slots=s.n_slots, max_len=max_len,
                          greedy=samp.temperature <= 0,
                          block_len=None if s.block_len < 0 else s.block_len,
@@ -132,45 +148,121 @@ def execute_serve(cfg, *, device=None, write_files: bool = False,
         path = os.path.join(bench_dir, f"BENCH_serve_{cfg.name}.json")
         with open(path, "w") as f:
             json.dump({**bench, "name": cfg.name,
-                       "fingerprint": fingerprint(cfg.doc)}, f, indent=2,
-                      default=str)
+                       "fingerprint": fp}, f, indent=2, default=str)
             f.write("\n")
         result["bench_file"] = path
     return result
 
 
-def execute_train(cfg, *, device=None, write_files: bool = False,
-                  log=print) -> Dict[str, Any]:
-    """Resolve the graph and drive its gym for ``run.train.steps`` steps:
-    the part of JAX's ``run/kinds.py::_drive_gym`` this slice honours (no
-    resume, warmstart, resilience, profiler or ``mfu``).  The result has
-    ``first_loss``, ``final_loss``, ``tokens_per_s``, ``goodput`` and the
-    flushed ``history``."""
+# ---------------------------------------------------------------------------
+# train-shaped kinds: checkpoint dir, resume, warmstart, the total budget
+# ---------------------------------------------------------------------------
+def _apply_warmstart(state, ws: WarmstartSettings, cfg, log) -> Any:
+    """Init params (and with ``carry`` the optimizer state) from another
+    run's checkpoint.  The step counter stays 0: a warmstart is a new run,
+    not a resume.  A relative ``source`` that does not exist from the
+    working directory is read relative to the run document."""
+    from ..ckpt import elastic as EL
+
+    source = ws.source
+    if not os.path.isabs(source) and not os.path.exists(source):
+        cand = os.path.join(cfg.config_dir, source)
+        if os.path.exists(cand):
+            source = cand
+    donor_keys = EL.manifest_keys(source)
+    if any("lora" in k.split("/") for k in donor_keys):
+        raise NotImplementedError(
+            f"warmstart from {source}: the checkpoint holds LoRA adapters; "
+            f"adapter checkpoints come with post-training (ROADMAP A6)")
+    if ws.optimizer == "carry":
+        # params + optimizer state restore in ONE call, so f32 master
+        # copies correctly suppress the compute params' lossy-cast warning
+        donor_has_masters = any(k.startswith("opt/master/")
+                                for k in donor_keys)
+        opt_like = state["opt"]
+        if not donor_has_masters and "master" in opt_like:
+            # masters are derivable from the restored params — exempt them
+            # from strictness instead of forcing strict: false everywhere
+            opt_like = {k: v for k, v in opt_like.items() if k != "master"}
+        sub = EL.restore({"params": state["params"], "opt": opt_like},
+                         source, strict=ws.strict)
+        state = dict(state, params=sub["params"],
+                     opt=dict(state["opt"], **sub["opt"]))
+        if not donor_has_masters:
+            # the target's masters kept their random init: rebase them
+            state = _rebase_master(state)
+    else:
+        params = EL.restore(state["params"], source, prefix="params",
+                            strict=ws.strict)
+        state = _rebase_master(dict(state, params=params))
+    log(f"warmstart: params from {source} "
+        f"(optimizer={ws.optimizer}, strict={ws.strict})")
+    return state
+
+
+def _rebase_master(state):
+    """Point a master-weights optimizer's f32 copies at the (re)stored
+    params — AdamW derives params from ``opt.master`` every update, so a
+    stale random-init master would silently undo a warmstart at step 1."""
+    from ..tree import tree_map
+
+    opt = state["opt"]
+    if "master" not in opt:
+        return state
+    master = tree_map(lambda p, m: p.to(m.dtype, copy=True),
+                      state["params"], opt["master"])
+    return dict(state, opt=dict(opt, master=master))
+
+
+def _prepare_gym(cfg, s, gym, resolved: Dict[str, Any]) -> None:
+    """Checkpoint-dir defaulting and fingerprint stamping."""
+    from .fingerprint import fingerprint as _fp
+
+    # a run that checkpoints but names no directory lands in the run dir —
+    # and a resuming run looks there even when IT doesn't checkpoint
+    if (gym.ckpt_every or s.resume) and not gym.ckpt_dir and cfg.output_dir:
+        gym.ckpt_dir = os.path.join(cfg.output_dir, "ckpt")
+    if not gym.run_fingerprint:
+        # stamped into ckpt manifests and compared on restore: the
+        # fingerprint of the COMPONENT GRAPH only, since run settings
+        # (steps, resume) change across a legitimate resume
+        gym.run_fingerprint = _fp(
+            {k: v for k, v in resolved.items() if k != "run"})
+
+
+def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
+               resolved: Dict[str, Any]) -> Dict[str, Any]:
+    """Setup -> warmstart/resume -> run -> result dict (JAX's
+    ``_drive_gym`` without resilience, the profiler and ``mfu``, ROADMAP
+    A5)."""
     from ..telemetry import accounting as ACC
     from ..telemetry import build_recorder
 
-    s = cfg.settings
-    graph = _resolve_graph(cfg.graph)
-    if s.gym_key not in graph:
-        raise RunError(f"resolved config has no {s.gym_key!r} entry; "
-                       f"top-level entries: {sorted(graph)}")
-    gym = graph[s.gym_key]
     gym.device = device
-    ev = graph.get("evaluator")
-    if ev is not None and gym.eval_fn is None:
-        gym.eval_fn = ev
-        if not gym.eval_every:
-            log("evaluator wired but gym.eval_every is 0 — it will never fire")
+    _prepare_gym(cfg, s, gym, resolved)
     state = gym.setup()
+    resumed_from = None
+    if s.warmstart is not None:
+        state = _apply_warmstart(state, s.warmstart, cfg, log)
+    elif s.resume:
+        state, resumed_from = gym.restore(state)
+        if resumed_from is not None:
+            log(f"resume: continuing from committed step {resumed_from}")
+        else:
+            log("resume: no committed checkpoint found, starting from step 0")
+    # `steps` is the TOTAL budget: a resumed run trains only the remainder,
+    # so interrupted + resumed reproduces the uninterrupted loss curve
+    steps = max(0, s.steps - (resumed_from or 0))
     rec = build_recorder(s.telemetry, output_dir=cfg.output_dir,
-                         run=cfg.name, kind=cfg.kind, write=write_files,
-                         log=log)
+                         run=cfg.name, kind=cfg.kind, fingerprint=fp,
+                         write=write_files, log=log)
     gym.telemetry = rec
     if rec is not None:
-        rec.event("run_start", steps=s.steps, steps_this_run=s.steps)
+        rec.event("run_start", steps=s.steps, steps_this_run=steps,
+                  resumed_from=resumed_from)
     t0 = time.time()
     try:
-        out = gym.run(s.steps, state=state)
+        out = gym.run(steps, state=state)
     except BaseException:
         if rec is not None:
             rec.close()
@@ -180,12 +272,25 @@ def execute_train(cfg, *, device=None, write_files: bool = False,
     dispatched = int(out["steps_dispatched"])
     result: Dict[str, Any] = {
         "steps": s.steps,
+        "steps_this_run": steps,
         "wall_s": round(wall, 6),
         "logged_points": len(hist),
         "history": hist,
         "steps_dispatched": dispatched,
         "goodput": ACC.goodput(int(out["productive_steps"]), dispatched),
     }
+    saves = getattr(gym.checkpointer, "saves", None)
+    if saves:
+        result["ckpt_saves"] = list(saves)
+    if resumed_from is not None:
+        result["resumed_from"] = resumed_from
+        if steps == 0:
+            # the budget was already met: report the no-op but do NOT
+            # overwrite the completed run's result.json (its loss curve is
+            # the only record of the finished training)
+            result["_no_result_file"] = True
+    if s.warmstart is not None:
+        result["warmstart"] = dataclasses.asdict(s.warmstart)
     losses = [m for m in hist if "loss" in m]
     if losses:
         result["first_loss"] = float(losses[0]["loss"])
@@ -198,7 +303,7 @@ def execute_train(cfg, *, device=None, write_files: bool = False,
     gb = getattr(gym.loader, "global_batch", None)
     seq = getattr(getattr(gym.loader, "dataset", None), "seq_len", None)
     if gb and seq:
-        result["tokens_per_s"] = int(s.steps * gb * seq / wall) \
+        result["tokens_per_s"] = int(steps * gb * seq / wall) \
             if wall > 0 else 0
     if rec is not None:
         rec.event("run_end", goodput=result["goodput"])
@@ -207,32 +312,125 @@ def execute_train(cfg, *, device=None, write_files: bool = False,
     return result
 
 
-def execute_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
-                overrides: Sequence[str] = (), device=None,
-                write_result: bool = False,
-                log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
-    """Apply ``--set`` overrides, parse, resolve and run one document.
-    ``device`` is the card unless the caller asks for the CPU."""
+def execute_train(cfg, *, device, write_files: bool, log, fp: str,
+                  resolved: Dict[str, Any]) -> Dict[str, Any]:
+    """Resolve the graph and drive its gym (see :func:`_drive_gym`).  The
+    result has ``first_loss``, ``final_loss``, ``tokens_per_s``,
+    ``goodput``, the flushed ``history``, and ``resumed_from`` /
+    ``warmstart`` / ``ckpt_saves`` where they apply."""
+    s = cfg.settings
+    graph = _resolve_graph(cfg.graph)
+    if s.gym_key not in graph:
+        raise RunError(f"resolved config has no {s.gym_key!r} entry; "
+                       f"top-level entries: {sorted(graph)}")
+    gym = graph[s.gym_key]
+    ev = graph.get("evaluator")
+    if ev is not None and gym.eval_fn is None:
+        gym.eval_fn = ev
+        if not gym.eval_every:
+            log("evaluator wired but gym.eval_every is 0 — it will never fire")
+    return _drive_gym(cfg, s, gym, device=device, write_files=write_files,
+                      log=log, fp=fp, resolved=resolved)
+
+
+def execute_warmstart(cfg, **kw) -> Dict[str, Any]:
+    """The ``warmstart`` kind: the train kind with ``run.train.warmstart``
+    made from the flat settings."""
+    s = cfg.settings
+    train = TrainSettings(
+        steps=s.steps, gym_key=s.gym_key,
+        warmstart={"source": s.source, "optimizer": s.optimizer,
+                   "strict": s.strict})
+    result = execute_train(dataclasses.replace(cfg, settings=train), **kw)
+    result["kind"] = "warmstart"
+    return result
+
+
+_EXECUTORS = {"train": execute_train, "warmstart": execute_warmstart,
+              "serve": execute_serve}
+
+
+def execute(cfg, *, device=None, write_result: bool = False,
+            log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+    """Execute a parsed run config on ``device`` (the card unless the
+    caller asks for the CPU).  With ``write_result`` the run writes its
+    artifacts first and ``result.json`` last (not for a resumed run that had
+    nothing left to train)."""
+    from ..device import resolve_device
+    from .fingerprint import fingerprint as _fingerprint
+    from .fingerprint import materialize, write_artifacts
+
     log = log or (lambda msg: print(msg, flush=True))
-    doc = apply_overrides(doc, parse_overrides(overrides))
-    cfg = parse_run_doc(doc, kind=kind)
-    if cfg.kind == "train":
-        result = execute_train(cfg, device=device, write_files=write_result,
-                               log=log)
-    else:
-        result = execute_serve(cfg, device=device, write_files=write_result,
-                               log=log)
-    if write_result:
+    device = resolve_device(device)
+    _register()
+    resolved = materialize(cfg.doc)
+    fp = _fingerprint(resolved)
+    if write_result and cfg.output_dir:
+        write_artifacts(cfg.output_dir, resolved, cfg.name, cfg.kind)
+    kw = dict(device=device, write_files=write_result, log=log, fp=fp)
+    if cfg.kind != "serve":
+        kw["resolved"] = resolved
+    result = _EXECUTORS[cfg.kind](cfg, **kw)
+    result.setdefault("kind", cfg.kind)
+    result["fingerprint"] = fp
+    result["output_dir"] = cfg.output_dir
+    no_file = result.pop("_no_result_file", False)
+    if write_result and cfg.output_dir and not no_file:
         os.makedirs(cfg.output_dir, exist_ok=True)
-        path = os.path.join(cfg.output_dir, "result.json")
-        with open(path, "w") as f:
+        with open(os.path.join(cfg.output_dir, RESULT_FILE), "w") as f:
             json.dump(result, f, indent=2, default=str)
             f.write("\n")
         log(f"run artifact: {cfg.output_dir}")
     return result
 
 
+def execute_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
+                overrides: Sequence[str] = (), device=None,
+                write_result: bool = False, default_name: str = "run",
+                config_dir: str = ".",
+                log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+    """Apply ``--set`` overrides, parse and execute one document.
+    ``device`` is the card unless the caller asks for the CPU."""
+    doc = apply_overrides(doc, parse_overrides(overrides))
+    cfg = parse_run_doc(doc, kind=kind, default_name=default_name,
+                        config_dir=config_dir)
+    return execute(cfg, device=device, write_result=write_result, log=log)
+
+
 def execute_file(path: str, **kw) -> Dict[str, Any]:
+    """:func:`execute_doc` of a YAML file, named by its stem unless the
+    document names itself; relative paths in it resolve from its
+    directory."""
     from ..config.resolver import load_yaml
 
-    return execute_doc(load_yaml(path), **kw)
+    kw.setdefault("default_name", os.path.splitext(os.path.basename(path))[0])
+    kw.setdefault("config_dir", os.path.dirname(os.path.abspath(path)))
+    return execute_doc(load_yaml(path) or {}, **kw)
+
+
+def replay(run_dir: str, *, device=None,
+           log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+    """Re-execute a run (of either package) from its artifact.
+
+    Loads ``<run_dir>/resolved.yaml``, verifies its fingerprint against the
+    manifest, and executes it — the identical run (same resolved config,
+    same fingerprint) — writing its artifacts and result again."""
+    import yaml
+
+    from .fingerprint import RESOLVED_FILE, read_manifest
+
+    path = os.path.join(run_dir, RESOLVED_FILE)
+    if not os.path.exists(path):
+        raise RunError(f"no resolved config at {path}; not a run directory?")
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    manifest = read_manifest(run_dir)
+    fp = fingerprint(doc)
+    if fp != manifest.get("fingerprint"):
+        raise RunError(
+            f"fingerprint mismatch: resolved.yaml materializes to {fp} but "
+            f"the manifest records {manifest.get('fingerprint')} — the "
+            f"artifact was edited or the registry changed"
+        )
+    return execute_doc(doc, config_dir=run_dir, device=device,
+                       write_result=True, log=log)

@@ -1,15 +1,19 @@
-"""Run documents of the port (the ``train`` and ``serve`` kinds of
-``repro.run.config``).
+"""Run documents of the port (the ``train``, ``warmstart`` and ``serve``
+kinds of ``repro.run.config``).
 
 A run document is a YAML mapping with a ``run:`` header naming the kind and
 a per-kind settings section; everything else is the component graph the
-resolver builds.  ``train`` drives the resolved gym for ``steps`` steps with
-its telemetry; ``serve`` runs the static-batch shim (``batch``,
-``prompt_len``, ``gen``, ``seed``) or, with ``engine: true``, the
+resolver builds.  ``train`` drives the resolved gym for a total budget of
+``steps`` steps with its telemetry, resuming (``resume``) or warmstarting
+(``warmstart``) from a checkpoint; ``warmstart`` is the same with flat
+settings; ``serve`` runs the static-batch shim (``batch``, ``prompt_len``,
+``gen``, ``seed``, ``ckpt``) or, with ``engine: true``, the
 continuous-batching engine over a seeded ``workload`` with per-request
-``sampling``.  The JAX package's other kinds and settings are recognised
-and refused with the slice that will bring them, so a document never runs
-with settings ignored.
+``sampling``.  A document without a ``run:`` section is a ``train`` run
+when it has a ``gym`` and a sweep when it has a sweep spec, as in JAX.  The
+JAX package's other kinds and settings are recognised and refused with the
+slice that will bring them, so a document never runs with settings
+ignored.
 """
 from __future__ import annotations
 
@@ -25,8 +29,6 @@ OTHER_KINDS = {
              "its JAX counterpart writes BENCH_<name>.json at the repo root",
     "sft": "post-training comes with its slice of the port (ROADMAP A6)",
     "dpo": "post-training comes with its slice of the port (ROADMAP A6)",
-    "warmstart": "warmstart comes with the checkpoint slice of the port "
-                 "(ROADMAP A4)",
     "dryrun": "dryrun, trace and sweeps come with ROADMAP A9",
     "trace": "dryrun, trace and sweeps come with ROADMAP A9",
     "sweep": "dryrun, trace and sweeps come with ROADMAP A9",
@@ -92,23 +94,47 @@ def _coerce_telemetry(kind: str, value: Any) -> TelemetrySettings:
 
 
 @dataclasses.dataclass
+class WarmstartSettings:
+    """``run.train.warmstart``: initialize from another run's checkpoint.
+    ``optimizer: fresh`` takes only the params (a new run with pretrained
+    weights); ``carry`` also restores the optimizer moments and master
+    weights.  ``strict: false`` keeps freshly-initialized values for leaves
+    the checkpoint does not have (partial warmstart, e.g. a resized
+    head)."""
+
+    source: str = ""              # ckpt dir or one committed step_* dir
+    optimizer: str = "fresh"      # fresh | carry
+    strict: bool = True
+
+    def __post_init__(self):
+        if not self.source:
+            raise RunError("warmstart needs 'source': a checkpoint "
+                           "directory or committed step_XXXXXXXX dir")
+        if self.optimizer not in ("fresh", "carry"):
+            raise RunError(f"warmstart.optimizer must be fresh|carry, "
+                           f"got {self.optimizer!r}")
+
+
+@dataclasses.dataclass
 class TrainSettings:
-    """``run.train``: drive the resolved gym for ``steps`` steps.
-    ``resume``/``warmstart`` (ROADMAP A4) and ``resilience`` (A5) are
-    refused."""
+    """``run.train``: drive the resolved gym.
+
+    ``steps`` is the TOTAL step budget: a run resumed at committed step R
+    trains the remaining ``steps - R`` (so an interrupted run and an
+    uninterrupted one of the same budget produce the same loss curve).
+    ``resume`` is ``false`` | ``true``/``auto`` (find the latest committed
+    checkpoint in the gym's checkpoint dir).  ``warmstart`` (mutually
+    exclusive with resume) initializes from another run's checkpoint.
+    ``resilience`` (ROADMAP A5) is refused."""
 
     steps: int = 100
-    resume: Any = False
-    warmstart: Any = None
+    resume: Any = False           # false | true | "auto"
+    warmstart: Any = None         # mapping -> WarmstartSettings
     gym_key: str = "gym"          # top-level graph entry that is the gym
     resilience: Any = None
     telemetry: Any = None         # mapping/bool -> TelemetrySettings
 
     def __post_init__(self):
-        if self.resume or self.warmstart is not None:
-            raise NotImplementedError(
-                "run.train.resume/warmstart: checkpoints come with the "
-                "checkpoint slice of the port (ROADMAP A4)")
         if self.resilience is not None:
             raise NotImplementedError(
                 "run.train.resilience: the sentinel, preemption and fault "
@@ -116,6 +142,36 @@ class TrainSettings:
         if self.steps < 0:
             raise RunError(f"run.train.steps must be >= 0, got {self.steps}")
         self.telemetry = _coerce_telemetry("train", self.telemetry)
+        if isinstance(self.resume, str):
+            if self.resume != "auto":
+                raise RunError(f"run.train.resume must be true|false|auto, "
+                               f"got {self.resume!r}")
+        elif not isinstance(self.resume, bool):
+            raise RunError(f"run.train.resume must be true|false|auto, "
+                           f"got {self.resume!r}")
+        if isinstance(self.warmstart, dict):
+            self.warmstart = _coerce_block("train", "warmstart",
+                                           self.warmstart, WarmstartSettings)
+        elif self.warmstart is not None and not isinstance(
+                self.warmstart, WarmstartSettings):
+            raise RunError("run.train.warmstart must be a mapping "
+                           "(source/optimizer/strict)")
+        if self.warmstart is not None and self.resume:
+            raise RunError("run.train: resume and warmstart are mutually "
+                           "exclusive (resume continues THIS run; warmstart "
+                           "starts a new one from another run's checkpoint)")
+
+
+@dataclasses.dataclass
+class WarmstartKindSettings:
+    """``run.warmstart``: train from another run's checkpoint (the
+    ``warmstart`` kind, sugar over ``run.train.warmstart``)."""
+
+    source: str = ""              # checkpoint dir or committed step_* dir
+    steps: int = 100
+    optimizer: str = "fresh"      # fresh | carry
+    strict: bool = True
+    gym_key: str = "gym"
 
 
 @dataclasses.dataclass
@@ -207,8 +263,9 @@ class ServeSettings:
     equal-occupancy static-shim baseline).  ``bench_dir`` keeps JAX's
     default ``"."`` (so the run document's fingerprint is JAX's), but the
     port reads ``"."`` as the run's ``output_dir`` (see
-    ``run.api.execute_serve``).  ``ckpt``
-    (ROADMAP A4) and ``faults`` (A5) are refused.
+    ``run.api.execute_serve``).  ``ckpt`` restores the params of a
+    training checkpoint (either format); ``faults`` (ROADMAP A5) are
+    refused.
     """
 
     batch: int = 4
@@ -270,17 +327,34 @@ class RunConfig:
     graph: Dict[str, Any]
     doc: Dict[str, Any]           # the normalized document, as JAX's: the
                                   # run section with every setting filled
+    config_dir: str = "."         # base dir for relative paths (warmstart
+                                  # source, replay)
 
 
-_SETTINGS = {"train": TrainSettings, "serve": ServeSettings}
+_SETTINGS = {"train": TrainSettings, "warmstart": WarmstartKindSettings,
+             "serve": ServeSettings}
 
 
-def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConfig:
+def _infer_kind(doc: Dict[str, Any]) -> Optional[str]:
+    """Classify a legacy document with no ``run:`` section."""
+    if "sweep" in doc or "axes" in doc or "base" in doc or "base_config" in doc:
+        return "sweep"
+    if "gym" in doc:
+        return "train"
+    return None
+
+
+def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
+                  default_name: str = "run",
+                  config_dir: str = ".") -> RunConfig:
+    """Parse (and normalize) a run document.  ``kind`` is the CLI
+    subcommand, if any; ``default_name`` names a run whose document does
+    not (the CLI passes the YAML file's stem, as JAX's)."""
     if not isinstance(doc, dict):
         raise RunError("run document must be a mapping")
     doc = dict(doc)
     run_sec = dict(doc.pop("run", None) or {})
-    doc_kind = run_sec.get("kind") or kind
+    doc_kind = run_sec.get("kind") or kind or _infer_kind(doc)
     if kind is not None and doc_kind != kind:
         raise RunError(f"document declares kind {doc_kind!r} but was "
                        f"launched as {kind!r}")
@@ -300,7 +374,7 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConf
         raise RunError(f"run.{doc_kind}: unknown settings "
                        f"{sorted(set(section) - fields)}; accepted: "
                        f"{sorted(fields)}")
-    name = str(run_sec.get("name") or "run")
+    name = str(run_sec.get("name") or default_name)
     output_dir = str(run_sec.get("output_dir")
                      or os.path.join("results", "runs", name))
     settings = cls(**section)
@@ -308,4 +382,5 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None) -> RunConf
                       doc_kind: dataclasses.asdict(settings)}
     return RunConfig(kind=doc_kind, name=name, output_dir=output_dir,
                      settings=settings, graph=doc,
-                     doc={"run": normalized_run, **doc})
+                     doc={"run": normalized_run, **doc},
+                     config_dir=config_dir)

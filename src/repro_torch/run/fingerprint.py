@@ -9,18 +9,25 @@ its factories with the JAX package's names, arguments and defaults, so one
 document materializes to the same form, and ``fingerprint`` gives the same
 hash, in both packages.
 
-Writing ``resolved.yaml`` and ``manifest.json`` and the ``replay`` and
-``validate`` commands come with ROADMAP A10.
+Artifacts written per run (byte-equal to JAX's for the same document, so
+each package replays the other's run directories):
+
+* ``resolved.yaml``  — the materialized run document
+* ``manifest.json``  — ``{name, kind, fingerprint}``
 """
 from __future__ import annotations
 
 import hashlib
 import inspect
 import json
+import os
 from typing import Any, Dict, Optional, Tuple
 
 from ..config.registry import DEFAULT_REGISTRY, Registry, RegistryError
 from ..config.resolver import ConfigError, interpolate
+
+RESOLVED_FILE = "resolved.yaml"
+MANIFEST_FILE = "manifest.json"
 
 _SERIALIZABLE = (str, int, float, bool, type(None))
 
@@ -104,3 +111,25 @@ def materialize(doc: Dict[str, Any],
 
     return {key: value if key == "run" else walk(value, key)
             for key, value in doc.items()}
+
+
+def write_artifacts(output_dir: str, resolved_doc: Dict[str, Any],
+                    name: str, kind: str) -> str:
+    """Write ``resolved.yaml`` + ``manifest.json``; returns the fingerprint."""
+    import yaml
+
+    fp = fingerprint(resolved_doc)
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, RESOLVED_FILE), "w") as f:
+        yaml.safe_dump(resolved_doc, f, sort_keys=False)
+    with open(os.path.join(output_dir, MANIFEST_FILE), "w") as f:
+        json.dump({"name": name, "kind": kind, "fingerprint": fp}, f, indent=2)
+    return fp
+
+
+def read_manifest(run_dir: str) -> Dict[str, Any]:
+    path = os.path.join(run_dir, MANIFEST_FILE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no run manifest at {path}")
+    with open(path) as f:
+        return json.load(f)

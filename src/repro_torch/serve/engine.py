@@ -60,18 +60,33 @@ class EngineError(Exception):
 
 
 def load_params(model, ckpt: str = "", seed: int = 0, device=None):
-    """Params for serving: random init from ``seed`` with a
-    ``torch.Generator`` on ``device`` (the card unless the caller asks for
-    the CPU).  Restoring a checkpoint comes with the checkpoint slice."""
-    if ckpt:
-        raise NotImplementedError(
-            "serving from a checkpoint comes with the checkpoint slice of "
-            "the port (ROADMAP A4); run without ckpt for seeded random "
-            "weights")
+    """Params for serving on ``device`` (the card unless the caller asks
+    for the CPU): restore a TRAINING checkpoint (the full ``{params, opt,
+    step}`` train state, sharded-dir or legacy npz format) params-only, or
+    random init from ``seed`` with a ``torch.Generator`` when no checkpoint
+    is given.
+
+    With a checkpoint the target tree is built on the ``meta`` device (as
+    JAX uses ``jax.eval_shape``): no throwaway random init is allocated
+    before the restore."""
     dev = resolve_device(device)
+    if ckpt:
+        from ..train.checkpoint import restore_params
+
+        return restore_params(model.init(_MetaGenerator()), ckpt, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return model.init(gen)
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device: ``model.init``
+    makes its leaves on ``gen.device``, so it builds shapes and dtypes
+    only (factories on ``meta`` draw no numbers)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 def _params_device(params) -> torch.device:

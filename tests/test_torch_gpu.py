@@ -427,3 +427,76 @@ def test_threefry_noise_on_the_card_is_the_cpus(cuda):
     u = prng.uniform(keys.to(cuda), V, torch.finfo(torch.float32).tiny).cpu()
     assert torch.equal(u, prng.uniform(keys, V,
                                        torch.finfo(torch.float32).tiny))
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on the card
+# ---------------------------------------------------------------------------
+def _card_train_state(cuda, param_dtype=None):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import steps as ST
+
+    model = build_model(get_reduced("qwen1p5_0p5b"))
+    opt = AdamW(lr=1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return model, opt, ST.init_train_state(model, opt, gen,
+                                           param_dtype=param_dtype)
+
+
+def _assert_equal_trees(a, b):
+    from repro_torch.ckpt.format import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    assert [k for k, _ in fa] == [k for k, _ in fb]
+    for (k, x), (_, y) in zip(fa, fb):
+        assert x.dtype == y.dtype and x.device == y.device, k
+        assert torch.equal(x, y), k
+
+
+def test_async_snapshot_is_not_overwritten_by_the_in_place_step(cuda, tmp_path):
+    """The optimizer writes the state in place: a save at step k, followed
+    at once by more steps, must restore to the state after step k (``==``),
+    not to a later one."""
+    from repro_torch.ckpt import AsyncCheckpointer
+    from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_map
+
+    model, opt, state = _card_train_state(cuda)
+    step = ST.make_train_step(model, opt)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def batch():
+        toks = torch.randint(3, model.cfg.vocab, (4, 128), generator=gen,
+                             device=cuda, dtype=torch.int32)
+        return {"tokens": toks, "labels": toks.roll(-1, 1)}
+
+    for _ in range(2):
+        state, _ = step(state, batch())
+    after_k = tree_map(torch.clone, state)     # queued on the stream: no sync
+    ck = AsyncCheckpointer(str(tmp_path / "ck"))
+    ck.save(state, 2)
+    for _ in range(3):                          # no sync before these
+        state, _ = step(state, batch())
+    ck.close()
+    assert int(state["step"]) == 5
+    restored = ck.restore(tree_map(torch.zeros_like, state), device=cuda)
+    _assert_equal_trees(restored, after_k)
+    assert not torch.equal(restored["params"]["embed"],
+                           state["params"]["embed"])
+
+
+def test_bf16_train_state_roundtrips_through_the_async_engine(cuda, tmp_path):
+    from repro_torch.ckpt import AsyncCheckpointer, read_manifest
+    from repro_torch.tree import tree_map
+
+    _, _, state = _card_train_state(cuda, param_dtype=torch.bfloat16)
+    assert state["params"]["embed"].dtype == torch.bfloat16
+    ck = AsyncCheckpointer(str(tmp_path / "ck"))
+    ck.save(state, 1)
+    ck.close()
+    man = read_manifest(ck.latest()[1])
+    assert man["leaves"]["params/embed"]["dtype"] == "bfloat16"
+    restored = ck.restore(tree_map(torch.empty_like, state), device=cuda)
+    _assert_equal_trees(restored, state)

@@ -234,24 +234,23 @@ def test_train_without_device_needs_a_card(tmp_path):
 
 
 REFUSED = [
-    ("run.train.resume=true", "A4"),
-    ("run.train.warmstart={source: x}", "A4"),
     ("run.train.resilience={sentinel: true}", "A5"),
+    ("run.train.resilience={ckpt_retry: true}", "A5"),
+    ("run.train.resilience={faults: [{kind: nan_loss, at: 2}]}", "A5"),
     ("run.train.telemetry.profile={start_step: 1}", "A5"),
     ("run.kind=bench", "A9"),
+    ("run.kind=dryrun", "A9"),
+    ("run.kind=trace", "A9"),
+    ("run.kind=sweep", "A9"),
     ("run.kind=sft", "A6"),
     ("run.kind=dpo", "A6"),
-    ("run.kind=warmstart", "A4"),
-    ("gym.config.ckpt_every=5", "A4"),
-    ("gym.config.ckpt_dir=ck", "A4"),
-    ("gym.config.checkpointer={component_key: checkpointer, "
-     "variant_key: async, config: {ckpt_dir: ck}}", "A4"),
     ("gym.config.sharding_plan={component_key: sharding_plan, "
      "variant_key: fsdp}", "A8"),
     ("gym.config.mesh_provider={component_key: mesh_provider, "
      "variant_key: single_device}", "A8"),
     ("arch.variant_key=whisper_tiny", "A7"),
     ("arch.variant_key=deepseek_moe_16b", "A7"),
+    ("arch.variant_key=deepseek_v3_671b", "A7"),
 ]
 
 

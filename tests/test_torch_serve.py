@@ -364,8 +364,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A5"):
         parse_run_doc({"run": {"kind": "serve", "serve": {
             "engine": True, "faults": [{"kind": "serve_stall", "at": 0}]}}})
-    with pytest.raises(NotImplementedError):
-        load_params(model, ckpt="some/ckpt", device="cpu")
     for arch in ("deepseek_moe_16b", "deepseek_v3_671b", "whisper_tiny",
                  "llava_next_34b"):
         with pytest.raises(NotImplementedError):
