@@ -53,7 +53,19 @@
    warmstart of 2 steps from it; ``replay`` of the interrupted run's
    directory (the same fingerprint, the same losses).  Prints the
    snapshot's stall, the writer's seconds and bytes and the restore time.
-7. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+7. Resilience and run accounting: full-width Qwen1.5-0.5B through the
+   flash kernel (batch 8 x 1024, a checkpoint every 2 steps, 6 steps)
+   straight with a ``torch.profiler`` window at step 3 (its ``flash_fwd``
+   kernel events counted in the trace); with telemetry off (losses ``==``);
+   with ``nan_loss`` at 2 and ``nan_params`` at 5 under the sentinel (two
+   rollbacks, to the seeded init and to step 4; losses and params against
+   the straight run within ``RESUME_TOL``, bit-equality printed); with two
+   injected checkpoint-IO failures retried; with an injected preemption at
+   3 and its resume; then a real SIGTERM to ``python -m repro_torch train``
+   on the quickstart (exit 75, the resumed curve ``==`` a straight run's)
+   and a stalled engine tick under the watchdog.  The train phases print
+   ``model_flops_per_step`` (6·N·D) and ``mfu`` against the card's peak.
+8. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine, each 16 sampled requests of 256/512/1024 prompt tokens,
@@ -126,12 +138,16 @@ SSD_STATE_TOL = 1e-4
 # and for each activation dtype the (loss, gradient) tolerances of one step
 # through the kernel against the plain path (see TRAIN_TOL_WHY)
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# "flops": 6·N·D at TRAIN_BATCH x TRAIN_SEQ, N counted on the meta device
+# (the JAX package's eval_shape count: tests/test_torch_telemetry.py)
 TRAIN_SLICES = {
     "qwen": {"arch": "qwen1p5_0p5b", "steps": 10, "kernel": "flash_fwd",
              "sets": ["arch.config.use_flash_kernel=true"],
+             "flops": 6.0 * 463987712 * 8 * 1024,
              "tols": {"bfloat16": (1e-3, 0.06), "float32": (1e-5, 1e-4)}},
     "mamba2": {"arch": "mamba2_780m", "steps": 3, "kernel": "ssd_scan",
                "sets": ["arch.variant_key=mamba2_780m"],
+               "flops": 6.0 * 857379072 * 8 * 1024,
                "tols": {"bfloat16": (1e-3, 0.5), "float32": (1e-5, 1e-3)}},
     # both kernels: the shared attention block through flash_fwd (9 uses),
     # the 45 Mamba2 layers through ssd_scan
@@ -139,6 +155,7 @@ TRAIN_SLICES = {
                "kernel": "flash_fwd and ssd_scan",
                "sets": ["arch.variant_key=zamba2_2p7b",
                         "arch.config.use_flash_kernel=true"],
+               "flops": 6.0 * 2063676080 * 8 * 1024,
                "tols": {"bfloat16": (2e-3, 0.25), "float32": (1e-5, 1e-3)}},
 }
 TRAIN_TOL_WHY = {
@@ -705,6 +722,26 @@ def _quiet(_msg):
     pass
 
 
+def mfu_line(name: str, res: dict, median_ms: float, want_flops: float,
+             card: str) -> bool:
+    """Print a train run's model FLOPs per step and its ``mfu`` (JAX's
+    definition, the result's own: wall over dispatched steps, the first
+    step included) beside a steady ``mfu`` from the median ms/step, both
+    against the card's peak; True when the FLOPs are the expected 6·N·D."""
+    from repro_torch.device import PEAK_FLOPS_BF16
+
+    flops = res.get("model_flops_per_step")
+    steady = flops / (median_ms / 1e3) / PEAK_FLOPS_BF16 if flops else 0.0
+    ok = flops == want_flops
+    print(f"{name}: model_flops_per_step {flops!r} (want {want_flops!r}), "
+          f"mfu {res.get('mfu', 0.0):.6f} (wall {res['wall_s']:.3f} s over "
+          f"{res['steps_dispatched']} dispatched steps), steady mfu "
+          f"{steady:.6f} (median {median_ms:.3f} ms/step), peak "
+          f"{PEAK_FLOPS_BF16:.4g} FLOP/s [{card}]: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def phase_train_quickstart(data_dir: str) -> bool:
     """The quickstart document's 60 steps on the card.  One batch's loss
     varies by about 0.015 around a curve that falls by some 0.02 over the
@@ -859,7 +896,7 @@ def compare_train_step(key, cfg, params, batch) -> bool:
     return ok
 
 
-def phase_train_full(key: str, data_dir: str, results: dict,
+def phase_train_full(key: str, data_dir: str, results: dict, card: str,
                      profile_dir: str = "") -> bool:
     """Full width and depth through the run API on the card, the slice's
     kernel in every layer, forward and remat recompute; then one step
@@ -920,6 +957,7 @@ def phase_train_full(key: str, data_dir: str, results: dict,
           f"{med:.3f} ms, tokens_per_s {tok_s:.1f} (the run's own "
           f"{res['tokens_per_s']}, first step included), peak_mem_gib "
           f"{peak_gib:.3f}", flush=True)
+    ok &= mfu_line(f"train {key}", res, med, spec["flops"], card)
     add_launches(results, counts)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1072,7 +1110,7 @@ def phase_ckpt_quickstart(data_dir: str) -> bool:
     return ok
 
 
-def phase_ckpt_qwen(data_dir: str, results: dict) -> bool:
+def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
     """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
     document and sets, batch 8 x 1024, ``remat: full``) through the run API
     on the card: a straight run of CKPT_STEPS steps; the same document
@@ -1168,6 +1206,8 @@ def phase_ckpt_qwen(data_dir: str, results: dict) -> bool:
           f"{json.dumps([round(x, 3) for x in ms_p])} (median "
           f"{float(np.median(ms_p)):.3f})", flush=True)
     ok &= art_ok
+    ok &= mfu_line("ckpt qwen: straight", straight["res"],
+                   float(np.median(ms_s)), spec["flops"], card)
 
     # the resumed run against the straight one
     res_r = resumed["res"]
@@ -1274,6 +1314,368 @@ def phase_ckpt_qwen(data_dir: str, results: dict) -> bool:
     del rep["cap"].out
     torch.cuda.empty_cache()
     return bool(ok)
+
+
+# ---------------------------------------------------------------------------
+# resilience and run accounting: rollback, retried IO, preemption, profiler
+# ---------------------------------------------------------------------------
+RESIL_STEPS = 6
+# the three chaos blocks of the resil phase, each a run.train.resilience
+RESIL_ROLLBACK = {"sentinel": {"nan": True}, "max_rollbacks": 3,
+                  "faults": [{"kind": "nan_loss", "at": 2},
+                             {"kind": "nan_params", "at": 5}]}
+RESIL_RETRY = {"ckpt_retry": {"max_attempts": 3, "base_delay_s": 0.01,
+                              "max_delay_s": 0.05},
+               "faults": [{"kind": "ckpt_io", "at": 0, "times": 2}]}
+RESIL_PREEMPT = {"faults": [{"kind": "preempt", "at": 3}]}
+
+
+def _flash_kernel_events(trace_path: str) -> int:
+    """Kernel events of ``flash_fwd`` in a ``torch.profiler`` chrome
+    trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "flash_fwd" in e.get("name", ""))
+
+
+def _ckpt_finite(path: str) -> bool:
+    """Every leaf of a committed checkpoint, read back from disk, finite."""
+    import torch
+
+    from repro_torch.ckpt import read_manifest
+    from repro_torch.ckpt.format import read_leaf
+
+    return all(bool(torch.isfinite(read_leaf(path, e)).all())
+               for e in read_manifest(path)["leaves"].values())
+
+
+def _ckpt_steps(out_dir: str) -> list:
+    from repro_torch.ckpt import list_checkpoints
+
+    return [s for s, _ in list_checkpoints(os.path.join(out_dir, "ckpt"))]
+
+
+def phase_resil_qwen(data_dir: str, results: dict, card: str) -> bool:
+    """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
+    document, batch 8 x 1024, ``remat: full``, a checkpoint every 2 steps,
+    metrics every step), 6 steps, each run through the run API on the card:
+    (a) straight with a ``torch.profiler`` window at step 3; (b) straight
+    with telemetry off; (c) ``nan_loss`` at 2 and ``nan_params`` at 5 under
+    the sentinel (rollbacks to the seeded init and to step 4); (d) two
+    injected checkpoint-IO failures absorbed by retries; (e) an injected
+    preemption at 3 and its resume; then (f) a real SIGTERM to the CLI and
+    (g) a stalled engine tick under the watchdog."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gym import Gym
+    from repro_torch.run import api
+
+    spec = TRAIN_SLICES["qwen"]
+    n_tokens = (RESIL_STEPS + 2) * TRAIN_BATCH * (TRAIN_SEQ + 1)
+    base = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
+            f"loader.config.global_batch={TRAIN_BATCH}",
+            f"dataset.config.n_tokens={n_tokens}", *spec["sets"],
+            f"run.train.steps={RESIL_STEPS}", "gym.config.ckpt_every=2",
+            "gym.config.log_every=1"]
+    counters = _counters()
+    layers = 24 * 2     # attention layers x (forward + remat recompute)
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+
+    def drive(name, *sets, resilience=None, out=None):
+        out = out or os.path.join(data_dir, f"resil_{name}")
+        doc = train_doc(data_dir, "resil_qwen", *base,
+                        f"run.output_dir={out}", *sets)
+        if resilience is not None:
+            doc["run"]["train"]["resilience"] = resilience
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with _RunCapture() as cap:
+            res = api.execute_doc(doc, device="cuda", write_result=True,
+                                  log=_quiet)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        return dict(res=res, state=cap.out["state"], counts=counts, out=out,
+                    restore_s=cap.restore_s, wall=time.perf_counter() - t0,
+                    losses=[h["loss"] for h in res["history"]])
+
+    def drop_ckpts(r):
+        shutil.rmtree(os.path.join(r["out"], "ckpt"), ignore_errors=True)
+
+    def summary(name, r, want_launches):
+        res = r["res"]
+        good = (r["counts"]["flash_fwd"] == want_launches
+                and all(math.isfinite(x) for x in r["losses"]))
+        print(f"resil qwen: ({name}) {res['steps_this_run']} steps, "
+              f"{res['steps_dispatched']} dispatched in {r['wall']:.2f}s, "
+              f"losses {json.dumps([round(x, 5) for x in r['losses']])}, "
+              f"flash_fwd launches {r['counts']['flash_fwd']} (want "
+              f"{want_launches}), goodput {res['goodput']:.6f}, mfu "
+              f"{res.get('mfu', 0.0):.6f} {tag}: "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+        return good
+
+    def versus(name, got_l, want_l, p_got, p_want):
+        """Losses and final params against the straight run's."""
+        loss_diff = max(abs(a - b) for a, b in zip(got_l, want_l)) \
+            if len(got_l) == len(want_l) else math.inf
+        param_diff = _max_diff(p_got, p_want)
+        bit = got_l == want_l and _trees_equal(p_got, p_want)
+        good = loss_diff <= RESUME_TOL and param_diff <= RESUME_TOL
+        print(f"resil qwen: ({name}) vs straight: losses max abs diff "
+              f"{loss_diff:.3g}, final params {param_diff:.3g} (tol "
+              f"{RESUME_TOL}); bit-equal {bit}: {'ok' if good else 'FAILED'}",
+              flush=True)
+        return good
+
+    ok = True
+    # (a) straight, telemetry on, one profiled step
+    a = drive("straight", "run.train.telemetry.profile={start_step: 3, "
+                          "num_steps: 1}")
+    ok &= summary("a, straight, profiled", a, layers * RESIL_STEPS)
+    ms = _step_ms(a["res"]["history"])
+    ok &= mfu_line("resil qwen: (a)", a["res"], float(np.median(ms)),
+                   spec["flops"], card)
+    trace = a["res"].get("profile_trace", "")
+    n_ev = _flash_kernel_events(trace) if trace else 0
+    prof_ok = bool(trace) and n_ev == layers
+    print(f"resil qwen: (a) profile trace {trace} "
+          f"({os.path.getsize(trace) if trace else 0} bytes), flash_fwd "
+          f"kernel events in the step-3 window {n_ev} (want {layers}): "
+          f"{'ok' if prof_ok else 'FAILED'}", flush=True)
+    ok &= prof_ok
+    p_a = a["state"]["params"]
+    drop_ckpts(a)
+    del a["state"]
+
+    # (b) straight, telemetry off
+    b = drive("quiet", "run.train.telemetry=false")
+    ok &= summary("b, telemetry off", b, layers * RESIL_STEPS)
+    b_ok = b["losses"] == a["losses"] and "telemetry" not in b["res"] \
+        and not os.path.exists(os.path.join(b["out"], "telemetry.jsonl"))
+    print(f"resil qwen: (b) losses == (a) {b['losses'] == a['losses']}, no "
+          f"telemetry file {not os.path.exists(os.path.join(b['out'], 'telemetry.jsonl'))}: "
+          f"{'ok' if b_ok else 'FAILED'}", flush=True)
+    ok &= b_ok
+    drop_ckpts(b)
+    del b["state"]
+    torch.cuda.empty_cache()
+
+    # (c) anomaly rollback: nan_loss at 2 (no checkpoint before it: the
+    # seeded init), nan_params at 5 (state corrupted on the card: step 4)
+    survivors = []
+    rollback = Gym._rollback
+
+    def recording(gym, like, event, *rest):
+        out = rollback(gym, like, event, *rest)
+        survivors.append((event["step"], _ckpt_steps(os.path.dirname(
+            gym.ckpt_dir))))
+        return out
+
+    with mock.patch.object(Gym, "_rollback", recording):
+        c = drive("rollback", resilience=RESIL_ROLLBACK)
+    res_c = c["res"]
+    dispatched = res_c["steps_dispatched"]
+    ok &= summary("c, rollback", c, layers * dispatched)
+    anomalies = [e for e in res_c.get("events", [])
+                 if e["kind"] == "anomaly"]
+    step4 = os.path.join(c["out"], "ckpt", f"step_{4:08d}")
+    finite4 = os.path.isdir(step4) and _ckpt_finite(step4)
+    c_ok = ([(e["step"], e["reason"], e["restored_step"], e["rollbacks"])
+             for e in anomalies] == [(2, "non_finite", 0, 1),
+                                     (5, "non_finite", 4, 2)]
+            and res_c["rollback_count"] == 2 and dispatched == 11
+            and res_c["goodput"] == 6 / 11
+            and survivors == [(2, []), (5, [2, 4])] and finite4)
+    print(f"resil qwen: (c) events "
+          f"{json.dumps([{k: e[k] for k in ('step', 'reason', 'restored_step', 'rollbacks')} for e in anomalies])}"
+          f", rollback_count {res_c['rollback_count']}, steps_dispatched "
+          f"{dispatched} (want 11), goodput {res_c['goodput']:.6f}; "
+          f"checkpoints left by each rollback before its replay "
+          f"{survivors} (want [(2, []), (5, [2, 4])]); step-4 checkpoint "
+          f"finite {finite4}; final checkpoints {_ckpt_steps(c['out'])}: "
+          f"{'ok' if c_ok else 'FAILED'}", flush=True)
+    ok &= c_ok
+    ok &= versus("c", c["losses"], a["losses"], c["state"]["params"], p_a)
+    drop_ckpts(c)
+    del c["state"]
+    torch.cuda.empty_cache()
+
+    # (d) two injected checkpoint-IO failures, absorbed by the retries
+    d = drive("retry", resilience=RESIL_RETRY)
+    ok &= summary("d, retried checkpoint IO", d, layers * RESIL_STEPS)
+    saves = d["res"].get("ckpt_saves", [])
+    d_ok = (d["res"]["retry_count"] == 2 and _ckpt_steps(d["out"]) == [2, 4, 6]
+            and d["losses"] == a["losses"])
+    print(f"resil qwen: (d) retry_count {d['res']['retry_count']} (want 2), "
+          f"committed {_ckpt_steps(d['out'])} (want [2, 4, 6]), writer "
+          f"seconds per save {[round(s['write_s'], 3) for s in saves]}, "
+          f"losses == (a) {d['losses'] == a['losses']} {tag}: "
+          f"{'ok' if d_ok else 'FAILED'}", flush=True)
+    ok &= d_ok
+    drop_ckpts(d)
+    del d["state"]
+    torch.cuda.empty_cache()
+
+    # (e) an injected preemption at 3: a synchronous final save, then the
+    # resume to the budget
+    e_out = os.path.join(data_dir, "resil_preempt")
+    e = drive("preempt", resilience=RESIL_PREEMPT, out=e_out)
+    res_e = e["res"]
+    ok &= summary("e, preempted", e, layers * 3)
+    last = (res_e.get("ckpt_saves") or [{}])[-1]
+    e_ok = (res_e.get("status") == "preempted" and res_e["graceful_exit"]
+            and res_e.get("completed_steps") == 3 and last.get("step") == 3
+            and 3 in _ckpt_steps(e_out))
+    print(f"resil qwen: (e) status {res_e.get('status')}, graceful_exit "
+          f"{res_e['graceful_exit']}, completed_steps "
+          f"{res_e.get('completed_steps')}, committed {_ckpt_steps(e_out)}; "
+          f"the preemption's synchronous save of step {last.get('step')}: "
+          f"stall {1e3 * last.get('stall_s', 0):.3f} ms + writer "
+          f"{last.get('write_s', 0):.3f} s for "
+          f"{last.get('bytes', 0) / 1e9:.4f} GB {tag}: "
+          f"{'ok' if e_ok else 'FAILED'}", flush=True)
+    ok &= e_ok
+    del e["state"]
+    r = drive("resumed", "run.train.resume=auto", out=e_out)
+    ok &= summary("e, resumed", r, layers * 3)
+    r_ok = r["res"].get("resumed_from") == 3
+    print(f"resil qwen: (e) resumed from {r['res'].get('resumed_from')} "
+          f"(restore {r['restore_s']:.3f} s): {'ok' if r_ok else 'FAILED'}",
+          flush=True)
+    ok &= r_ok
+    ok &= versus("e", r["losses"], a["losses"][3:], r["state"]["params"], p_a)
+    drop_ckpts(r)
+    del r["state"], p_a
+    torch.cuda.empty_cache()
+
+    ok &= _resil_sigterm(data_dir, card)
+    ok &= _resil_serve_stall(data_dir)
+    print(f"resil qwen: phase wall {time.perf_counter() - t_phase:.1f}s "
+          f"{tag}", flush=True)
+    return bool(ok)
+
+
+def _resil_sigterm(data_dir: str, card: str) -> bool:
+    """(f) ``python -m repro_torch train`` on the unchanged quickstart
+    (reduced, no kernel) with preemption on, ``resume: auto`` and a
+    checkpoint dir set through ``--set``, its metrics printed by the stdout
+    tracker: a straight run; the same command sent SIGTERM after its first
+    metric line (exit 75, ``status: preempted``); then the same command
+    again, resuming to the budget.  The two halves' curve ``==`` the
+    straight one."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+
+    def command(name):
+        out = os.path.join(data_dir, name)
+        return [sys.executable, "-m", "repro_torch", "train", "--config",
+                os.path.join(ROOT, "examples", "configs", "quickstart.yaml"),
+                "--set", f"dataset.config.prefix={os.path.join(data_dir, 'qs_sig')}",
+                "--set", f"run.output_dir={out}",
+                "--set", f"gym.config.ckpt_dir={os.path.join(out, 'ckpt')}",
+                "--set", "run.train.resume=auto",
+                "--set", "run.train.resilience={preemption: true}",
+                "--set", "gym.config.tracker={component_key: tracker, "
+                         "variant_key: stdout}"], out
+
+    def result(out):
+        with open(os.path.join(out, "result.json")) as f:
+            return json.load(f)
+
+    def curve(*rs):
+        merged = {}
+        for r in rs:
+            merged.update({h["step"]: h["loss"] for h in r["history"]})
+        return merged
+
+    t0 = time.perf_counter()
+    cmd, out_s = command("sig_straight")
+    straight = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+    cmd, out = command("sig_run")
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        first = ""
+        for line in proc.stdout:
+            if line.startswith("{") and '"loss"' in line:
+                first = line.strip()
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest = proc.stdout.read()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    part = result(out)
+    resumed = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+    full = result(out)
+    want = curve(result(out_s)) if straight.returncode == 0 else {}
+    got = curve(part, full)
+    stop = part.get("completed_steps")
+    ok = (straight.returncode == 0 and bool(first) and rc == 75
+          and part.get("status") == "preempted"
+          and "preempted: resume with the same command (exit 75)" in rest
+          and resumed.returncode == 0 and full.get("resumed_from") == stop
+          and len(want) == 60 and got == want)
+    print(f"resil qwen: (f) SIGTERM after the first metric line "
+          f"{first[:60]}...: exit {rc} (want 75), status "
+          f"{part.get('status')} at step {stop}, events "
+          f"{json.dumps(part.get('events'))}; the same command resumed from "
+          f"{full.get('resumed_from')} (exit {resumed.returncode}); curve of "
+          f"{len(got)} steps == the straight run's ({len(want)} steps, exit "
+          f"{straight.returncode}) {got == want}; {time.perf_counter() - t0:.1f}s "
+          f"[{card}]: {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        print(f"resil qwen: (f) output of the interrupted run:\n{rest}\n"
+              f"of the resumed run:\n{resumed.stdout[-2000:]}"
+              f"{resumed.stderr[-2000:]}\nof the straight run:\n"
+              f"{straight.stderr[-2000:]}", flush=True)
+    return ok
+
+
+def _resil_serve_stall(data_dir: str) -> bool:
+    """(g) ``examples/configs/serve_engine.yaml`` (reduced, paged) with a
+    ``serve_stall`` of 0.5 s at tick call 3 and a 0.25 s watchdog: the
+    engine raises the watchdog's ``EngineError`` at tick 4, as JAX's."""
+    import re
+
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run import api
+    from repro_torch.serve.engine import EngineError
+
+    doc = load_yaml(os.path.join(ROOT, "examples", "configs",
+                                 "serve_engine.yaml"))
+    doc["run"]["output_dir"] = os.path.join(data_dir, "resil_serve")
+    doc["run"]["serve"].update(
+        watchdog_s=0.25, faults=[{"kind": "serve_stall", "at": 3,
+                                  "seconds": 0.5}])
+    err = ""
+    try:
+        api.execute_doc(doc, device="cuda", write_result=True, log=_quiet)
+    except EngineError as e:      # the outcome under test
+        err = str(e)
+    tick = re.search(r"tick (\d+) took", err)
+    ok = bool(tick) and int(tick.group(1)) == 4
+    print(f"resil qwen: (g) serve_stall 0.5 s at tick call 3, watchdog 0.25 "
+          f"s: {err or 'no error raised'}: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -1772,14 +2174,19 @@ def main() -> int:
               flush=True)
         ok &= train_ok
         for key in TRAIN_SLICES:
-            train_ok = phase_train_full(key, data_dir, results, args.profile)
+            train_ok = phase_train_full(key, data_dir, results, card,
+                                        args.profile)
             print(f"phase train {key}: {'ok' if train_ok else 'FAILED'}",
                   flush=True)
             ok &= train_ok
         ckpt_ok = phase_ckpt_quickstart(data_dir)
-        ckpt_ok &= phase_ckpt_qwen(data_dir, results)
+        ckpt_ok &= phase_ckpt_qwen(data_dir, results, card)
         print(f"phase ckpt qwen: {'ok' if ckpt_ok else 'FAILED'}", flush=True)
         ok &= ckpt_ok
+        resil_ok = phase_resil_qwen(data_dir, results, card)
+        print(f"phase resil qwen: {'ok' if resil_ok else 'FAILED'}",
+              flush=True)
+        ok &= resil_ok
         engine_ok = phase_engine_quickstart(data_dir)
         print(f"phase engine quickstart: {'ok' if engine_ok else 'FAILED'}",
               flush=True)

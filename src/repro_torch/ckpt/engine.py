@@ -27,8 +27,12 @@ Writer failures are re-raised on the next ``save``/``check``/``wait``/
 like progress — and raising *clears* the latched errors, so the
 checkpointer stays usable.  ``background=False`` is the synchronous
 variant: the same format and retention, the write on the caller's thread.
-JAX's ``retry`` and ``fault_injector`` come with resilience (ROADMAP A5) and
-must be None here.
+With a ``retry`` policy (:class:`repro_torch.resilience.RetryPolicy`)
+transient write failures are absorbed on the writer thread before they
+ever latch; ``retry_count`` counts the attempts retried.  A retried write
+still holds the host buffers, and the next ``save`` waits for it.  A
+``fault_injector`` (:class:`repro_torch.resilience.FaultInjector`) raises
+scheduled ``ckpt_io`` OSErrors inside the write.
 """
 from __future__ import annotations
 
@@ -80,14 +84,10 @@ class AsyncCheckpointer:
     ckpt_dir: str
     retention: RetentionPolicy = dataclasses.field(default_factory=RetentionPolicy)
     background: bool = True
-    retry: Any = None
-    fault_injector: Any = None
+    retry: Any = None                 # Optional[resilience.RetryPolicy]
+    fault_injector: Any = None        # Optional[resilience.FaultInjector]
 
     def __post_init__(self):
-        if self.retry is not None or self.fault_injector is not None:
-            raise NotImplementedError(
-                "AsyncCheckpointer retry/fault_injector: retrying checkpoint "
-                "IO and fault injection come with resilience (ROADMAP A5)")
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._worker: Optional[threading.Thread] = None
         self._errors: list = []
@@ -95,7 +95,13 @@ class AsyncCheckpointer:
         self._layout: list = []
         self._host: Dict[str, torch.Tensor] = {}
         self._alloc_s = 0.0
+        self._retries = 0
         self.saves: List[Dict[str, Any]] = []
+
+    @property
+    def retry_count(self) -> int:
+        """How many write attempts were absorbed by the retry policy."""
+        return self._retries
 
     # -- snapshot (caller thread, hot path) ---------------------------------
     def _buffers(self, flat) -> Dict[str, torch.Tensor]:
@@ -179,7 +185,24 @@ class AsyncCheckpointer:
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
-        F.write_checkpoint(self.ckpt_dir, step, arrays, None, extra)
+
+        def attempt():
+            if self.fault_injector is not None:
+                spec = self.fault_injector.fire("ckpt_io")
+                if spec is not None:
+                    raise OSError(f"injected ckpt_io fault "
+                                  f"(step {step}, firing {spec._fired})")
+            F.write_checkpoint(self.ckpt_dir, step, arrays, None, extra)
+
+        if self.retry is None:
+            attempt()
+        else:
+            from ..resilience.retry import call_with_retry
+
+            def count(attempt_n, exc):
+                self._retries += 1
+
+            call_with_retry(attempt, policy=self.retry, on_retry=count)
         self.saves.append({
             "step": step, **timing,
             "write_s": time.perf_counter() - t0,

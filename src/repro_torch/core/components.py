@@ -7,11 +7,11 @@ Registered: ``arch_config/<arch>`` for every arch of the table (with the
 ``lr_schedule/*``, ``dataset/synthetic`` and ``dataset/packed_chunked``,
 ``loader/sharded`` and ``loader/prefetch``, ``remat_policy/*``,
 ``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
-``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``, and
-``gym/standard``.  The names and settings match ``repro.core.components``,
-so a run YAML of the JAX package resolves here unchanged; settings of later
-slices (mesh and sharding plan) raise ``NotImplementedError`` naming the
-slice.
+``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``,
+``fault_injector/schedule`` and ``gym/standard``.  The names and settings
+match ``repro.core.components``, so a run YAML of the JAX package
+resolves here unchanged; settings of later slices (mesh and sharding plan)
+raise ``NotImplementedError`` naming the slice.
 """
 from __future__ import annotations
 
@@ -121,6 +121,12 @@ def _register_training() -> None:
                  AsyncCheckpointer(ckpt_dir, RetentionPolicy(
                      int(keep_last), int(keep_every)), background=False),
                  AsyncCheckpointer)
+
+    from ..resilience import FaultInjector
+
+    REG.register("fault_injector", "schedule",
+                 lambda faults=(): FaultInjector.from_config(faults),
+                 FaultInjector)
 
     # components of later slices: a JAX document naming one resolves to a
     # refusal that names the slice

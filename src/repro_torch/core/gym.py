@@ -11,15 +11,24 @@ through the async engine (:mod:`repro_torch.ckpt`): the loop pays for
 issuing the device-to-host copies, serialization happens on a writer
 thread.
 
-This slice trains on one device.  The mesh and sharding plan (ROADMAP A8),
-resilience (rollback, preemption, retries and fault injection) and the
-profiler (A5) are refused where they are configured
-(``core/components.py``, ``run/config.py``).
+Resilience (:mod:`repro_torch.resilience`, all optional), as in JAX: a
+``sentinel`` inspects every flushed metric point and an anomaly rolls the
+run back to the newest committed checkpoint strictly *before* the anomaly
+step (metrics flush one window late, so the latest checkpoint may already
+hold corrupted state); a ``preempt_guard`` turns SIGTERM into one final
+synchronous checkpoint and a resumable exit; a ``fault_injector``
+schedules deterministic failures through the same paths the real ones
+take.  A ``profiler`` (:class:`repro_torch.telemetry.ProfilerHook`) traces
+a window of steps.
+
+This slice trains on one device: the mesh and sharding plan (ROADMAP A8)
+are refused where they are configured (``core/components.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -48,7 +57,16 @@ class Gym:
     prefetch: int = 2                     # device-prefetch depth (0 = sync)
     eval_fn: Optional[Callable] = None
     logger: Optional[Callable[[Dict[str, Any]], None]] = None
+    # -- resilience (see repro_torch.resilience; all optional) -------------
+    sentinel: Any = None                  # StepSentinel: anomaly detection
+    preempt_guard: Any = None             # PreemptionGuard: graceful SIGTERM
+    fault_injector: Any = None            # FaultInjector: scheduled chaos
+    max_rollbacks: int = 3                # anomaly rollbacks before fatal
+    skip_window: bool = False             # skip the anomalous data window
+    ckpt_retry: Any = None                # RetryPolicy for checkpoint IO
+    # -- telemetry (see repro_torch.telemetry; both optional) --------------
     telemetry: Any = None                 # TelemetryRecorder (unified sink)
+    profiler: Any = None                  # ProfilerHook (torch.profiler window)
     #: where the run trains: None is the card (``device.resolve_device``)
     device: Any = None
 
@@ -59,7 +77,9 @@ class Gym:
         return self._init_state()
 
     def _init_state(self):
-        """A fresh train state, seeded from ``seed`` on the gym's device."""
+        """A fresh train state, seeded from ``seed`` on the gym's device —
+        also the rollback fallback when no usable checkpoint predates an
+        anomaly (the same generator, so the same init bit for bit)."""
         gen = torch.Generator(device=self._device).manual_seed(self.seed)
         return ST.init_train_state(self.model, self.optimizer, gen)
 
@@ -79,11 +99,20 @@ class Gym:
     def _ckpt(self):
         """The checkpointer this gym saves/restores through: the injected
         registry component, or a default async engine on ``ckpt_dir``."""
-        if self.checkpointer is None and self.ckpt_dir:
+        ck = self.checkpointer
+        if ck is None:
+            if not self.ckpt_dir:
+                return None
             from ..ckpt import AsyncCheckpointer
 
-            self.checkpointer = AsyncCheckpointer(self.ckpt_dir)
-        return self.checkpointer
+            ck = self.checkpointer = AsyncCheckpointer(self.ckpt_dir)
+        # resilience knobs ride on the gym config; stamp them onto the
+        # engine (injected registry checkpointers keep their own settings)
+        if self.ckpt_retry is not None and ck.retry is None:
+            ck.retry = self.ckpt_retry
+        if self.fault_injector is not None and ck.fault_injector is None:
+            ck.fault_injector = self.fault_injector
+        return ck
 
     def save_policy(self, step: int) -> bool:
         """Does this step checkpoint? The ``ckpt_every`` knob (override for
@@ -157,104 +186,251 @@ class Gym:
 
     # -- training ----------------------------------------------------------
     def run(self, steps: int, state=None) -> Dict[str, Any]:
-        """Train for ``steps`` steps; returns the state, the flushed metric
-        ``history`` and the step counts."""
+        """Train for ``steps`` steps.  Besides ``state``, the flushed
+        metric ``history`` and the step counts, the result carries the
+        resilience record: ``events`` (anomaly / rollback / preempt rows),
+        ``rollbacks`` and ``preempted`` — all empty/zero/False on a clean
+        run."""
         if state is None:
             state = self.setup()
         start = int(state["step"])
+        target = start + steps
         history: List[Dict[str, Any]] = []
-        pending: List[tuple] = []  # (step, device metrics, wall_s)
-        dispatched = 0
+        events: List[Dict[str, Any]] = []
+        rollbacks = 0
+        preempted = False
+        dispatched = 0   # every step the loop issued, replays included
+        data_offset = 0  # grows when skip_window drops anomalous batches
         t_run0 = time.perf_counter()
         tel = self.telemetry
         do_spans = tel is not None and tel.spans
+        inj = self.fault_injector
+        guard = self.preempt_guard
+        if guard is None and inj is not None and inj.pending("preempt"):
+            # an injected preemption needs a flag holder even when no real
+            # signal handler was wired; same polling path as the real thing
+            from ..resilience.preempt import PreemptionGuard
 
-        def flush():
-            if not pending:
-                return
-            t_f0 = time.perf_counter()
-            last_step = pending[-1][0]
-            keys = list(pending[0][1])
-            # one device-to-host copy for the whole window
-            fetched = torch.stack([torch.stack([m[k].float() for k in keys])
-                                   for _, m, _ in pending]).cpu().tolist()
-            rows = [(step, wall, vals)
-                    for (step, _, wall), vals in zip(pending, fetched)]
-            pending.clear()
-            for step, wall, vals in rows:
-                m = dict(zip(keys, vals))
-                m["step"] = step
-                m["wall_s"] = wall
-                if tel is not None:
-                    tel.metric(step, {k: v for k, v in m.items()
-                                      if k != "step"})
-                history.append(m)
-                if self.logger:
-                    self.logger(m)
-            if do_spans:
-                tel.span_row("gym/flush", t_f0, time.perf_counter(),
-                             step=last_step)
+            guard = PreemptionGuard()
 
         ckpt = self._ckpt()
-        batches = self._wrapped_loader().batches(steps, start_step=start)
         try:
-            it = iter(batches)
-            step = start
             while True:
-                # manual next() so the host-side wait for data is its own
-                # span, apart from the step's dispatch
-                t_wait0 = time.perf_counter()
-                try:
-                    batch = next(it)
-                except StopIteration:
+                current = int(state["step"])
+                if target - current <= 0:
                     break
-                t_wait1 = time.perf_counter()
-                step += 1
-                # a loader that does not prefetch yields host numpy
-                state, metrics = self._step(state,
-                                            place_batch(batch, self._device))
-                dispatched += 1
-                if do_spans:
-                    t_disp = time.perf_counter()
-                    tel.span_row("gym/data_wait", t_wait0, t_wait1, step=step)
-                    tel.span_row("gym/step", t_wait1, t_disp, step=step)
-                if self.log_every and (step % self.log_every == 0
-                                       or step == start + 1):
-                    # fetch the PREVIOUS window now (long since computed),
-                    # stash the current one
-                    flush()
-                    pending.append((step, metrics,
-                                    time.perf_counter() - t_run0))
-                if self.eval_every and self.eval_fn \
-                        and step % self.eval_every == 0:
-                    ev = self.eval_fn(self.model, state["params"])
-                    row = {"step": step,
-                           **{f"eval_{k}": float(v) for k, v in ev.items()}}
-                    history.append(row)
-                    if tel is not None:
-                        tel.metric(step, {k: v for k, v in row.items()
-                                          if k != "step"})
-                    if self.logger:
-                        self.logger(row)
-                if ckpt is not None and self.save_policy(step):
-                    # the copies are queued on the stream before the next
-                    # step's in-place updates; serialization runs on the
-                    # writer thread
-                    t_ck0 = time.perf_counter()
-                    ckpt.save(state, step, extra=self._ckpt_extra())
+                pending: List[tuple] = []  # (step, device metrics, wall_s)
+
+                def flush(pending=pending):
+                    if not pending:
+                        return
+                    t_f0 = time.perf_counter()
+                    last_step = pending[-1][0]
+                    keys = list(pending[0][1])
+                    # one device-to-host copy for the whole window
+                    fetched = torch.stack(
+                        [torch.stack([m[k].float() for k in keys])
+                         for _, m, _ in pending]).cpu().tolist()
+                    rows = [(step, wall, vals)
+                            for (step, _, wall), vals in zip(pending, fetched)]
+                    pending.clear()
+                    for step, wall, vals in rows:
+                        m = dict(zip(keys, vals))
+                        if inj is not None and \
+                                inj.fire("nan_loss", step) is not None:
+                            m["loss"] = float("nan")
+                        m["step"] = step
+                        m["wall_s"] = wall
+                        if tel is not None:
+                            # telemetry sees the observation even when the
+                            # sentinel is about to trip on it
+                            tel.metric(step, {k: v for k, v in m.items()
+                                              if k != "step"})
+                        if self.sentinel is not None:
+                            anomaly = self.sentinel.check(step, m)
+                            if anomaly is not None:
+                                raise _Rollback(anomaly)
+                        history.append(m)
+                        if self.logger:
+                            self.logger(m)
                     if do_spans:
-                        tel.span_row("gym/ckpt", t_ck0, time.perf_counter(),
-                                     step=step)
-            flush()
+                        tel.span_row("gym/flush", t_f0, time.perf_counter(),
+                                     step=last_step)
+
+                batches = self._wrapped_loader().batches(
+                    target - current, start_step=current + data_offset)
+                stop_step = 0
+                try:
+                    it = iter(batches)
+                    step = current
+                    while True:
+                        # manual next() so the host-side wait for data is
+                        # its own span, apart from the step's dispatch
+                        t_wait0 = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            break
+                        t_wait1 = time.perf_counter()
+                        step += 1
+                        if self.profiler is not None:
+                            self.profiler.step_begin(step)
+                        if inj is not None and \
+                                inj.fire("nan_params", step) is not None:
+                            state = inj.corrupt_params(state)
+                        # a loader that does not prefetch yields host numpy
+                        state, metrics = self._step(
+                            state, place_batch(batch, self._device))
+                        dispatched += 1
+                        if do_spans:
+                            t_disp = time.perf_counter()
+                            tel.span_row("gym/data_wait", t_wait0, t_wait1,
+                                         step=step)
+                            tel.span_row("gym/step", t_wait1, t_disp,
+                                         step=step)
+                        if self.log_every and (step % self.log_every == 0
+                                               or step == start + 1):
+                            # fetch the PREVIOUS window now (long since
+                            # computed), stash the current one
+                            flush()
+                            pending.append((step, metrics,
+                                            time.perf_counter() - t_run0))
+                        if self.eval_every and self.eval_fn \
+                                and step % self.eval_every == 0:
+                            ev = self.eval_fn(self.model, state["params"])
+                            row = {"step": step,
+                                   **{f"eval_{k}": float(v)
+                                      for k, v in ev.items()}}
+                            history.append(row)
+                            if tel is not None:
+                                tel.metric(step, {k: v for k, v in row.items()
+                                                  if k != "step"})
+                            if self.logger:
+                                self.logger(row)
+                        if ckpt is not None and self.save_policy(step):
+                            # the copies are queued on the stream before the
+                            # next step's in-place updates; serialization
+                            # runs on the writer thread
+                            t_ck0 = time.perf_counter()
+                            ckpt.save(state, step, extra=self._ckpt_extra())
+                            if do_spans:
+                                tel.span_row("gym/ckpt", t_ck0,
+                                             time.perf_counter(), step=step)
+                        if self.profiler is not None:
+                            self.profiler.step_end(step)
+                        if inj is not None and \
+                                inj.fire("preempt", step) is not None:
+                            guard.request()
+                        if guard is not None and guard.requested:
+                            stop_step = step
+                            break
+                    flush()
+                except _Rollback as rb:
+                    # the loop lets go of the corrupted tensors before the
+                    # restore allocates their replacements
+                    like = _meta_like(state)
+                    state = metrics = None
+                    state, data_offset, rollbacks = self._rollback(
+                        like, rb.event, events, history, data_offset,
+                        rollbacks, ckpt)
+                    continue
+                finally:
+                    close = getattr(batches, "close", None)
+                    if callable(close):
+                        close()  # stop an abandoned prefetch worker
+                if stop_step:
+                    # graceful preemption: one synchronous final save at the
+                    # step boundary, then exit resumable
+                    if ckpt is not None:
+                        ckpt.save(state, stop_step, extra=self._ckpt_extra())
+                        ckpt.wait()
+                    events.append(guard.event(stop_step))
+                    if tel is not None:
+                        tel.event("preempt", step=stop_step)
+                    if self.logger:
+                        self.logger({"step": stop_step, "event": "preempt"})
+                    preempted = True
+                    guard.clear()
+                break
         finally:
-            close = getattr(batches, "close", None)
-            if callable(close):
-                close()  # stop an abandoned prefetch worker
+            if self.profiler is not None:
+                self.profiler.close()
             if ckpt is not None:
                 # the run's last checkpoint must be committed and the writer
                 # thread must not outlive the run, even when the loop raised
                 ckpt.close()
         final_step = int(state["step"])
-        return {"state": state, "history": history,
+        return {"state": state, "history": history, "events": events,
+                "rollbacks": rollbacks, "preempted": preempted,
                 "steps_dispatched": dispatched,
                 "productive_steps": max(0, final_step - start)}
+
+    def _rollback(self, like, event, events, history, data_offset,
+                  rollbacks, ckpt):
+        """Recover from an anomaly: restore the newest committed checkpoint
+        strictly BEFORE the anomaly step (detection lags one metrics
+        window, so a checkpoint at/after it may hold corrupted state) into
+        the structure of ``like`` (the train state's tree on ``meta``),
+        falling back to a fresh seed init.  Checkpoints at/after the
+        anomaly are deleted — they must never win a later "latest"
+        resolution.  Returns the new ``(state, data_offset, rollbacks)``."""
+        from ..ckpt import elastic as EL
+        from ..ckpt import format as CF
+        from ..resilience.sentinel import AnomalyError
+
+        anomaly_step = int(event["step"])
+        rollbacks += 1
+        if rollbacks > self.max_rollbacks:
+            events.append(dict(event, rollbacks=rollbacks, fatal=True))
+            raise AnomalyError(
+                f"anomaly at step {anomaly_step} ({event.get('reason')}): "
+                f"rollback budget ({self.max_rollbacks}) exhausted", event)
+        if ckpt is not None:
+            ckpt.wait()  # in-flight saves must commit before we pick one
+        ckpt_dir = getattr(ckpt, "ckpt_dir", "") or self.ckpt_dir
+        ckpts = CF.list_checkpoints(ckpt_dir) if ckpt_dir else []
+        candidates = [(s, p) for s, p in ckpts if s < anomaly_step]
+        if candidates:
+            restored_step, path = max(candidates)
+            state = EL.restore(like, path, device=self._device)
+        else:
+            state = self._init_state()
+            restored_step = int(state["step"])
+        for s, p in ckpts:
+            if s >= anomaly_step:
+                shutil.rmtree(p, ignore_errors=True)
+        history[:] = [m for m in history if m["step"] <= restored_step]
+        if self.sentinel is not None:
+            self.sentinel.reset()  # replayed steps re-observe their values
+        if self.skip_window:
+            data_offset += anomaly_step - restored_step
+        events.append(dict(event, rollbacks=rollbacks,
+                           restored_step=restored_step,
+                           data_offset=data_offset))
+        if self.telemetry is not None:
+            self.telemetry.event("rollback", step=anomaly_step,
+                                 reason=event.get("reason"),
+                                 restored_step=restored_step,
+                                 rollbacks=rollbacks)
+        if self.logger:
+            self.logger({"step": anomaly_step, "event": "rollback",
+                         "reason": event.get("reason"),
+                         "restored_step": restored_step})
+        return state, data_offset, rollbacks
+
+
+class _Rollback(Exception):
+    """Internal control flow: the sentinel tripped mid-flush; unwind the
+    current segment so :meth:`Gym._rollback` can restore and replay."""
+
+    def __init__(self, event: Dict[str, Any]):
+        super().__init__(event.get("reason", "anomaly"))
+        self.event = event
+
+
+def _meta_like(tree):
+    """``tree`` with each tensor replaced by an empty one of its shape and
+    dtype on ``meta``: the structure a restore fills."""
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")

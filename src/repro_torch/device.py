@@ -11,6 +11,14 @@ from typing import Optional, Union
 
 import torch
 
+#: NVIDIA H100 SXM5, dense bf16 tensor-core peak in FLOP/s: half the data
+#: sheet's 1,979 TFLOPS, which counts 2:4 structured sparsity.  ``mfu``
+#: divides by it (JAX divides by its modeled TPU's, ``launch/mesh.py``); on
+#: a host without a card the value is the modeled utilization against it.
+PEAK_FLOPS_BF16 = 989.4e12
+#: the same card's HBM3 bandwidth in bytes/s (data sheet)
+HBM_BYTES_S = 3.35e12
+
 
 class NoDeviceError(RuntimeError):
     """No CUDA device, and the caller did not ask for the CPU."""
@@ -28,3 +36,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise NoDeviceError(f"device {device!r} asked for, but no CUDA "
                             f"device is visible")
     return dev
+
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device: ``model.init``
+    makes its leaves on ``gen.device``, so it builds shapes and dtypes only
+    (factories on ``meta`` draw no numbers) — the port's
+    ``jax.eval_shape``."""
+
+    @property
+    def device(self):
+        return torch.device("meta")

@@ -87,6 +87,11 @@ def execute_serve(cfg, *, device, write_files: bool, log,
     longest_prompt = w.prefix_len + max(w.prompt_lens)   # tails when prefixed
     max_len = s.max_len or (longest_prompt + max(w.gen_tokens))
     params = load_params(model, ckpt=s.ckpt, seed=s.seed, device=device)
+    fault_injector = None
+    if s.faults:
+        from ..resilience import FaultInjector
+
+        fault_injector = FaultInjector.from_config(s.faults)
     rec = build_recorder(s.telemetry, output_dir=cfg.output_dir,
                          run=cfg.name, kind=cfg.kind, fingerprint=fp,
                          write=write_files, log=log)
@@ -96,7 +101,8 @@ def execute_serve(cfg, *, device, write_files: bool, log,
                          n_blocks=s.n_blocks, prefill_chunk=s.prefill_chunk,
                          prefix_cache=s.prefix_cache,
                          deadline_s=s.deadline_s, watchdog_s=s.watchdog_s,
-                         telemetry=rec, log=log)
+                         fault_injector=fault_injector, telemetry=rec,
+                         log=log)
     kw = dict(seed=w.seed, rate=w.rate, prompt_lens=w.prompt_lens,
               gen_tokens=w.gen_tokens, temperature=samp.temperature,
               top_k=samp.top_k, top_p=samp.top_p, eos_id=s.eos_id,
@@ -230,11 +236,64 @@ def _prepare_gym(cfg, s, gym, resolved: Dict[str, Any]) -> None:
             {k: v for k, v in resolved.items() if k != "run"})
 
 
+def _wire_resilience(s, gym, log) -> None:
+    """Build the gym's resilience collaborators from the settings'
+    ``resilience:`` block (no-op when absent)."""
+    r = getattr(s, "resilience", None)
+    if r is None:
+        return
+    from ..resilience import (FaultInjector, PreemptionGuard, RetryPolicy,
+                              StepSentinel)
+
+    if r.sentinel is not None and gym.sentinel is None:
+        sn = r.sentinel
+        gym.sentinel = StepSentinel(
+            metric=sn.metric, nan=sn.nan, spike_zscore=sn.spike_zscore,
+            window=sn.window, min_history=sn.min_history)
+        log(f"resilience: sentinel on {sn.metric!r} "
+            f"(nan={sn.nan}, spike_zscore={sn.spike_zscore})")
+    gym.max_rollbacks = r.max_rollbacks
+    gym.skip_window = r.skip_window
+    if r.ckpt_retry is not None and gym.ckpt_retry is None:
+        cr = r.ckpt_retry
+        gym.ckpt_retry = RetryPolicy(
+            max_attempts=cr.max_attempts, base_delay_s=cr.base_delay_s,
+            max_delay_s=cr.max_delay_s, jitter=cr.jitter)
+    if r.faults and gym.fault_injector is None:
+        gym.fault_injector = FaultInjector.from_config(r.faults)
+        log(f"resilience: {len(r.faults)} scheduled fault(s) armed")
+    if r.preemption and gym.preempt_guard is None:
+        # the handlers install on the main thread only (off it the guard
+        # holds the flag alone)
+        gym.preempt_guard = PreemptionGuard().install()
+
+
+def _build_profiler(cfg, s, rec, *, device, write_files: bool, log):
+    """ProfilerHook from ``telemetry.profile`` (None when unset, or when the
+    run writes no files: a trace is a filesystem artifact)."""
+    p = getattr(s.telemetry, "profile", None)
+    if p is None or not write_files:
+        return None
+    out_dir = p.dir or (os.path.join(cfg.output_dir, "profile")
+                        if cfg.output_dir else "")
+    if not out_dir:
+        log("[telemetry] profile requested but the run has no output_dir "
+            "and no telemetry.profile.dir — skipping")
+        return None
+    from ..telemetry import ProfilerHook
+
+    return ProfilerHook(p.start_step, p.num_steps, out_dir, recorder=rec,
+                        log=log, device=device)
+
+
 def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
                resolved: Dict[str, Any]) -> Dict[str, Any]:
     """Setup -> warmstart/resume -> run -> result dict (JAX's
-    ``_drive_gym`` without resilience, the profiler and ``mfu``, ROADMAP
-    A5)."""
+    ``_drive_gym``): the resilience record (``rollback_count``,
+    ``retry_count``, ``graceful_exit``, ``events`` and ``events.jsonl``,
+    ``status: preempted`` with ``completed_steps``), ``goodput``,
+    ``model_flops_per_step`` and ``mfu`` against the card's peak
+    (:data:`repro_torch.device.PEAK_FLOPS_BF16`), and ``profile_trace``."""
     from ..telemetry import accounting as ACC
     from ..telemetry import build_recorder
 
@@ -257,9 +316,13 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
                          run=cfg.name, kind=cfg.kind, fingerprint=fp,
                          write=write_files, log=log)
     gym.telemetry = rec
+    prof = None
     if rec is not None:
+        prof = gym.profiler = _build_profiler(
+            cfg, s, rec, device=device, write_files=write_files, log=log)
         rec.event("run_start", steps=s.steps, steps_this_run=steps,
                   resumed_from=resumed_from)
+    _wire_resilience(s, gym, log)
     t0 = time.time()
     try:
         out = gym.run(steps, state=state)
@@ -267,6 +330,10 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
         if rec is not None:
             rec.close()
         raise
+    finally:
+        if gym.preempt_guard is not None:
+            # a later run in this process must not inherit the handlers
+            gym.preempt_guard.uninstall()
     wall = time.time() - t0
     hist = out["history"]
     dispatched = int(out["steps_dispatched"])
@@ -276,12 +343,48 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
         "wall_s": round(wall, 6),
         "logged_points": len(hist),
         "history": hist,
+        # productive steps over everything dispatched (rollback replays
+        # discount it)
         "steps_dispatched": dispatched,
         "goodput": ACC.goodput(int(out["productive_steps"]), dispatched),
+        # resilience accounting (zero/False on clean runs by construction)
+        "rollback_count": int(out["rollbacks"]),
+        "retry_count": int(getattr(gym.checkpointer, "retry_count", 0) or 0),
+        "graceful_exit": bool(out["preempted"]),
     }
+    if steps > 0 and wall > 0:
+        flops = ACC.flops_per_train_step(gym.model, gym.loader,
+                                         gym.grad_accum)
+        if flops:
+            result["model_flops_per_step"] = flops
+            result["mfu"] = ACC.mfu(flops, wall / dispatched
+                                    if dispatched else wall / steps)
     saves = getattr(gym.checkpointer, "saves", None)
     if saves:
         result["ckpt_saves"] = list(saves)
+    events = list(getattr(gym.fault_injector, "events", None) or [])
+    events += out["events"]
+    if out["preempted"]:
+        result["status"] = "preempted"
+        result["completed_steps"] = int(out["state"]["step"])
+        log(f"preempted at step {result['completed_steps']} — final "
+            f"checkpoint committed; rerun with resume: auto")
+    if events:
+        result["events"] = events
+        if rec is not None:
+            for ev in events:
+                attrs = {k: v for k, v in ev.items()
+                         if k not in ("step", "name")}
+                rec.event("resilience/" + str(ev.get("kind",
+                                                     ev.get("reason",
+                                                            "event"))),
+                          step=ev.get("step"), **attrs)
+        if cfg.output_dir and write_files:
+            path = os.path.join(cfg.output_dir, "events.jsonl")
+            with open(path, "a") as f:
+                for ev in events:
+                    f.write(json.dumps(ev, default=str) + "\n")
+            result["events_file"] = path
     if resumed_from is not None:
         result["resumed_from"] = resumed_from
         if steps == 0:
@@ -305,8 +408,12 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
     if gb and seq:
         result["tokens_per_s"] = int(steps * gb * seq / wall) \
             if wall > 0 else 0
+    if prof is not None and prof.artifact:
+        result["profile_trace"] = prof.artifact
     if rec is not None:
-        rec.event("run_end", goodput=result["goodput"])
+        rec.event("run_end", goodput=result["goodput"],
+                  rollbacks=result["rollback_count"],
+                  preempted=result["graceful_exit"])
         result["telemetry"] = rec.summary()
         rec.close()
     return result

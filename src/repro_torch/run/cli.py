@@ -12,7 +12,11 @@ no ``--device cpu`` it stops with an error.  Every run writes
 directory; ``replay`` re-executes such a directory (of either package).
 ``validate`` checks documents without building anything: ``ok`` for a
 document the port runs, ``skip`` (naming the ROADMAP item) for one of a
-later slice, ``FAIL`` for a broken one (exit 1).
+later slice, ``FAIL`` for a broken one (exit 1).  A train run stopped by
+SIGTERM/SIGINT (with ``run.train.resilience``) or an injected ``preempt``
+commits a final checkpoint, prints the resume hint and exits 75
+(``PREEMPTED_EXIT_CODE``); the same command with ``run.train.resume=auto``
+continues it.
 """
 from __future__ import annotations
 
@@ -144,6 +148,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                               overrides=args.overrides, device=args.device,
                               write_result=True)
     _print_result(args.command, result)
+    if result.get("status") == "preempted":
+        # distinct resumable status (EX_TEMPFAIL): the scheduler should
+        # relaunch this exact command with resume intact
+        from ..resilience import PREEMPTED_EXIT_CODE
+
+        print(f"preempted: resume with the same command "
+              f"(exit {PREEMPTED_EXIT_CODE})", flush=True)
+        return PREEMPTED_EXIT_CODE
     return 0
 
 

@@ -9,7 +9,10 @@ resolver builds.  ``train`` drives the resolved gym for a total budget of
 settings; ``serve`` runs the static-batch shim (``batch``, ``prompt_len``,
 ``gen``, ``seed``, ``ckpt``) or, with ``engine: true``, the
 continuous-batching engine over a seeded ``workload`` with per-request
-``sampling``.  A document without a ``run:`` section is a ``train`` run
+``sampling`` and a ``faults`` schedule.  The ``resilience`` block of
+``run.train`` (sentinel, rollback, preemption, checkpoint retries, faults)
+and ``telemetry.profile`` (the profiler window) are JAX's grammar, with
+JAX's error messages.  A document without a ``run:`` section is a ``train`` run
 when it has a ``gym`` and a sweep when it has a sweep spec, as in JAX.  The
 JAX package's other kinds and settings are recognised and refused with the
 slice that will bring them, so a document never runs with settings
@@ -39,13 +42,140 @@ class RunError(Exception):
     pass
 
 
+# ---------------------------------------------------------------------------
+# resilience (fault tolerance) — the train-shaped kinds
+# ---------------------------------------------------------------------------
+def _validate_faults(where: str, faults: Any) -> list:
+    """The chaos-schedule grammar: a list of ``{kind, at, times, seconds}``
+    rows, each validated against the known fault kinds."""
+    if faults is None:
+        faults = []
+    if isinstance(faults, dict):
+        faults = [faults]
+    if not isinstance(faults, (list, tuple)):
+        raise RunError(f"{where} must be a list of "
+                       f"{{kind, at, times, seconds}} rows")
+    from ..resilience.faults import FaultSpec
+
+    rows = []
+    for row in faults:
+        if not isinstance(row, dict):
+            raise RunError(f"{where}: rows must be mappings, got {row!r}")
+        try:
+            FaultSpec(**row)
+        except (TypeError, ValueError) as e:
+            raise RunError(f"{where}: {e}") from e
+        rows.append(dict(row))
+    return rows
+
+
+@dataclasses.dataclass
+class SentinelSettings:
+    """``run.<kind>.resilience.sentinel``: anomaly detection over flushed
+    metric points — NaN/Inf always trips when ``nan``; a loss-spike trips
+    when its z-score against the rolling ``window`` exceeds
+    ``spike_zscore`` (0 disables; ``min_history`` guards noisy starts)."""
+
+    metric: str = "loss"
+    nan: bool = True
+    spike_zscore: float = 0.0
+    window: int = 32
+    min_history: int = 8
+
+
+@dataclasses.dataclass
+class RetrySettings:
+    """``run.<kind>.resilience.ckpt_retry``: bounded exponential backoff
+    with deterministic jitter for transient IO.  ``max_attempts`` counts
+    the first try."""
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    jitter: float = 0.25
+
+    def __post_init__(self):
+        if self.max_attempts < 1:
+            raise RunError(f"retry.max_attempts must be >= 1, "
+                           f"got {self.max_attempts}")
+
+
+@dataclasses.dataclass
+class ResilienceSettings:
+    """``run.<kind>.resilience``: the fault-tolerance block.
+
+    ``sentinel`` arms anomaly detection (rollback to the newest committed
+    checkpoint BEFORE the anomaly, up to ``max_rollbacks``;
+    ``skip_window: true`` additionally skips the anomalous data window on
+    replay — which changes the curve, so it is off by default).
+    ``preemption`` installs the SIGTERM/SIGINT graceful-exit guard.
+    ``ckpt_retry`` wraps checkpoint IO in retry-with-backoff.  ``faults``
+    is the deterministic chaos schedule (see
+    :mod:`repro_torch.resilience.faults`)."""
+
+    sentinel: Any = None          # mapping/true -> SentinelSettings
+    max_rollbacks: int = 3
+    skip_window: bool = False
+    preemption: bool = True       # install the SIGTERM/SIGINT guard
+    ckpt_retry: Any = None        # mapping/true -> RetrySettings
+    faults: Any = ()              # chaos rows: {kind, at, times, seconds}
+
+    def __post_init__(self):
+        if self.max_rollbacks < 0:
+            raise RunError(f"resilience.max_rollbacks must be >= 0, "
+                           f"got {self.max_rollbacks}")
+        if self.sentinel is True:
+            self.sentinel = SentinelSettings()
+        elif self.sentinel is not None and not isinstance(
+                self.sentinel, SentinelSettings):
+            self.sentinel = _coerce_block("resilience", "sentinel",
+                                          self.sentinel, SentinelSettings)
+        if self.ckpt_retry is True:
+            self.ckpt_retry = RetrySettings()
+        elif self.ckpt_retry is not None and not isinstance(
+                self.ckpt_retry, RetrySettings):
+            self.ckpt_retry = _coerce_block("resilience", "ckpt_retry",
+                                            self.ckpt_retry, RetrySettings)
+        self.faults = _validate_faults("resilience.faults", self.faults)
+
+
+def _coerce_resilience(kind: str, value: Any) -> Any:
+    """``resilience:`` block: absent/None => no fault-tolerance wiring;
+    ``true`` => all defaults (sentinel stays off until configured)."""
+    if value is None or isinstance(value, ResilienceSettings):
+        return value
+    if value is True:
+        return ResilienceSettings()
+    return _coerce_block(kind, "resilience", value, ResilienceSettings)
+
+
+# ---------------------------------------------------------------------------
+# telemetry (observability) — every kind
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ProfileSettings:
+    """``run.<kind>.telemetry.profile``: wrap a window of steps in
+    ``torch.profiler``.  The chrome trace lands under
+    ``<output_dir>/profile`` (or ``dir``) and its path is recorded as a
+    telemetry event and in the result (``profile_trace``)."""
+
+    start_step: int = 1
+    num_steps: int = 1
+    dir: str = ""                 # default: <output_dir>/profile
+
+    def __post_init__(self):
+        if self.start_step < 1 or self.num_steps < 1:
+            raise RunError(f"telemetry.profile start_step/num_steps must be "
+                           f">= 1, got {self.start_step}/{self.num_steps}")
+
+
 @dataclasses.dataclass
 class TelemetrySettings:
     """``run.<kind>.telemetry``: the unified observability block, on by
     default.  ``telemetry: false`` disables it; ``sink`` picks a sink
     variant; ``spans: false`` keeps metric and event rows but drops the
-    per-step phase spans.  ``profile`` (the profiler window) comes with
-    ROADMAP A5 and is refused."""
+    per-step phase spans; ``profile`` arms the ``torch.profiler``
+    window."""
 
     enabled: bool = True
     sink: str = "jsonl"
@@ -53,7 +183,7 @@ class TelemetrySettings:
     prefix: str = ""              # stdout sink
     sinks: Any = ()               # multi sink: nested {sink, path, prefix} rows
     spans: bool = True
-    profile: Any = None
+    profile: Any = None           # mapping -> ProfileSettings
 
     _KNOWN_SINKS = ("jsonl", "csv", "stdout", "multi", "memory")
 
@@ -69,10 +199,10 @@ class TelemetrySettings:
                           for s in self.sinks]
         else:
             self.sinks = list(self.sinks or ())
-        if self.profile is not None:
-            raise NotImplementedError(
-                "telemetry.profile: the profiler window (and mfu) comes with "
-                "the telemetry slice of the port (ROADMAP A5)")
+        if self.profile is not None and not isinstance(self.profile,
+                                                       ProfileSettings):
+            self.profile = _coerce_block("telemetry", "profile",
+                                         self.profile, ProfileSettings)
 
 
 def _coerce_telemetry(kind: str, value: Any) -> TelemetrySettings:
@@ -125,20 +255,17 @@ class TrainSettings:
     ``resume`` is ``false`` | ``true``/``auto`` (find the latest committed
     checkpoint in the gym's checkpoint dir).  ``warmstart`` (mutually
     exclusive with resume) initializes from another run's checkpoint.
-    ``resilience`` (ROADMAP A5) is refused."""
+    ``resilience`` is the fault-tolerance block (:class:`ResilienceSettings`)."""
 
     steps: int = 100
     resume: Any = False           # false | true | "auto"
     warmstart: Any = None         # mapping -> WarmstartSettings
     gym_key: str = "gym"          # top-level graph entry that is the gym
-    resilience: Any = None
+    resilience: Any = None        # mapping -> ResilienceSettings
     telemetry: Any = None         # mapping/bool -> TelemetrySettings
 
     def __post_init__(self):
-        if self.resilience is not None:
-            raise NotImplementedError(
-                "run.train.resilience: the sentinel, preemption and fault "
-                "injection come with ROADMAP A5")
+        self.resilience = _coerce_resilience("train", self.resilience)
         if self.steps < 0:
             raise RunError(f"run.train.steps must be >= 0, got {self.steps}")
         self.telemetry = _coerce_telemetry("train", self.telemetry)
@@ -264,8 +391,8 @@ class ServeSettings:
     default ``"."`` (so the run document's fingerprint is JAX's), but the
     port reads ``"."`` as the run's ``output_dir`` (see
     ``run.api.execute_serve``).  ``ckpt`` restores the params of a
-    training checkpoint (either format); ``faults`` (ROADMAP A5) are
-    refused.
+    training checkpoint (either format); ``faults`` is the engine's chaos
+    schedule (``serve_stall`` rows).
     """
 
     batch: int = 4
@@ -287,7 +414,7 @@ class ServeSettings:
     bench_dir: str = "."          # where BENCH_serve_<name>.json lands
     deadline_s: float = 0.0       # per-request wall deadline (0 = none)
     watchdog_s: float = 0.0       # no-progress tick watchdog (0 = off)
-    faults: Any = ()              # chaos rows (serve_stall): ROADMAP A5
+    faults: Any = ()              # chaos rows (serve_stall)
     telemetry: Any = None         # mapping/bool -> TelemetrySettings
 
     def __post_init__(self):
@@ -296,11 +423,7 @@ class ServeSettings:
                                       SamplingSettings)
         self.workload = _coerce_block("serve", "workload", self.workload,
                                       WorkloadSettings)
-        if self.faults:
-            raise NotImplementedError(
-                "run.serve.faults: fault injection comes with resilience "
-                "(ROADMAP A5)")
-        self.faults = []
+        self.faults = _validate_faults("run.serve.faults", self.faults)
         if min(self.batch, self.prompt_len, self.gen) < 1:
             raise RunError(f"run.serve: batch/prompt_len/gen must be >= 1, got "
                            f"{self.batch}/{self.prompt_len}/{self.gen}")

@@ -34,8 +34,9 @@ covers ``n_slots``), nothing branches on a request's contents, and the
 sampling noise is a hash of ``(seed, generation index)``.
 ``docs/serving.md`` spells out the argument.
 
-Sharded serving (``mesh``/``plan``, ROADMAP A8) and fault injection
-(``fault_injector``, A5) come with later slices and raise here.
+A ``fault_injector`` fires ``serve_stall`` inside the tick, before its
+watchdog clock stops (a hung collective, simulated).  Sharded serving
+(``mesh``/``plan``, ROADMAP A8) comes with a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import MetaGenerator, resolve_device
 from ..train import steps as ST
 from .paging import BlockAllocator, RadixPrefixIndex
 from .sampling import request_key, sample_tokens, token_key
@@ -73,20 +74,10 @@ def load_params(model, ckpt: str = "", seed: int = 0, device=None):
     if ckpt:
         from ..train.checkpoint import restore_params
 
-        return restore_params(model.init(_MetaGenerator()), ckpt, device=dev)
+        return restore_params(model.init(MetaGenerator()), ckpt, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return model.init(gen)
-
-
-class _MetaGenerator(torch.Generator):
-    """A CPU generator that reports the ``meta`` device: ``model.init``
-    makes its leaves on ``gen.device``, so it builds shapes and dtypes
-    only (factories on ``meta`` draw no numbers)."""
-
-    @property
-    def device(self):
-        return torch.device("meta")
 
 
 def _params_device(params) -> torch.device:
@@ -125,7 +116,8 @@ class ServeEngine:
         ``deadline_s`` is a wall deadline per request from its arrival (0 =
         none; ``Request.deadline_s`` overrides it per request);
         ``watchdog_s`` raises when one tick takes longer (0 = off; only sane
-        with warm-up).  ``telemetry`` (a ``TelemetryRecorder``) gets each
+        with warm-up); ``fault_injector`` (a ``FaultInjector``) fires its
+        ``serve_stall`` rows inside ticks.  ``telemetry`` (a ``TelemetryRecorder``) gets each
         request's ``serve/request|queued|prefill|decode`` spans and one
         ``serve_summary`` metric row a run.
         """
@@ -139,10 +131,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "sharded serving (mesh/plan) comes with parallelism "
                 "(ROADMAP A8)")
-        if fault_injector is not None:
-            raise NotImplementedError(
-                "fault injection (serve_stall) comes with resilience "
-                "(ROADMAP A5)")
         if n_slots < 1 or max_len < 2:
             raise EngineError(f"need n_slots >= 1 and max_len >= 2, got "
                               f"{n_slots}/{max_len}")
@@ -157,6 +145,8 @@ class ServeEngine:
         self.cache_dtype = cache_dtype
         self.deadline_s = float(deadline_s)
         self.watchdog_s = float(watchdog_s)
+        # a fault injector for deterministic serve_stall chaos
+        self.fault_injector = fault_injector
         self.telemetry = telemetry
         self.log = log or (lambda msg: None)
         supports_paged = model.supports_paged_cache()
@@ -474,6 +464,10 @@ class ServeEngine:
         def do_tick() -> None:
             nonlocal cache, slots, ticks, busy_slot_ticks, decode_s
             ta = time.perf_counter()
+            if self.fault_injector is not None:
+                stall = self.fault_injector.fire("serve_stall")
+                if stall is not None and stall.seconds > 0:
+                    time.sleep(stall.seconds)  # a hung collective, simulated
             if self.paged:
                 cache, slots, sampled, finished = self._tick(
                     self.params, cache, slots, self._pages_dev())

@@ -1,13 +1,14 @@
 """Unified telemetry of the port (``repro.telemetry`` counterpart): typed
-metric/span/event rows through one recorder into one sink per run.  The
-``jax.profiler`` window (``telemetry.profile``) and ``mfu`` come with the
-profiler slice (ROADMAP A5)."""
+metric/span/event rows through one recorder into one sink per run, the
+``torch.profiler`` window (``telemetry.profile``, :class:`ProfilerHook`)
+and the ``mfu``/``goodput`` accounting (:mod:`.accounting`)."""
 from __future__ import annotations
 
 import os
 from typing import Any, Optional
 
 from .events import SCHEMA_VERSION, SchemaError, validate_row, validate_rows
+from .profiler import ProfilerHook
 from .recorder import TelemetryRecorder
 from .sinks import (CallbackSink, CsvSink, JsonlSink, ListSink, MultiSink,
                     StdoutSink, TelemetrySink, read_csv, read_jsonl)
@@ -16,7 +17,7 @@ __all__ = [
     "SCHEMA_VERSION", "SchemaError", "validate_row", "validate_rows",
     "TelemetryRecorder", "TelemetrySink", "JsonlSink", "CsvSink",
     "StdoutSink", "MultiSink", "ListSink", "CallbackSink", "read_jsonl",
-    "read_csv", "build_recorder", "build_sink",
+    "read_csv", "build_recorder", "build_sink", "ProfilerHook",
 ]
 
 _FILE_SINKS = {"jsonl": (JsonlSink, "telemetry.jsonl"),

@@ -214,10 +214,6 @@ def test_later_slices_are_refused(tmp_path):
         restore(like, path, shardings={"w": None})
     with pytest.raises(NotImplementedError, match="A8"):
         restore_train_state(like, path, plan=object(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        AsyncCheckpointer(str(tmp_path), retry=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        AsyncCheckpointer(str(tmp_path), fault_injector=object())
 
 
 def test_restore_entry_point_needs_a_card_or_the_cpu(tmp_path):

@@ -500,3 +500,73 @@ def test_bf16_train_state_roundtrips_through_the_async_engine(cuda, tmp_path):
     assert man["leaves"]["params/embed"]["dtype"] == "bfloat16"
     restored = ck.restore(tree_map(torch.empty_like, state), device=cuda)
     _assert_equal_trees(restored, state)
+
+
+# ---------------------------------------------------------------------------
+# resilience on the card
+# ---------------------------------------------------------------------------
+def test_nan_params_rollback_through_flash_matches_clean(cuda, tmp_path):
+    """Reduced Qwen through ``flash_fwd`` on the run API: ``nan_params`` at
+    step 5 corrupts the state on the card, the sentinel trips one window
+    later, the gym rolls back to the step-4 checkpoint and replays; the
+    curve ``==`` the clean run's, and the kernel launched for every
+    dispatched step (8 = 6 + the replayed 5 and 6)."""
+    import os
+
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run import api
+    from repro_torch.run.overrides import apply_overrides, parse_overrides
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "configs", "quickstart.yaml")
+
+    def run(name, *sets):
+        doc = apply_overrides(load_yaml(path), parse_overrides(
+            [f"dataset.config.prefix={tmp_path / 'qs'}",
+             f"run.output_dir={tmp_path / name}", "run.train.steps=6",
+             "gym.config.ckpt_every=2", "arch.config.use_flash_kernel=true",
+             *sets]))
+        before = ops.launches
+        res = api.execute_doc(doc, device=cuda, log=lambda m: None)
+        return res, ops.launches - before
+
+    clean, n_clean = run("clean")
+    chaos, n_chaos = run("chaos", "run.train.resilience={sentinel: true, "
+                                  "faults: [{kind: nan_params, at: 5}]}")
+    layers = 2 * 2          # reduced Qwen's attention layers x (fwd + remat)
+    assert n_clean == layers * 6 and clean["steps_dispatched"] == 6
+    assert chaos["steps_dispatched"] == 8 and n_chaos == layers * 8
+    assert chaos["rollback_count"] == 1
+    assert [(m["step"], m["loss"]) for m in chaos["history"]] == \
+        [(m["step"], m["loss"]) for m in clean["history"]]
+
+
+def test_snapshot_stays_finite_when_nan_params_follows_an_async_save(
+        cuda, tmp_path):
+    """``nan_params`` corrupts the params in place on the current stream
+    right after an async save, with no synchronize between: stream order
+    puts the save's copies first, so the checkpoint holds the clean step-2
+    state (``==`` a clone queued before the corruption)."""
+    from repro_torch.ckpt import AsyncCheckpointer
+    from repro_torch.resilience import FaultInjector
+    from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model, opt, state = _card_train_state(cuda)
+    step = ST.make_train_step(model, opt)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(2):
+        toks = torch.randint(3, model.cfg.vocab, (4, 128), generator=gen,
+                             device=cuda, dtype=torch.int32)
+        state, _ = step(state, {"tokens": toks, "labels": toks.roll(-1, 1)})
+    clean = tree_map(torch.clone, state)
+    ck = AsyncCheckpointer(str(tmp_path / "ck"))
+    ck.save(state, 2)
+    state = FaultInjector.corrupt_params(state)     # no sync before it
+    ck.close()
+    assert all(bool(torch.isnan(p).all())
+               for p in tree_leaves(state["params"]))
+    restored = ck.restore(tree_map(torch.zeros_like, state), device=cuda)
+    assert all(bool(torch.isfinite(p).all())
+               for p in tree_leaves(restored["params"]))
+    _assert_equal_trees(restored, clean)

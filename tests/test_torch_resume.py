@@ -335,8 +335,8 @@ def test_train_settings_validation():
     with pytest.raises(RunError, match="unknown keys"):
         TrainSettings(warmstart={"source": "x", "mesh": 1})
     assert TrainSettings(resume="auto").resume == "auto"
-    with pytest.raises(NotImplementedError, match="A5"):
-        TrainSettings(resilience={"sentinel": True})
+    assert TrainSettings(resilience={"sentinel": True}).resilience \
+        .sentinel.metric == "loss"
 
 
 # ---------------------------------------------------------------------------

@@ -350,20 +350,12 @@ def test_entry_points_without_device_raise_on_a_host_without_card():
 
 
 def test_unported_paths_raise():
-    from repro_torch.run.config import parse_run_doc
-
     model = build_model(get_reduced("qwen1p5_0p5b"))
     params = load_params(model, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         ServeEngine(model, params, n_slots=1, max_len=8, mesh=object())
     with pytest.raises(NotImplementedError, match="A8"):
         ServeEngine(model, params, n_slots=1, max_len=8, plan=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        ServeEngine(model, params, n_slots=1, max_len=8,
-                    fault_injector=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        parse_run_doc({"run": {"kind": "serve", "serve": {
-            "engine": True, "faults": [{"kind": "serve_stall", "at": 0}]}}})
     for arch in ("deepseek_moe_16b", "deepseek_v3_671b", "whisper_tiny",
                  "llava_next_34b"):
         with pytest.raises(NotImplementedError):
