@@ -65,7 +65,23 @@
    on the quickstart (exit 75, the resumed curve ``==`` a straight run's)
    and a stalled engine tick under the watchdog.  The train phases print
    ``model_flops_per_step`` (6·N·D) and ``mfu`` against the card's peak.
-8. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+8. Post-training: full-width Qwen1.5-0.5B through the flash kernel with
+   LoRA rank 8 (alpha 16, the default targets): (a) on one 1024-token
+   prompt, the injected forward ``==`` the base forward, ``apply(merge(p))``
+   ``==`` the on-the-fly forward, an adapter checkpoint reloaded into a
+   fresh init ``==``, the merged export restacked ``==`` ``merge(p)``; (b)
+   the ``sft`` kind warmstarted strictly from the checkpoint phase's step-3
+   checkpoint (fresh optimizer: the adapter exemption), on packed
+   ``sft_synthetic`` rows of 8 x 1024: 6 steps straight (adapter
+   checkpoint and merged export), 3 with a checkpoint and resumed to 6
+   (within ``RESUME_TOL``), the checkpoint's base leaves ``==`` the
+   donor's, the logged trainable count, one step's adapter gradients
+   through the kernel against the plain path; (c) the ``dpo`` kind on
+   static 1024-token pairs (8 a step) from the donor: first loss ``log 2``,
+   margin 0, then positive; (d) pairs sampled twice through the paged
+   engine (``==``) and a 2-step on-policy ``dpo`` run; (e) ``sft.yaml`` and
+   ``dpo.yaml``.  Each run prints ms/step, ``mfu`` and peak memory.
+9. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine, each 16 sampled requests of 256/512/1024 prompt tokens,
@@ -775,20 +791,24 @@ def _train_graph(doc):
 
 
 class _Capture:
-    """An optimizer that keeps the gradients a train step hands it."""
+    """An optimizer that keeps the gradients a train step hands it (of the
+    leaves its ``trainable`` path predicate accepts, where it has one)."""
+
+    def __init__(self, trainable=None):
+        self.trainable = trainable
 
     def update(self, grads, state, params):
         self.grads = grads
         return params, state
 
 
-def step_grads(model, params, batch):
+def step_grads(model, params, batch, trainable=None):
     """One ``make_train_step`` of ``model``: (loss, gradient tree)."""
     import torch
 
     from repro_torch.train.steps import make_train_step
 
-    cap = _Capture()
+    cap = _Capture(trainable)
     state = {"params": params, "opt": {},
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     _, metrics = make_train_step(model, cap)(state, batch)
@@ -825,10 +845,12 @@ def _acts(model, dtype):
     return model
 
 
-def compare_train_step(key, cfg, params, batch) -> bool:
+def compare_train_step(key, cfg, params, batch, lora=None,
+                       label="") -> bool:
     """One step's loss and gradients through the slice's kernel against the
     plain path, in bf16 and in f32 activations, beside the model's own
-    spread (two plain paths)."""
+    spread (two plain paths).  With ``lora`` (Qwen) the model is wrapped in
+    those adapters and the gradients are the adapters' alone."""
     import math
 
     import torch
@@ -836,21 +858,29 @@ def compare_train_step(key, cfg, params, batch) -> bool:
     import repro_torch.models.attention as attn
     import repro_torch.models.ssm as ssm
     from repro_torch.models import build_model
+    from repro_torch.posttrain import lora as LO
     from repro_torch.tree import tree_leaves
+
+    label = label or f"train {key}"
+    trainable = LO.is_adapter_path if lora is not None else None
+
+    def wrap(model):
+        return model if lora is None else LO.LoRAModel(model, lora)
 
     ok = True
     for dname, (loss_tol, grad_tol) in TRAIN_SLICES[key]["tols"].items():
         dtype = getattr(torch, dname)
-        kernel = step_grads(_acts(build_model(cfg), dtype), params, batch)
+        kernel = step_grads(wrap(_acts(build_model(cfg), dtype)), params,
+                            batch, trainable)
         if key == "qwen":
-            plain_model = _acts(build_model(cfg.with_(use_flash_kernel=False)),
-                                dtype)
-            plain = step_grads(plain_model, params, batch)
+            plain_model = wrap(_acts(build_model(
+                cfg.with_(use_flash_kernel=False)), dtype))
+            plain = step_grads(plain_model, params, batch, trainable)
             # the online-softmax path (f32 probabilities) in place of
             # _full_attn (probabilities rounded to the activation dtype
             # before PV): the same function summed in another order
             with mock.patch.object(attn, "_BLOCKWISE_AT", 0):
-                other = step_grads(plain_model, params, batch)
+                other = step_grads(plain_model, params, batch, trainable)
             floor_what = "plain full vs plain blockwise attention"
         elif key == "zamba2":
             plain_model = _acts(build_model(cfg.with_(use_flash_kernel=False)),
@@ -879,16 +909,16 @@ def compare_train_step(key, cfg, params, batch) -> bool:
         good = (finite and nonzero and dloss <= loss_tol
                 and rel[worst] <= grad_tol)
         ok &= good
-        print(f"train {key}: one step ({dname}) kernel vs plain: loss "
+        print(f"{label}: one step ({dname}) kernel vs plain: loss "
               f"{kernel[0]:.6f} vs {plain[0]:.6f}, |dloss| {dloss:.6g} (tol "
               f"{loss_tol}); worst leaf {worst} max|dg|/max|g| "
               f"{rel[worst]:.6g} (tol {grad_tol}); every leaf's gradient "
               f"finite {finite} and non-zero {nonzero}: "
               f"{'ok' if good else 'FAILED'}", flush=True)
-        print(f"train {key}: ({dname}) per leaf max|dg|/max|g| kernel vs "
+        print(f"{label}: ({dname}) per leaf max|dg|/max|g| kernel vs "
               f"plain {json.dumps({p: float(f"{v:.4g}") for p, v in rel.items()})}",
               flush=True)
-        print(f"train {key}: ({dname}) the model's own spread "
+        print(f"{label}: ({dname}) the model's own spread "
               f"({floor_what}): |dloss| {floss:.6g}, per leaf "
               f"{json.dumps({p: float(f"{v:.4g}") for p, v in frel.items()})}; "
               f"tolerances: {TRAIN_TOL_WHY[dname]}", flush=True)
@@ -1042,6 +1072,10 @@ class _RunCapture:
     def __exit__(self, *exc):
         for p in self._patches:
             p.stop()
+        # the patches hold closures over self: drop them, so that a capture
+        # (and the train state it keeps) is freed with its last reference,
+        # not at the next cycle collection
+        self._patches = None
         return False
 
 
@@ -1679,6 +1713,401 @@ def _resil_serve_stall(data_dir: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# post-training: LoRA, sft and dpo
+# ---------------------------------------------------------------------------
+POST_STEPS, POST_AT, DPO_STEPS, ONPOLICY_STEPS = 6, 3, 5, 2
+POST_LORA = {"rank": 8, "alpha": 16.0}
+# (trainable, total) of full-width Qwen1.5-0.5B at rank 8, default targets:
+# the JAX package's count on the CPU (tests/test_torch_posttrain.py)
+POST_TRAINABLE = (15977472, 479965184)
+# the SFT rows: packed prompt/response pairs that fill 8 rows of 1024
+POST_SFT_DATA = {"n_examples": 128, "prompt_len": [64, 256],
+                 "response_len": [256, 768], "seed": 0}
+# the DPO pairs: prompt + completion up to 1024 tokens, one row each
+POST_DPO_DATA = {"n_pairs": 64, "prompt_len": [256, 512],
+                 "response_len": [384, 512], "seed": 0}
+POST_DPO_BATCH = 8
+# DPO's step size: a tenth of the SFT document's (at 1e-3 the full-width
+# margin changes sign from step to step), no weight decay, as dpo.yaml
+POST_DPO_OPT = ["optimizer.config.lr=0.0001",
+                "optimizer.config.weight_decay=0.0"]
+POST_ONPOLICY = {"n_prompts": 8, "prompt_len": 64, "gen_tokens": 64,
+                 "temperature": 0.9, "n_slots": 8, "seed": 0}
+
+
+def _lora_forward_checks(cfg, data_dir: str, counters) -> tuple:
+    """(a) of the posttrain phase: the LoRA algebra at full width on one
+    1024-token prompt, each forward through ``flash_fwd`` in every layer.
+    Returns (ok, the params with their ``b`` factors perturbed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.ckpt.format import flatten_with_paths
+    from repro_torch.models import build_model
+    from repro_torch.posttrain import lora as LO
+    from repro_torch.tree import tree_map
+
+    lm = LO.LoRAModel(build_model(cfg), LO.LoRAConfig(**POST_LORA))
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    base_params = {k: v for k, v in params.items() if k != LO.ADAPTER_KEY}
+    tok = torch.as_tensor(np.random.default_rng(2).integers(
+        3, cfg.vocab, size=(1, SLICE_PROMPT)), device="cuda")
+    n_layers = cfg.n_layers
+    checks = []
+
+    def forward(model, p):
+        with torch.no_grad():
+            return model.apply(p, {"tokens": tok})[0]
+
+    def check(name, fn, want_launches):
+        torch.cuda.synchronize()
+        before = counters["flash_fwd"].launches
+        good = fn()
+        torch.cuda.synchronize()
+        n = counters["flash_fwd"].launches - before
+        good = bool(good) and n == want_launches
+        checks.append(good)
+        print(f"posttrain qwen: (a) {name}: flash_fwd launches {n} (want "
+              f"{want_launches}): {'ok' if good else 'FAILED'}", flush=True)
+
+    check("injected forward == base forward (b = 0)",
+          lambda: torch.equal(forward(lm, params),
+                              forward(lm.base, base_params)), 2 * n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params[LO.ADAPTER_KEY] = tree_map(
+        lambda b: b + 0.02 * torch.randn(b.shape, generator=gen,
+                                         device="cuda"),
+        params[LO.ADAPTER_KEY])
+    with torch.no_grad():
+        merged = lm.merge(params)
+    on_the_fly = forward(lm, params)
+    check("apply(merge(p)) == lm.apply(p), b perturbed",
+          lambda: torch.equal(forward(lm.base, merged), on_the_fly)
+          and not torch.equal(on_the_fly, forward(lm.base, base_params)),
+          2 * n_layers)
+    adir = os.path.join(data_dir, "post_adapter")
+    LO.save_adapter(adir, 0, params, extra={"rank": POST_LORA["rank"]})
+    fresh = LO.load_adapter(
+        lm.init(torch.Generator(device="cuda").manual_seed(0)), adir)
+    check("save_adapter -> load_adapter into a fresh init: forward ==",
+          lambda: torch.equal(forward(lm, fresh), on_the_fly), n_layers)
+    del fresh
+    out = LO.export_merged(lm, params, os.path.join(data_dir, "post_merged"))
+    flat = np.load(out)
+    want = params_to_numpy(merged)
+
+    def restacked():
+        for path, leaf in flatten_with_paths(want):
+            parts = path.split("/")
+            if parts[0] == "blocks":
+                got = np.stack([flat[f"model.blocks.{i}.{'.'.join(parts[1:])}"]
+                                for i in range(leaf.shape[0])])
+            else:
+                got = flat[f"model.{'.'.join(parts)}"]
+            if not np.array_equal(got, leaf):
+                return False
+        return True
+
+    check(f"export_merged's export.npz ({os.path.getsize(out) / 1e9:.3f} "
+          f"GB), read back and restacked, == merge(p)", restacked, 0)
+    del merged, want, flat, on_the_fly
+    return all(checks), params
+
+
+def phase_posttrain_qwen(data_dir: str, results: dict, card: str) -> bool:
+    """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
+    document and sets, batch 8 x 1024, ``remat: full``) with LoRA rank 8,
+    alpha 16 and the default targets, through the run API on the card:
+    (a) the LoRA algebra on one 1024-token prompt; (b) ``sft`` warmstarted
+    strictly from ``ckpt qwen``'s step-3 checkpoint (fresh optimizer, the
+    adapter exemption), straight for 6 steps and interrupted at 3 then
+    resumed, with one step's adapter gradients through the kernel against
+    the plain path; (c) ``dpo`` on static pairs of 1024-token rows; (d)
+    ``dpo`` on pairs sampled through the paged engine; (e) ``sft.yaml`` and
+    ``dpo.yaml``."""
+    import gc
+    import math
+    import re
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt.format import (latest_checkpoint, read_leaf,
+                                         read_manifest)
+    from repro_torch.data.prefetch import place_batch
+    from repro_torch.posttrain import lora as LO
+    from repro_torch.posttrain.dpo import sample_onpolicy_pairs
+    from repro_torch.run import api
+    from repro_torch.tree import tree_map
+
+    spec = TRAIN_SLICES["qwen"]
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    counters = _counters()
+    flash = counters["flash_fwd"]
+    donor = os.path.join(data_dir, "ckpt_qwen_run", "ckpt",
+                         f"step_{CKPT_AT:08d}")
+    base_sets = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
+                 f"loader.config.global_batch={TRAIN_BATCH}", *spec["sets"],
+                 "gym.config.log_every=1"]
+    layers = 24
+    flops = 6.0 * POST_TRAINABLE[1] * TRAIN_BATCH * TRAIN_SEQ
+
+    def doc_for(kind, name, settings, dataset, *sets):
+        doc = train_doc(data_dir, "post_qwen", *base_sets, *sets)
+        doc["dataset"] = {"component_key": "dataset", "variant_key": dataset[0],
+                          "config": {"seq_len": "${seq_len}",
+                                     "vocab": "${vocab}", **dataset[1]}}
+        doc["run"] = {"kind": kind, "name": name,
+                      "output_dir": os.path.join(data_dir, name),
+                      kind: {"lora": dict(POST_LORA), **settings}}
+        return doc
+
+    def drive(doc):
+        logs = []
+        gc.collect()        # each run's peak memory is its own
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.launches = 0
+        t0 = time.perf_counter()
+        with _RunCapture() as cap:
+            res = api.execute_doc(doc, device="cuda", write_result=True,
+                                  log=logs.append)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        return dict(res=res, state=cap.out["state"], counts=counts, logs=logs,
+                    wall=time.perf_counter() - t0,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    losses=[h["loss"] for h in res["history"]])
+
+    def summary(name, r, per_step, want_steps):
+        res = r["res"]
+        steps = res["steps_this_run"]
+        ms = _step_ms(res["history"])
+        med = statistics.median(ms) if ms else float("nan")
+        good = (r["counts"]["flash_fwd"] == per_step * steps
+                and steps == want_steps and len(r["losses"]) == steps
+                and all(math.isfinite(x) for x in r["losses"]))
+        print(f"posttrain qwen: {name}: {steps} steps in {r['wall']:.2f}s, "
+              f"losses {json.dumps([round(x, 5) for x in r['losses']])}, "
+              f"flash_fwd launches {r['counts']['flash_fwd']} (want "
+              f"{per_step} a step x {steps}), ms/step "
+              f"{json.dumps([round(x, 3) for x in ms])} (median "
+              f"{med:.3f}), max_memory_allocated {r['peak_gib']:.3f} GiB "
+              f"{tag}: {'ok' if good else 'FAILED'}", flush=True)
+        return good, med
+
+    ok = True
+    # (a) the LoRA algebra
+    graph = _train_graph(train_doc(data_dir, "post_qwen", *base_sets))
+    cfg = graph["arch"]
+    flash.launches = 0
+    a_ok, p_a = _lora_forward_checks(cfg, data_dir, counters)
+    add_launches(results, {"flash_fwd": flash.launches})
+    ok &= a_ok
+    torch.cuda.empty_cache()
+
+    # (b) sft: straight, interrupted at 3, resumed to 6
+    sft_data = ("sft_synthetic", POST_SFT_DATA)
+    ws = {"source": donor, "optimizer": "fresh", "strict": True}
+    straight = drive(doc_for("sft", "post_sft_straight",
+                             {"steps": POST_STEPS, "warmstart": ws,
+                              "export_merged": True}, sft_data))
+    good, med = summary("(b) sft straight", straight, 2 * layers, POST_STEPS)
+    ok &= good
+    # the final params wait on the host for the resumed run: each run's
+    # peak memory is its own
+    p_s = tree_map(lambda t: t.cpu(), straight.pop("state")["params"])
+    line = next((m for m in straight["logs"] if m.startswith("lora: ")), "")
+    counted = tuple(int(x.replace(",", "")) for x in re.findall(
+        r"([\d,]+) (?:trainable|params)", line))
+    exempt = any("donor has no adapters" in m for m in straight["logs"])
+    res_s = straight["res"]
+    art_ok = (counted == POST_TRAINABLE and exempt
+              and os.path.isdir(res_s.get("adapter_ckpt", ""))
+              and os.path.isfile(res_s.get("merged_export", "")))
+    print(f"posttrain qwen: (b) log line {line!r}: (trainable, total) "
+          f"{counted} (want {POST_TRAINABLE}); adapter exemption logged "
+          f"{exempt}; adapter checkpoint {res_s.get('adapter_ckpt')} "
+          f"({len(read_manifest(res_s['adapter_ckpt'])['leaves']) if res_s.get('adapter_ckpt') else 0} "
+          f"leaves), merged export {res_s.get('merged_export')}: "
+          f"{'ok' if art_ok else 'FAILED'}", flush=True)
+    ok &= art_ok
+    ok &= mfu_line("posttrain qwen: (b) sft", res_s, med, flops, card)
+    part = drive(doc_for("sft", "post_sft_run",
+                         {"steps": POST_AT, "warmstart": ws}, sft_data,
+                         f"gym.config.ckpt_every={POST_AT}"))
+    ok &= summary("(b) sft interrupted", part, 2 * layers, POST_AT)[0]
+    del part["state"]
+    resumed = drive(doc_for("sft", "post_sft_run",
+                            {"steps": POST_STEPS, "resume": "auto"},
+                            sft_data, f"gym.config.ckpt_every={POST_AT}"))
+    ok &= summary("(b) sft resumed", resumed, 2 * layers,
+                  POST_STEPS - POST_AT)[0]
+    want_l, got_l = straight["losses"][POST_AT:], resumed["losses"]
+    loss_diff = max(abs(a - b) for a, b in zip(got_l, want_l)) \
+        if len(got_l) == len(want_l) else math.inf
+    p_r = tree_map(lambda t: t.cpu(), resumed.pop("state")["params"])
+    param_diff = _max_diff(p_r, p_s)
+    bit = got_l == want_l and _trees_equal(p_r, p_s)
+    res_ok = (resumed["res"].get("resumed_from") == POST_AT
+              and loss_diff <= RESUME_TOL and param_diff <= RESUME_TOL)
+    print(f"posttrain qwen: (b) resumed from "
+          f"{resumed['res'].get('resumed_from')} vs straight: losses max abs "
+          f"diff {loss_diff:.3g}, final params {param_diff:.3g} (tol "
+          f"{RESUME_TOL}); bit-equal {bit}: {'ok' if res_ok else 'FAILED'}",
+          flush=True)
+    ok &= res_ok
+    del p_s, p_r
+    # the frozen base of the sft checkpoint is the donor's, leaf for leaf
+    sft_ckpt = latest_checkpoint(os.path.join(data_dir, "post_sft_run",
+                                              "ckpt"))
+    sft_entries = read_manifest(sft_ckpt[1])["leaves"] if sft_ckpt else {}
+    donor_entries = read_manifest(donor)["leaves"]
+    base_keys = [k for k in sft_entries if k.startswith("params/")
+                 and not LO.is_adapter_path(k.split("/", 1)[1])]
+    same = [torch.equal(read_leaf(sft_ckpt[1], sft_entries[k]),
+                        read_leaf(donor, donor_entries[k])) for k in base_keys]
+    base_ok = (sft_ckpt is not None and all(same) and len(base_keys) == sum(
+        k.startswith("params/") for k in donor_entries))
+    print(f"posttrain qwen: (b) sft checkpoint {sft_ckpt and sft_ckpt[1]}: "
+          f"{sum(same)} of {len(base_keys)} base leaves == the donor's "
+          f"(weight decay 0.1 on, FrozenBaseOptimizer never writes them), "
+          f"{len(sft_entries)} leaves in all: "
+          f"{'ok' if base_ok else 'FAILED'}", flush=True)
+    ok &= base_ok
+    # one step's adapter gradients through the kernel vs the plain path
+    batch = place_batch(next(iter(_train_graph(doc_for(
+        "sft", "post_sft_cmp", {}, sft_data))["loader"].batches(1))),
+        torch.device("cuda"))
+    ok &= compare_train_step("qwen", cfg, p_a, batch,
+                             lora=LO.LoRAConfig(**POST_LORA),
+                             label="posttrain qwen: (b) sft")
+    del batch
+    torch.cuda.empty_cache()
+
+    # (c) dpo on static pairs of 1024-token rows, from the donor's base
+    # with fresh adapters (b = 0: the policy is the reference at step 1)
+    dpo = drive(doc_for("dpo", "post_dpo",
+                        {"steps": DPO_STEPS, "beta": 0.1, "warmstart": ws},
+                        ("preference_synthetic", POST_DPO_DATA),
+                        f"loader.config.global_batch={POST_DPO_BATCH}",
+                        *POST_DPO_OPT))
+    per_dpo = 2 * layers * 2 + 2 * layers   # policy (remat) + reference
+    good, med = summary("(c) dpo static", dpo, per_dpo, DPO_STEPS)
+    res_d = dpo["res"]
+    hist = res_d["history"]
+    first = hist[0]["loss"] if hist else math.nan
+    margins = [round(h["margin"], 5) for h in hist]
+    dpo_ok = (good and abs(first - math.log(2)) <= 1e-6
+              and res_d.get("first_margin") == 0.0
+              and res_d.get("final_margin", 0.0) > 0)
+    print(f"posttrain qwen: (c) batch {POST_DPO_BATCH} pairs of "
+          f"{TRAIN_SEQ} tokens, first loss {first!r} (log 2 = "
+          f"{math.log(2)!r}, |diff| {abs(first - math.log(2)):.3g}, tol "
+          f"1e-6), margins {json.dumps(margins)}, reward accuracy "
+          f"{res_d.get('final_reward_accuracy')} {tag}: "
+          f"{'ok' if dpo_ok else 'FAILED'}", flush=True)
+    ok &= dpo_ok
+    ok &= mfu_line("posttrain qwen: (c) dpo (JAX's 6*N*D: one forward and "
+                   "backward a token)", res_d, med,
+                   6.0 * POST_TRAINABLE[1] * POST_DPO_BATCH * TRAIN_SEQ, card)
+    del dpo["state"]
+    torch.cuda.empty_cache()
+
+    # (d) dpo on pairs sampled through the paged engine
+    from repro_torch.models import build_model
+
+    with torch.no_grad():
+        merged = LO.LoRAModel(build_model(cfg), LO.LoRAConfig(
+            **POST_LORA)).merge(p_a)
+    del p_a
+    kw = dict(POST_ONPOLICY, vocab=cfg.vocab)
+    flash.launches = 0
+    t0 = time.perf_counter()
+    pairs = [sample_onpolicy_pairs(build_model(cfg), merged, **kw)
+             for _ in range(2)]
+    t_sample = (time.perf_counter() - t0) / 2
+    same_pairs = all(np.array_equal(x, y) for p, q in zip(*pairs)
+                     for x, y in zip(p, q))
+    lens = sorted({len(c) for _, c, _ in pairs[0]})
+    sample_ok = same_pairs and flash.launches == 0 and len(pairs[0]) == 8 \
+        and lens == [POST_ONPOLICY["gen_tokens"]]
+    print(f"posttrain qwen: (d) {len(pairs[0])} prompts x 2 samples of "
+          f"{POST_ONPOLICY['prompt_len']} + {POST_ONPOLICY['gen_tokens']} "
+          f"tokens through the paged engine at temperature "
+          f"{POST_ONPOLICY['temperature']}: {t_sample:.2f}s a call, twice "
+          f"with one seed: pairs == {same_pairs}, flash_fwd launches "
+          f"{flash.launches} (the paged path has no flash kernel, as in "
+          f"JAX) {tag}: {'ok' if sample_ok else 'FAILED'}", flush=True)
+    ok &= sample_ok
+    del merged, pairs
+    onp = drive(doc_for("dpo", "post_dpo_onpolicy",
+                        {"steps": ONPOLICY_STEPS, "beta": 0.1,
+                         "warmstart": dict(ws, source=sft_ckpt[1]),
+                         "onpolicy": dict(POST_ONPOLICY)},
+                        ("preference_synthetic", POST_DPO_DATA),
+                        *POST_DPO_OPT))
+    good, _ = summary("(d) dpo on-policy", onp, per_dpo, ONPOLICY_STEPS)
+    onp_ok = good and any("on-policy pairs sampled" in m
+                          for m in onp["logs"])
+    print(f"posttrain qwen: (d) margins "
+          f"{json.dumps([round(h['margin'], 5) for h in onp['res']['history']])}"
+          f": {'ok' if onp_ok else 'FAILED'}", flush=True)
+    ok &= onp_ok
+    del onp["state"]
+    torch.cuda.empty_cache()
+
+    ok &= _posttrain_documents(data_dir)
+    print(f"posttrain qwen: phase wall {time.perf_counter() - t_phase:.1f}s "
+          f"{tag}", flush=True)
+    return bool(ok)
+
+
+def _posttrain_documents(data_dir: str) -> bool:
+    """(e) ``sft.yaml`` unchanged but for its output directory and its
+    donor (the quickstart checkpoint ``ckpt quickstart`` wrote with the
+    command in ``sft.yaml``'s header), and ``dpo.yaml`` unchanged but for
+    its output directory: reduced Qwen, no kernel."""
+    import math
+
+    from repro_torch.run import api
+
+    cfgs = os.path.join(ROOT, "examples", "configs")
+    t0 = time.perf_counter()
+    sft = api.execute_file(
+        os.path.join(cfgs, "sft.yaml"), device="cuda", write_result=True,
+        log=_quiet, overrides=[
+            f"run.sft.warmstart.source="
+            f"{os.path.join(data_dir, 'qs_donor', 'ckpt')}",
+            f"run.output_dir={os.path.join(data_dir, 'sft_demo')}"])
+    t1 = time.perf_counter()
+    dpo = api.execute_file(
+        os.path.join(cfgs, "dpo.yaml"), device="cuda", write_result=True,
+        log=_quiet,
+        overrides=[f"run.output_dir={os.path.join(data_dir, 'dpo_demo')}"])
+    t2 = time.perf_counter()
+    ok = (sft["kind"] == "sft" and sft["logged_points"] == 40
+          and math.isfinite(sft["final_loss"])
+          and sft["final_loss"] < sft["first_loss"]
+          and os.path.isdir(sft.get("adapter_ckpt", ""))
+          and dpo["kind"] == "dpo" and dpo["logged_points"] == 30
+          and abs(dpo["first_loss"] - math.log(2)) <= 1e-6
+          and dpo["final_margin"] > 0)
+    print(f"posttrain qwen: (e) sft.yaml {sft['logged_points']} steps in "
+          f"{t1 - t0:.2f}s, loss {sft['first_loss']:.5f} -> "
+          f"{sft['final_loss']:.5f}, adapter {sft.get('adapter_ckpt')}; "
+          f"dpo.yaml {dpo['logged_points']} steps in {t2 - t1:.2f}s, loss "
+          f"{dpo['first_loss']:.6f} -> {dpo['final_loss']:.5f}, margin "
+          f"{dpo['first_margin']:.4f} -> {dpo['final_margin']:.4f}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # the continuous-batching engine
 # ---------------------------------------------------------------------------
 # full-width Qwen on the paged engine: a prefix-heavy trace of sampled
@@ -2187,6 +2616,10 @@ def main() -> int:
         print(f"phase resil qwen: {'ok' if resil_ok else 'FAILED'}",
               flush=True)
         ok &= resil_ok
+        post_ok = phase_posttrain_qwen(data_dir, results, card)
+        print(f"phase posttrain qwen: {'ok' if post_ok else 'FAILED'}",
+              flush=True)
+        ok &= post_ok
         engine_ok = phase_engine_quickstart(data_dir)
         print(f"phase engine quickstart: {'ok' if engine_ok else 'FAILED'}",
               flush=True)

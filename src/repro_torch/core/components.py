@@ -5,13 +5,16 @@ Registered: ``arch_config/<arch>`` for every arch of the table (with the
 ``reduced`` flag and field overrides), ``arch_config/custom``,
 ``model/auto``, and the training graph: ``optimizer/adamw``,
 ``lr_schedule/*``, ``dataset/synthetic`` and ``dataset/packed_chunked``,
+the post-training datasets ``dataset/sft_synthetic`` and
+``dataset/preference_synthetic``,
 ``loader/sharded`` and ``loader/prefetch``, ``remat_policy/*``,
 ``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
 ``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``,
 ``fault_injector/schedule`` and ``gym/standard``.  The names and settings
 match ``repro.core.components``, so a run YAML of the JAX package
-resolves here unchanged; settings of later slices (mesh and sharding plan)
-raise ``NotImplementedError`` naming the slice.
+resolves here unchanged; settings of later slices (mesh and sharding plan,
+``dataset/sft_jsonl`` and the tokenizers) raise ``NotImplementedError``
+naming the slice.
 """
 from __future__ import annotations
 
@@ -71,6 +74,20 @@ def _register_training() -> None:
                  ChunkedLMDataset(PackedDataset(prefix), seq_len, seed,
                                   shuffle))
     REG.register("dataset", "synthetic", _synthetic_chunked)
+    # post-training datasets (loss-masked SFT rows, DPO preference pairs)
+    from ..posttrain.dpo import preference_synthetic_dataset
+    from ..posttrain.sft import sft_synthetic_dataset
+
+    REG.register("dataset", "sft_synthetic", sft_synthetic_dataset)
+    REG.register("dataset", "preference_synthetic",
+                 preference_synthetic_dataset)
+    # a JSONL of text pairs needs a tokenizer component: both come with the
+    # data pipeline
+    a11 = "the data pipeline's tokenizers (ROADMAP A11)"
+    REG.register("dataset", "sft_jsonl", _refusal("dataset/sft_jsonl", a11))
+    for variant in ("byte", "bpe"):
+        REG.register("tokenizer", variant,
+                     _refusal(f"tokenizer/{variant}", a11))
     REG.register("loader", "sharded",
                  lambda dataset, global_batch, dp_rank=0, dp_size=1:
                  ShardedLoader(dataset, global_batch, dp_rank, dp_size))

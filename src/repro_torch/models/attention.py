@@ -43,6 +43,20 @@ def init_gqa(cfg: B.ArchConfig, gen: torch.Generator, lead=()) -> Dict[str, Any]
     return p
 
 
+def gqa_axes(cfg: B.ArchConfig) -> Dict[str, Any]:
+    p = {
+        "wq": (B.D_MODEL, B.HEADS, B.HEAD_DIM),
+        "wk": (B.D_MODEL, B.KV_HEADS, B.HEAD_DIM),
+        "wv": (B.D_MODEL, B.KV_HEADS, B.HEAD_DIM),
+        "wo": (B.HEADS, B.HEAD_DIM, B.D_MODEL),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = (B.HEADS, B.HEAD_DIM)
+        p["bk"] = (B.KV_HEADS, B.HEAD_DIM)
+        p["bv"] = (B.KV_HEADS, B.HEAD_DIM)
+    return p
+
+
 def _project_qkv(p, x, cfg):
     """Weights cast to the activation dtype; bias added in that dtype."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))

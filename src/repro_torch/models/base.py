@@ -14,6 +14,26 @@ from typing import Any, Dict, Optional
 
 import torch
 
+# ---------------------------------------------------------------------------
+# Logical axis names of param leaves (``Model.param_axes``).  The port trains
+# on one device, so no plan maps them onto a mesh yet (ROADMAP A8); LoRA reads
+# the ``LAYER`` axis to tell stacked leaves from unstacked ones.
+# ---------------------------------------------------------------------------
+LAYER = "layer"          # stacked-layer dim (never sharded; scan dim)
+VOCAB = "vocab"
+D_MODEL = "d_model"      # residual stream
+HEADS = "heads"
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+D_FF = "d_ff"            # MLP hidden
+EXPERTS = "experts"      # MoE expert dim
+D_EXPERT = "d_expert"    # MoE expert hidden
+D_INNER = "d_inner"      # SSM inner dim
+D_STATE = "d_state"      # SSM state dim
+CONV_DIM = "conv_dim"
+LORA = "lora"            # MLA latent dims and LoRA ranks
+NONE = None              # unsharded (biases, norms, scalars)
+
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -110,6 +130,11 @@ class Model(abc.ABC):
     @abc.abstractmethod
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random params, made on ``gen.device`` from ``gen``."""
+
+    @abc.abstractmethod
+    def param_axes(self) -> Dict[str, Any]:
+        """A tree like ``init``'s with a tuple of logical axis names per
+        leaf."""
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None) -> Any:

@@ -60,6 +60,14 @@ def norm_params(cfg, device=None):
     return p
 
 
+def norm_axes(cfg):
+    from . import base as B
+
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": (B.D_MODEL,)}
+    return {"scale": (B.D_MODEL,), "bias": (B.D_MODEL,)}
+
+
 def apply_norm(cfg, p, x):
     if cfg.norm_type == "rmsnorm":
         return rmsnorm(x, p["scale"], cfg.norm_eps)

@@ -25,6 +25,13 @@ def init_mlp(cfg: B.ArchConfig, gen: torch.Generator, d_ff: int = 0,
     return p
 
 
+def mlp_axes(cfg: B.ArchConfig) -> Dict[str, Any]:
+    p = {"w_up": (B.D_MODEL, B.D_FF), "w_down": (B.D_FF, B.D_MODEL)}
+    if cfg.act == "silu":
+        p["w_gate"] = (B.D_MODEL, B.D_FF)
+    return p
+
+
 def mlp_forward(cfg: B.ArchConfig, p, x):
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
     if cfg.act == "silu":

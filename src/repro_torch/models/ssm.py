@@ -58,6 +58,19 @@ def init_ssm(cfg: B.ArchConfig, gen: torch.Generator, lead=()) -> Dict[str, Any]
     }
 
 
+def ssm_axes(cfg: B.ArchConfig) -> Dict[str, Any]:
+    return {
+        "in_proj": (B.D_MODEL, B.D_INNER),
+        "conv_w": (None, B.CONV_DIM),
+        "conv_b": (B.CONV_DIM,),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": (B.D_INNER,),
+        "out_proj": (B.D_INNER, B.D_MODEL),
+    }
+
+
 def _split_proj(cfg, zxbcdt):
     """z, x, B, C, dt (views); ``torch.split`` takes sizes where
     ``jnp.split`` takes cut points."""

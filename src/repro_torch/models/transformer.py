@@ -25,7 +25,7 @@ from . import base as B
 from . import mlp as M
 from . import ssm as S
 from . import stacked as ST
-from .common import apply_norm, embed_init, norm_params
+from .common import apply_norm, embed_init, norm_axes, norm_params
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +62,29 @@ def init_ssm_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
 
 
 _INIT_BY_KIND = {"dense_block": init_dense_block, "ssm": init_ssm_block}
+
+
+def dense_block_axes(cfg: B.ArchConfig):
+    return {
+        "attn_norm": norm_axes(cfg),
+        "attn": A.gqa_axes(cfg),
+        "mlp_norm": norm_axes(cfg),
+        "mlp": M.mlp_axes(cfg),
+    }
+
+
+def ssm_block_axes(cfg: B.ArchConfig):
+    return {"norm": norm_axes(cfg), "ssm": S.ssm_axes(cfg)}
+
+
+def _with_layer_axis(axes_tree):
+    """Prepend the stacked-layer axis to every leaf's axis tuple."""
+    if isinstance(axes_tree, dict):
+        return {k: _with_layer_axis(v) for k, v in axes_tree.items()}
+    return (B.LAYER,) + tuple(axes_tree)
+
+
+_AXES_BY_KIND = {"dense_block": dense_block_axes, "ssm": ssm_block_axes}
 
 
 def apply_block(cfg, kind, p, x, positions):
@@ -209,6 +232,23 @@ class DecoderLM(B.Model):
                                     gen, len(idxs))
         if cfg.arch_type == "hybrid":
             p["shared_attn"] = init_dense_block(cfg, gen)
+        return p
+
+    def param_axes(self) -> Dict[str, Any]:
+        """Logical axis names of every leaf (JAX's ``param_axes``): stacked
+        leaves lead with :data:`~repro_torch.models.base.LAYER`, the
+        hybrid's ``shared_attn`` block does not."""
+        cfg = self.cfg
+        p: Dict[str, Any] = {
+            "embed": (B.VOCAB, B.D_MODEL),
+            "final_norm": norm_axes(cfg),
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = (B.D_MODEL, B.VOCAB)
+        for name, kind, _ in self._stacks():
+            p[name] = _with_layer_axis(_AXES_BY_KIND[kind](cfg))
+        if cfg.arch_type == "hybrid":
+            p["shared_attn"] = dense_block_axes(cfg)
         return p
 
     def _hybrid_groups(self):

@@ -1,6 +1,6 @@
 """Run API of the port: run document -> materialize -> fingerprint ->
-resolved graph -> result (JAX's ``repro.run.api`` and the train-shaped
-parts of ``repro.run.kinds``).
+resolved graph -> result (JAX's ``repro.run.api`` and the train, warmstart,
+serve, sft and dpo kinds of ``repro.run.kinds``).
 
     from repro_torch.run import api
     result = api.execute_doc(doc, device="cpu")
@@ -163,11 +163,58 @@ def execute_serve(cfg, *, device, write_files: bool, log,
 # ---------------------------------------------------------------------------
 # train-shaped kinds: checkpoint dir, resume, warmstart, the total budget
 # ---------------------------------------------------------------------------
+def _strip_new_adapters(tree, donor_keys, prefix=""):
+    """Drop LoRA adapter subtrees the donor checkpoint does not carry.
+
+    A LoRA-wrapped gym has ``lora`` subtrees in its params (and mirrored
+    through AdamW's m/v/master) that a *base* pretraining checkpoint
+    cannot know about.  Like the derivable ``opt.master`` leaves, these
+    are exempted from warmstart strictness rather than forcing
+    ``strict: false`` everywhere: they keep their fresh init (factors from
+    ``LoRAModel.init``, zeroed optimizer moments).  Returns the stripped
+    tree plus ``{path: subtree}`` for :func:`_reattach`; a donor that DOES
+    carry the adapters (warmstarting from a previous SFT run) strips
+    nothing and restores them strictly."""
+    from ..posttrain.lora import ADAPTER_KEY
+
+    removed = {}
+
+    def walk(node, pfx):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            p = f"{pfx}/{k}" if pfx else k
+            if k == ADAPTER_KEY and isinstance(v, dict) and not any(
+                    dk == p or dk.startswith(p + "/") for dk in donor_keys):
+                removed[p] = v
+                continue
+            out[k] = walk(v, p)
+        return out
+
+    return walk(tree, prefix), removed
+
+
+def _reattach(tree, removed, prefix=""):
+    """Put stripped subtrees back into a freshly-restored tree."""
+    for path, sub in removed.items():
+        rel = path[len(prefix) + 1:] if prefix else path
+        parts = rel.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node[part]
+        node[parts[-1]] = sub
+    return tree
+
+
 def _apply_warmstart(state, ws: WarmstartSettings, cfg, log) -> Any:
     """Init params (and with ``carry`` the optimizer state) from another
     run's checkpoint.  The step counter stays 0: a warmstart is a new run,
     not a resume.  A relative ``source`` that does not exist from the
-    working directory is read relative to the run document."""
+    working directory is read relative to the run document.  Adapter
+    subtrees the donor does not carry keep their fresh init
+    (:func:`_strip_new_adapters`); a donor with adapters restores them
+    strictly."""
     from ..ckpt import elastic as EL
 
     source = ws.source
@@ -176,10 +223,6 @@ def _apply_warmstart(state, ws: WarmstartSettings, cfg, log) -> Any:
         if os.path.exists(cand):
             source = cand
     donor_keys = EL.manifest_keys(source)
-    if any("lora" in k.split("/") for k in donor_keys):
-        raise NotImplementedError(
-            f"warmstart from {source}: the checkpoint holds LoRA adapters; "
-            f"adapter checkpoints come with post-training (ROADMAP A6)")
     if ws.optimizer == "carry":
         # params + optimizer state restore in ONE call, so f32 master
         # copies correctly suppress the compute params' lossy-cast warning
@@ -190,17 +233,24 @@ def _apply_warmstart(state, ws: WarmstartSettings, cfg, log) -> Any:
             # masters are derivable from the restored params — exempt them
             # from strictness instead of forcing strict: false everywhere
             opt_like = {k: v for k, v in opt_like.items() if k != "master"}
-        sub = EL.restore({"params": state["params"], "opt": opt_like},
-                         source, strict=ws.strict)
+        like, removed = _strip_new_adapters(
+            {"params": state["params"], "opt": opt_like}, donor_keys)
+        sub = _reattach(EL.restore(like, source, strict=ws.strict), removed)
         state = dict(state, params=sub["params"],
                      opt=dict(state["opt"], **sub["opt"]))
         if not donor_has_masters:
             # the target's masters kept their random init: rebase them
             state = _rebase_master(state)
     else:
-        params = EL.restore(state["params"], source, prefix="params",
-                            strict=ws.strict)
+        like, removed = _strip_new_adapters(state["params"], donor_keys,
+                                            prefix="params")
+        params = _reattach(EL.restore(like, source, prefix="params",
+                                      strict=ws.strict),
+                           removed, prefix="params")
         state = _rebase_master(dict(state, params=params))
+    if removed:
+        log(f"warmstart: donor has no adapters — keeping fresh init "
+            f"for {sorted(removed)}")
     log(f"warmstart: params from {source} "
         f"(optimizer={ws.optimizer}, strict={ws.strict})")
     return state
@@ -287,9 +337,13 @@ def _build_profiler(cfg, s, rec, *, device, write_files: bool, log):
 
 
 def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
-               resolved: Dict[str, Any]) -> Dict[str, Any]:
+               resolved: Dict[str, Any], before_run=None) -> Dict[str, Any]:
     """Setup -> warmstart/resume -> run -> result dict (JAX's
-    ``_drive_gym``): the resilience record (``rollback_count``,
+    ``_drive_gym``), shared by train/warmstart/sft/dpo.  ``before_run(state,
+    resumed_from) -> state`` hooks in after restore but before training
+    (the DPO reference, on-policy pairs); the final train state is the
+    result's ``_state``, which each executor pops.  The result carries
+    the resilience record (``rollback_count``,
     ``retry_count``, ``graceful_exit``, ``events`` and ``events.jsonl``,
     ``status: preempted`` with ``completed_steps``), ``goodput``,
     ``model_flops_per_step`` and ``mfu`` against the card's peak
@@ -309,6 +363,8 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
             log(f"resume: continuing from committed step {resumed_from}")
         else:
             log("resume: no committed checkpoint found, starting from step 0")
+    if before_run is not None:
+        state = before_run(state, resumed_from)
     # `steps` is the TOTAL budget: a resumed run trains only the remainder,
     # so interrupted + resumed reproduces the uninterrupted loss curve
     steps = max(0, s.steps - (resumed_from or 0))
@@ -351,6 +407,7 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
         "rollback_count": int(out["rollbacks"]),
         "retry_count": int(getattr(gym.checkpointer, "retry_count", 0) or 0),
         "graceful_exit": bool(out["preempted"]),
+        "_state": out["state"],
     }
     if steps > 0 and wall > 0:
         flops = ACC.flops_per_train_step(gym.model, gym.loader,
@@ -419,6 +476,16 @@ def _drive_gym(cfg, s, gym, *, device, write_files: bool, log, fp: str,
     return result
 
 
+def _wire_evaluator(graph, gym, log) -> None:
+    """A top-level ``evaluator`` component becomes the gym's eval hook (an
+    ``eval_fn`` set programmatically wins)."""
+    ev = graph.get("evaluator")
+    if ev is not None and gym.eval_fn is None:
+        gym.eval_fn = ev
+        if not gym.eval_every:
+            log("evaluator wired but gym.eval_every is 0 — it will never fire")
+
+
 def execute_train(cfg, *, device, write_files: bool, log, fp: str,
                   resolved: Dict[str, Any]) -> Dict[str, Any]:
     """Resolve the graph and drive its gym (see :func:`_drive_gym`).  The
@@ -431,13 +498,11 @@ def execute_train(cfg, *, device, write_files: bool, log, fp: str,
         raise RunError(f"resolved config has no {s.gym_key!r} entry; "
                        f"top-level entries: {sorted(graph)}")
     gym = graph[s.gym_key]
-    ev = graph.get("evaluator")
-    if ev is not None and gym.eval_fn is None:
-        gym.eval_fn = ev
-        if not gym.eval_every:
-            log("evaluator wired but gym.eval_every is 0 — it will never fire")
-    return _drive_gym(cfg, s, gym, device=device, write_files=write_files,
-                      log=log, fp=fp, resolved=resolved)
+    _wire_evaluator(graph, gym, log)
+    result = _drive_gym(cfg, s, gym, device=device, write_files=write_files,
+                        log=log, fp=fp, resolved=resolved)
+    result.pop("_state")
+    return result
 
 
 def execute_warmstart(cfg, **kw) -> Dict[str, Any]:
@@ -453,8 +518,174 @@ def execute_warmstart(cfg, **kw) -> Dict[str, Any]:
     return result
 
 
+# ---------------------------------------------------------------------------
+# sft / dpo — post-training through the same gym loop
+# ---------------------------------------------------------------------------
+def _post_gym(graph, s, what: str):
+    if s.gym_key not in graph:
+        raise RunError(f"{what} run needs a top-level {s.gym_key!r} entry in "
+                       f"its component graph; available: {sorted(graph)}")
+    return graph[s.gym_key]
+
+
+def _inject_lora(gym, lora_settings, log):
+    """Wrap the resolved gym's model/optimizer for adapter-only training;
+    returns the LoRAModel (or None for full fine-tuning)."""
+    if lora_settings is None:
+        return None
+    from ..device import MetaGenerator
+    from ..posttrain import lora as LO
+
+    cfg = LO.LoRAConfig(rank=lora_settings.rank, alpha=lora_settings.alpha,
+                        targets=tuple(lora_settings.targets))
+    gym.model = LO.LoRAModel(gym.model, cfg)
+    gym.optimizer = LO.FrozenBaseOptimizer(gym.optimizer)
+    tr, total = LO.n_trainable(gym.model.init(MetaGenerator()))
+    log(f"lora: rank {cfg.rank} alpha {cfg.alpha} targets "
+        f"{list(cfg.targets)} — {tr:,} trainable / {total:,} params "
+        f"({100.0 * tr / total:.2f}%)")
+    return gym.model
+
+
+def _save_adapter_artifacts(cfg, s, gym, lora_model, state, result, *,
+                            write_files: bool, log) -> None:
+    """Adapter-only checkpoint + optional merged export (post-run)."""
+    if lora_model is None:
+        return
+    from ..posttrain import lora as LO
+
+    adapter_dir = s.adapter_dir or (
+        os.path.join(cfg.output_dir, "adapter") if cfg.output_dir else "")
+    if adapter_dir and write_files:
+        path = LO.save_adapter(
+            adapter_dir, int(state["step"]), state["params"],
+            extra={"rank": lora_model.lora.rank,
+                   "alpha": lora_model.lora.alpha,
+                   "targets": list(lora_model.lora.targets),
+                   "fingerprint": gym.run_fingerprint})
+        result["adapter_ckpt"] = path
+        log(f"adapter checkpoint: {path}")
+    if getattr(s, "export_merged", False) and cfg.output_dir and write_files:
+        out = LO.export_merged(lora_model, state["params"],
+                               os.path.join(cfg.output_dir, "merged"))
+        result["merged_export"] = out
+        log(f"merged export: {out}")
+
+
+def execute_sft(cfg, *, device, write_files: bool, log, fp: str,
+                resolved: Dict[str, Any]) -> Dict[str, Any]:
+    """Supervised fine-tuning: the train loop over a loss-masked dataset,
+    optionally with LoRA adapters (frozen base, adapter-only checkpoint,
+    merged deploy export)."""
+    s = cfg.settings
+    graph = _resolve_graph(cfg.graph)
+    gym = _post_gym(graph, s, "sft")
+    lora_model = _inject_lora(gym, s.lora, log)
+    _wire_evaluator(graph, gym, log)
+    result = _drive_gym(cfg, s, gym, device=device, write_files=write_files,
+                        log=log, fp=fp, resolved=resolved)
+    state = result.pop("_state")
+    result["lora"] = (dataclasses.asdict(s.lora)
+                      if s.lora is not None else None)
+    _save_adapter_artifacts(cfg, s, gym, lora_model, state, result,
+                            write_files=write_files, log=log)
+    return result
+
+
+def execute_dpo(cfg, *, device, write_files: bool, log, fp: str,
+                resolved: Dict[str, Any]) -> Dict[str, Any]:
+    """Direct preference optimization: policy vs. frozen reference on
+    chosen/rejected pairs, via :class:`repro_torch.posttrain.dpo.DPOGym`.
+    The result adds ``beta``, ``lora``, ``first_margin``, ``final_margin``
+    and ``final_reward_accuracy``."""
+    import torch
+
+    from ..core.gym import Gym
+    from ..posttrain import lora as LO
+    from ..posttrain.dpo import (DPOGym, PreferencePairDataset,
+                                 sample_onpolicy_pairs)
+    from ..tree import tree_map
+
+    s = cfg.settings
+    graph = _resolve_graph(cfg.graph)
+    base_gym = _post_gym(graph, s, "dpo")
+    if not isinstance(base_gym, Gym):
+        raise RunError(f"dpo: graph entry {s.gym_key!r} is not a gym")
+    # rebuild the resolved gym as a DPOGym: same injected components, the
+    # preference step swapped in through the step hooks
+    fields = {f.name: getattr(base_gym, f.name)
+              for f in dataclasses.fields(Gym)}
+    gym = DPOGym(beta=s.beta, **fields)
+    lora_model = _inject_lora(gym, s.lora, log)
+
+    def copy_tree(tree):
+        return tree_map(lambda x: x.detach().clone(), tree)
+
+    def replace_dataset(loader, dataset):
+        if hasattr(loader, "loader"):  # PrefetchLoader wraps the real one
+            return dataclasses.replace(
+                loader, loader=replace_dataset(loader.loader, dataset))
+        return dataclasses.replace(loader, dataset=dataset)
+
+    def before_run(state, resumed_from):
+        if s.onpolicy is not None:
+            # sample pairs from the (warmstarted/restored) policy through
+            # the serve engine, replacing the graph's dataset
+            op = s.onpolicy
+            if lora_model is not None:
+                sample_model = lora_model.base
+                with torch.no_grad():
+                    sample_params = lora_model.merge(state["params"])
+            else:
+                sample_model, sample_params = gym.model, state["params"]
+            pairs = sample_onpolicy_pairs(
+                sample_model, sample_params, vocab=gym.model.cfg.vocab,
+                n_prompts=op.n_prompts, prompt_len=op.prompt_len,
+                gen_tokens=op.gen_tokens, temperature=op.temperature,
+                top_k=op.top_k, top_p=op.top_p, seed=op.seed,
+                n_slots=op.n_slots, log=log)
+            del sample_params
+            seq_len = op.prompt_len + op.gen_tokens - 1
+            dataset = PreferencePairDataset(pairs, seq_len=seq_len,
+                                            seed=op.seed)
+            gym.loader = replace_dataset(gym.loader, dataset)
+            log(f"dpo: {len(pairs)} on-policy pairs sampled "
+                f"(seq_len {seq_len})")
+        # the frozen reference: under LoRA it is the zero-adapter base
+        # (reconstructible on resume); full-param DPO copies the freshly
+        # warmstarted params.  Copies, never aliases — the step updates
+        # the state's tensors in place.
+        if lora_model is not None:
+            ref = copy_tree(LO.zero_adapters(state["params"]))
+        else:
+            if resumed_from is not None:
+                raise RunError("dpo: cannot resume without lora (the "
+                               "reference params are unrecoverable)")
+            ref = copy_tree(state["params"])
+        gym.ref_params = ref
+        return state
+
+    result = _drive_gym(cfg, s, gym, device=device, write_files=write_files,
+                        log=log, fp=fp, resolved=resolved,
+                        before_run=before_run)
+    state = result.pop("_state")
+    result["beta"] = s.beta
+    result["lora"] = (dataclasses.asdict(s.lora)
+                      if s.lora is not None else None)
+    hist = [m for m in (result.get("history") or []) if "margin" in m]
+    if hist:
+        result["first_margin"] = float(hist[0]["margin"])
+        result["final_margin"] = float(hist[-1]["margin"])
+        result["final_reward_accuracy"] = float(
+            hist[-1].get("reward_accuracy", 0.0))
+    _save_adapter_artifacts(cfg, s, gym, lora_model, state, result,
+                            write_files=write_files, log=log)
+    gym.ref_params = None
+    return result
+
+
 _EXECUTORS = {"train": execute_train, "warmstart": execute_warmstart,
-              "serve": execute_serve}
+              "serve": execute_serve, "sft": execute_sft, "dpo": execute_dpo}
 
 
 def execute(cfg, *, device=None, write_result: bool = False,

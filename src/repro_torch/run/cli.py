@@ -3,6 +3,8 @@
   python -m repro_torch train     --config run.yaml [--set path=value ...] [--device cuda|cpu]
   python -m repro_torch warmstart --config run.yaml [--source DIR] [--set ...] [--device ...]
   python -m repro_torch serve     --config run.yaml [--set ...] [--device ...]
+  python -m repro_torch sft       --config run.yaml [--set ...] [--device ...]
+  python -m repro_torch dpo       --config run.yaml [--set ...] [--device ...]
   python -m repro_torch replay    <run_dir> [--device ...]
   python -m repro_torch validate  <yaml-or-dir> [...]
 
@@ -45,6 +47,12 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--source", default="",
                    help="checkpoint dir (shorthand for "
                         "--set run.warmstart.source=...)")
+    _add_kind_parser(sub, "sft",
+                     "supervised finetuning: loss-masked prompt/response "
+                     "batches, optionally through LoRA adapters")
+    _add_kind_parser(sub, "dpo",
+                     "direct preference optimization against a frozen "
+                     "reference (static pairs or on-policy sampling)")
     _add_kind_parser(sub, "serve",
                      "continuous-batching engine / static-batch shim")
     r = sub.add_parser("replay",
@@ -60,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _print_result(kind: str, result) -> None:
-    if kind in ("train", "warmstart"):
+    if kind in ("train", "warmstart", "sft", "dpo"):
         if "first_loss" in result:
             print(f"done: {result['logged_points']} logged points; first loss "
                   f"{result['first_loss']:.4f} -> last "
@@ -69,6 +77,10 @@ def _print_result(kind: str, result) -> None:
         else:
             print(f"done: {result['steps_this_run']} steps, no logged points",
                   flush=True)
+        if "final_margin" in result:
+            print(f"dpo: margin {result['first_margin']:.4f} -> "
+                  f"{result['final_margin']:.4f}, reward accuracy "
+                  f"{result['final_reward_accuracy']:.3f}", flush=True)
     elif "bench_file" in result:
         print(f"done: {result['completed']}/{result['n_requests']} requests, "
               f"{result['tok_s']} tok/s, decode {result['decode_tok_s']} "

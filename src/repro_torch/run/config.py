@@ -1,5 +1,5 @@
-"""Run documents of the port (the ``train``, ``warmstart`` and ``serve``
-kinds of ``repro.run.config``).
+"""Run documents of the port (the ``train``, ``warmstart``, ``serve``,
+``sft`` and ``dpo`` kinds of ``repro.run.config``).
 
 A run document is a YAML mapping with a ``run:`` header naming the kind and
 a per-kind settings section; everything else is the component graph the
@@ -9,11 +9,14 @@ resolver builds.  ``train`` drives the resolved gym for a total budget of
 settings; ``serve`` runs the static-batch shim (``batch``, ``prompt_len``,
 ``gen``, ``seed``, ``ckpt``) or, with ``engine: true``, the
 continuous-batching engine over a seeded ``workload`` with per-request
-``sampling`` and a ``faults`` schedule.  The ``resilience`` block of
-``run.train`` (sentinel, rollback, preemption, checkpoint retries, faults)
-and ``telemetry.profile`` (the profiler window) are JAX's grammar, with
-JAX's error messages.  A document without a ``run:`` section is a ``train`` run
-when it has a ``gym`` and a sweep when it has a sweep spec, as in JAX.  The
+``sampling`` and a ``faults`` schedule; ``sft`` and ``dpo`` post-train the
+resolved gym like ``train``, optionally through LoRA adapters (``lora``),
+DPO against a frozen reference and with pairs sampled ``onpolicy``.  The
+``resilience`` block of the train-shaped kinds (sentinel, rollback,
+preemption, checkpoint retries, faults) and ``telemetry.profile`` (the
+profiler window) are JAX's grammar, with JAX's error messages.  A
+document without a ``run:`` section is a ``train`` run when it has a
+``gym`` and a sweep when it has a sweep spec, as in JAX.  The
 JAX package's other kinds and settings are recognised and refused with the
 slice that will bring them, so a document never runs with settings
 ignored.
@@ -30,8 +33,6 @@ from typing import Any, Dict, Optional, Type
 OTHER_KINDS = {
     "bench": "the bench kind comes with the port's benchmarks (ROADMAP A9); "
              "its JAX counterpart writes BENCH_<name>.json at the repo root",
-    "sft": "post-training comes with its slice of the port (ROADMAP A6)",
-    "dpo": "post-training comes with its slice of the port (ROADMAP A6)",
     "dryrun": "dryrun, trace and sweeps come with ROADMAP A9",
     "trace": "dryrun, trace and sweeps come with ROADMAP A9",
     "sweep": "dryrun, trace and sweeps come with ROADMAP A9",
@@ -40,6 +41,28 @@ OTHER_KINDS = {
 
 class RunError(Exception):
     pass
+
+
+def _validate_train_like(kind: str, s) -> None:
+    """Shared resume/warmstart validation for train-shaped kinds."""
+    if isinstance(s.resume, str):
+        if s.resume != "auto":
+            raise RunError(f"run.{kind}.resume must be true|false|auto, "
+                           f"got {s.resume!r}")
+    elif not isinstance(s.resume, bool):
+        raise RunError(f"run.{kind}.resume must be true|false|auto, "
+                       f"got {s.resume!r}")
+    if isinstance(s.warmstart, dict):
+        s.warmstart = _coerce_block(kind, "warmstart", s.warmstart,
+                                    WarmstartSettings)
+    elif s.warmstart is not None and not isinstance(s.warmstart,
+                                                    WarmstartSettings):
+        raise RunError(f"run.{kind}.warmstart must be a mapping "
+                       f"(source/optimizer/strict)")
+    if s.warmstart is not None and s.resume:
+        raise RunError(f"run.{kind}: resume and warmstart are mutually "
+                       f"exclusive (resume continues THIS run; warmstart "
+                       f"starts a new one from another run's checkpoint)")
 
 
 # ---------------------------------------------------------------------------
@@ -269,24 +292,135 @@ class TrainSettings:
         if self.steps < 0:
             raise RunError(f"run.train.steps must be >= 0, got {self.steps}")
         self.telemetry = _coerce_telemetry("train", self.telemetry)
-        if isinstance(self.resume, str):
-            if self.resume != "auto":
-                raise RunError(f"run.train.resume must be true|false|auto, "
-                               f"got {self.resume!r}")
-        elif not isinstance(self.resume, bool):
-            raise RunError(f"run.train.resume must be true|false|auto, "
-                           f"got {self.resume!r}")
-        if isinstance(self.warmstart, dict):
-            self.warmstart = _coerce_block("train", "warmstart",
-                                           self.warmstart, WarmstartSettings)
-        elif self.warmstart is not None and not isinstance(
-                self.warmstart, WarmstartSettings):
-            raise RunError("run.train.warmstart must be a mapping "
-                           "(source/optimizer/strict)")
-        if self.warmstart is not None and self.resume:
-            raise RunError("run.train: resume and warmstart are mutually "
-                           "exclusive (resume continues THIS run; warmstart "
-                           "starts a new one from another run's checkpoint)")
+        _validate_train_like("train", self)
+
+
+@dataclasses.dataclass
+class LoRASettings:
+    """``run.sft.lora`` / ``run.dpo.lora``: adapter injection knobs.
+
+    ``targets`` are fnmatch patterns over the last path component of base
+    param leaves (only matrix leaves are eligible).  Omitting the whole
+    ``lora:`` block means full-parameter fine-tuning."""
+
+    rank: int = 8
+    alpha: float = 16.0
+    targets: Any = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+
+    def __post_init__(self):
+        if self.rank < 1:
+            raise RunError(f"lora.rank must be >= 1, got {self.rank}")
+        if isinstance(self.targets, str):
+            self.targets = [self.targets]
+        if not isinstance(self.targets, (list, tuple)) or not self.targets \
+                or not all(isinstance(t, str) for t in self.targets):
+            raise RunError(f"lora.targets must be a non-empty list of "
+                           f"patterns, got {self.targets!r}")
+        self.targets = list(self.targets)  # lists: YAML-dump friendly
+
+
+def _coerce_lora(kind: str, value: Any) -> Any:
+    """``lora:`` block: absent/None => full fine-tune (no adapters)."""
+    if value is None or isinstance(value, LoRASettings):
+        return value
+    if value is True:
+        return LoRASettings()
+    return _coerce_block(kind, "lora", value, LoRASettings)
+
+
+@dataclasses.dataclass
+class SFTSettings:
+    """``run.sft``: supervised fine-tuning through the resolved gym.
+
+    Same step semantics as ``run.train`` (``steps`` is the total budget,
+    ``resume: auto`` continues from the latest committed checkpoint,
+    ``warmstart:`` loads the pretrained base).  With a ``lora:`` block the
+    gym's model is wrapped in adapters and only they train; the final
+    adapter subtree is checkpointed on its own under ``adapter_dir``
+    (default ``<output_dir>/adapter``) and ``export_merged: true``
+    additionally writes base+adapter folded into the flat deploy export.
+    The dataset must emit ``loss_mask`` batches (the ``sft_*`` dataset
+    variants) for prompt-loss masking — a plain LM dataset trains
+    unmasked."""
+
+    steps: int = 100
+    resume: Any = False           # false | true | "auto"
+    warmstart: Any = None         # mapping -> WarmstartSettings
+    gym_key: str = "gym"
+    lora: Any = None              # mapping -> LoRASettings; None => full FT
+    adapter_dir: str = ""         # default: <output_dir>/adapter
+    export_merged: bool = False
+    resilience: Any = None        # mapping -> ResilienceSettings
+    telemetry: Any = None         # mapping/bool -> TelemetrySettings
+
+    def __post_init__(self):
+        _validate_train_like("sft", self)
+        self.lora = _coerce_lora("sft", self.lora)
+        self.resilience = _coerce_resilience("sft", self.resilience)
+        self.telemetry = _coerce_telemetry("sft", self.telemetry)
+
+
+@dataclasses.dataclass
+class OnPolicySettings:
+    """``run.dpo.onpolicy``: sample preference pairs from the (warmstarted)
+    policy through the serve engine instead of using the graph's dataset."""
+
+    n_prompts: int = 8
+    prompt_len: int = 16
+    gen_tokens: int = 16
+    temperature: float = 0.8
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    n_slots: int = 4
+
+    def __post_init__(self):
+        if self.n_prompts < 1:
+            raise RunError("run.dpo.onpolicy.n_prompts must be >= 1")
+        if self.temperature <= 0:
+            raise RunError("run.dpo.onpolicy.temperature must be > 0 "
+                           "(greedy sampling yields identical pairs)")
+
+
+@dataclasses.dataclass
+class DPOSettings:
+    """``run.dpo``: direct preference optimization.
+
+    The reference policy is reconstructed, never stored: under ``lora:``
+    it is the frozen base (zeroed adapters), so ``resume: auto`` works;
+    full-parameter DPO keeps a copy of the warmstarted params as the
+    reference and therefore cannot resume (the pre-training params would
+    be gone).  ``onpolicy:`` replaces the graph dataset with pairs
+    sampled from the policy via the serve engine."""
+
+    steps: int = 100
+    resume: Any = False
+    warmstart: Any = None
+    gym_key: str = "gym"
+    lora: Any = None
+    adapter_dir: str = ""
+    beta: float = 0.1
+    onpolicy: Any = None          # mapping -> OnPolicySettings
+    resilience: Any = None        # mapping -> ResilienceSettings
+    telemetry: Any = None         # mapping/bool -> TelemetrySettings
+
+    def __post_init__(self):
+        _validate_train_like("dpo", self)
+        self.lora = _coerce_lora("dpo", self.lora)
+        self.resilience = _coerce_resilience("dpo", self.resilience)
+        self.telemetry = _coerce_telemetry("dpo", self.telemetry)
+        if self.beta <= 0:
+            raise RunError(f"run.dpo.beta must be > 0, got {self.beta}")
+        if self.onpolicy is not None and not isinstance(self.onpolicy,
+                                                        OnPolicySettings):
+            self.onpolicy = _coerce_block("dpo", "onpolicy", self.onpolicy,
+                                          OnPolicySettings)
+        if self.resume and self.lora is None:
+            raise RunError(
+                "run.dpo: resume requires a lora: block — the frozen "
+                "reference is reconstructed as the zero-adapter base, which "
+                "only exists when the base is frozen; full-parameter DPO "
+                "cannot resume")
 
 
 @dataclasses.dataclass
@@ -455,7 +589,7 @@ class RunConfig:
 
 
 _SETTINGS = {"train": TrainSettings, "warmstart": WarmstartKindSettings,
-             "serve": ServeSettings}
+             "serve": ServeSettings, "sft": SFTSettings, "dpo": DPOSettings}
 
 
 def _infer_kind(doc: Dict[str, Any]) -> Optional[str]:

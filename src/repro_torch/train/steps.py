@@ -12,7 +12,7 @@ from typing import Any, Dict
 import torch
 
 from ..models.common import sharded_cross_entropy
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..tree import tree_leaves, tree_map, tree_select, tree_unflatten
 
 
 def compute_loss(model, params, batch):
@@ -42,10 +42,31 @@ def microbatch(batch: Dict[str, Any], n_micro: int):
     return [tree_map(lambda a, i=i: a[i], mbs) for i in range(n_micro)]
 
 
+def value_and_grad(loss_fn, params, *args, trainable=None):
+    """``(aux, grads)`` of ``loss_fn(params, *args) -> (total, aux)``, the
+    aux tensors detached.  Gradients come from ``torch.autograd.grad`` over
+    the param leaves; with a ``trainable`` path predicate over those only
+    (the others take no gradient, and ``grads`` holds the trainable subtree
+    alone — what ``FrozenBaseOptimizer`` updates)."""
+    leaves = [p.detach() for p in tree_leaves(params)]
+    tree = tree_unflatten(params, leaves)
+    wrt = tree if trainable is None else tree_select(tree, trainable)
+    for leaf in tree_leaves(wrt):
+        leaf.requires_grad_(True)
+    total, aux = loss_fn(tree, *args)
+    grads = torch.autograd.grad(total, tree_leaves(wrt), allow_unused=True,
+                                materialize_grads=True)
+    return ({k: v.detach() for k, v in aux.items()},
+            tree_unflatten(wrt, grads))
+
+
 def make_train_step(model, optimizer, grad_accum: int = 1):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    Gradients come from ``torch.autograd.grad`` over the param leaves.  With
+    Gradients come from :func:`value_and_grad` over the param leaves, or
+    over those the optimizer's ``trainable`` predicate accepts where it has
+    one (``FrozenBaseOptimizer``: the frozen base takes no gradient, as
+    JAX's zeroed one moves nothing).  With
     ``grad_accum > 1`` the batch is split into contiguous microbatches, the
     gradients are summed in a carry of at least f32 (also for bf16 params,
     as JAX's ``:60-76``: a bf16 carry would round every micro-step) and the
@@ -58,20 +79,17 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
     caller's ``state["params"]`` and ``state["opt"]`` hold the new values.
     """
 
-    def value_and_grad(params, batch):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        total, metrics = compute_loss(model, tree_unflatten(params, leaves),
-                                      batch)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        return ({k: v.detach() for k, v in metrics.items()},
-                tree_unflatten(params, grads))
+    trainable = getattr(optimizer, "trainable", None)
+
+    def loss_fn(params, batch):
+        return compute_loss(model, params, batch)
 
     def train_step(state, batch):
         if grad_accum > 1:
             gsum = msum = None
             for mb in microbatch(batch, grad_accum):
-                metrics, grads = value_and_grad(state["params"], mb)
+                metrics, grads = value_and_grad(loss_fn, state["params"], mb,
+                                                trainable=trainable)
                 if gsum is None:
                     gsum = tree_map(lambda g: g.to(torch.promote_types(
                         g.dtype, torch.float32)), grads)
@@ -82,7 +100,8 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
             grads = tree_map(lambda g: g / grad_accum, gsum)
             metrics = tree_map(lambda m: m / grad_accum, msum)
         else:
-            metrics, grads = value_and_grad(state["params"], batch)
+            metrics, grads = value_and_grad(loss_fn, state["params"], batch,
+                                            trainable=trainable)
         new_params, new_opt = optimizer.update(grads, state["opt"],
                                                state["params"])
         new_state = {"params": new_params, "opt": new_opt,

@@ -31,3 +31,19 @@ def tree_unflatten(like, leaves) -> Any:
     if next(it, None) is not None:
         raise ValueError("tree_unflatten: more leaves than the tree holds")
     return out
+
+
+def tree_select(tree, keep: Callable[[str], bool], prefix: str = ""):
+    """The subtree of the leaves whose path ``keep`` accepts, in ``tree``'s
+    key order; dicts left empty are dropped (``{}`` when nothing is
+    kept)."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            sub = tree_select(v, keep, path)
+            if sub:
+                out[k] = sub
+        elif keep(path):
+            out[k] = v
+    return out

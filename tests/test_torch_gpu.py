@@ -570,3 +570,99 @@ def test_snapshot_stays_finite_when_nan_params_follows_an_async_save(
     assert all(bool(torch.isfinite(p).all())
                for p in tree_leaves(restored["params"]))
     _assert_equal_trees(restored, clean)
+
+
+def _card_lora(cuda):
+    """Reduced Qwen through the flash kernel, wrapped in LoRA rank 4, with
+    seeded params whose ``b`` factors are non-zero."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.posttrain import lora as LO
+    from repro_torch.tree import tree_map
+
+    lm = LO.LoRAModel(build_model(get_reduced("qwen1p5_0p5b").with_(
+        use_flash_kernel=True)), LO.LoRAConfig(rank=4))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init(gen)
+    params[LO.ADAPTER_KEY] = tree_map(
+        lambda b: b + 0.02 * torch.randn(b.shape, generator=gen, device=cuda),
+        params[LO.ADAPTER_KEY])
+    return lm, params
+
+
+def test_lora_merge_bitwise_through_flash(cuda):
+    """The merged forward and the on-the-fly LoRA forward, both through
+    ``flash_fwd`` in every layer, are ``==``; with TF32 switched on
+    globally too (the merge computes its product in IEEE f32 whatever the
+    flag says)."""
+    lm, params = _card_lora(cuda)
+    toks = torch.randint(3, lm.cfg.vocab, (2, 256), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            before = ops.launches
+            with torch.no_grad():
+                got, _ = lm.apply(params, {"tokens": toks})
+                merged = lm.merge(params)
+                want, _ = lm.base.apply(merged, {"tokens": toks})
+            torch.cuda.synchronize()
+            assert ops.launches == before + 2 * lm.cfg.n_layers
+            assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+            wq = params["blocks"]["attn"]["wq"]
+            ad = params["lora"]["blocks"]["attn"]["wq"]
+            ref = wq.double() + lm.lora.scale * torch.einsum(
+                "ldr,lrhk->ldhk", ad["a"].double(), ad["b"].double())
+            # one f32 rounding of the sum (and of a rank-4 product) away
+            # from the f64 merge: TF32 would be ~1e-3 of the product away
+            assert float((merged["blocks"]["attn"]["wq"].double()
+                          - ref).abs().max()) < 1e-6
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_dpo_first_loss_is_log2_and_reference_outlives_nan_params(cuda):
+    """At init (b = 0) the policy and the zero-adapter reference compute one
+    function through the flash kernel: loss ``log 2`` and margin 0.  The
+    reference is a copy: after ``nan_params`` corrupts the policy in place,
+    the reference's tensors are finite and share no storage with it."""
+    import math
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.posttrain import dpo as DPO
+    from repro_torch.posttrain import lora as LO
+    from repro_torch.resilience import FaultInjector
+    from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_leaves, tree_map
+
+    lm = LO.LoRAModel(build_model(get_reduced("qwen1p5_0p5b").with_(
+        use_flash_kernel=True)), LO.LoRAConfig(rank=4))
+    opt = LO.FrozenBaseOptimizer(AdamW(lr=1e-3, weight_decay=0.0))
+    state = ST.init_train_state(
+        lm, opt, torch.Generator(device=cuda).manual_seed(0))
+    ref = tree_map(lambda x: x.detach().clone(),
+                   LO.zero_adapters(state["params"]))
+    ds = DPO.preference_synthetic_dataset(63, lm.cfg.vocab, n_pairs=8)
+    batch = {k: torch.as_tensor(v, device=cuda)
+             for k, v in ds.sample_batch(torch.arange(4).numpy()).items()}
+    step = DPO.make_dpo_step(lm, opt, beta=0.1)
+    before = ops.launches
+    state, metrics = step(state, batch, ref)
+    torch.cuda.synchronize()
+    # policy 2 forwards x (forward + remat recompute), reference 2 forwards
+    assert ops.launches == before + lm.cfg.n_layers * (2 * 2 + 2)
+    assert abs(float(metrics["loss"]) - math.log(2)) <= 1e-6
+    assert float(metrics["margin"]) == 0.0
+    state = FaultInjector.corrupt_params(state)
+    ptrs = {p.untyped_storage().data_ptr()
+            for p in tree_leaves(state["params"])}
+    assert all(bool(torch.isnan(p).all())
+               for p in tree_leaves(state["params"]) if p.is_floating_point())
+    for r in tree_leaves(ref):
+        assert r.untyped_storage().data_ptr() not in ptrs
+        assert bool(torch.isfinite(r).all())
+    _, again = step(state, batch, ref)
+    assert not math.isfinite(float(again["loss"]))

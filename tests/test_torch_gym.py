@@ -238,8 +238,6 @@ REFUSED = [
     ("run.kind=dryrun", "A9"),
     ("run.kind=trace", "A9"),
     ("run.kind=sweep", "A9"),
-    ("run.kind=sft", "A6"),
-    ("run.kind=dpo", "A6"),
     ("gym.config.sharding_plan={component_key: sharding_plan, "
      "variant_key: fsdp}", "A8"),
     ("gym.config.mesh_provider={component_key: mesh_provider, "

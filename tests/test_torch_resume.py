@@ -23,7 +23,7 @@ import torch
 
 from repro.run import api as jax_api
 from repro_torch.ckpt import (AsyncCheckpointer, LossyCastWarning,
-                              list_checkpoints, read_manifest,
+                              RestoreError, list_checkpoints, read_manifest,
                               write_checkpoint)
 from repro_torch.ckpt import format as CF
 from repro_torch.config.resolver import load_yaml
@@ -316,8 +316,11 @@ def test_fresh_warmstart_rebases_master_weights(tmp_path):
 
 
 def test_warmstart_from_adapter_checkpoint_is_refused(tmp_path):
+    """An adapter-only checkpoint cannot warmstart a base model strictly:
+    it has no base leaves (a full checkpoint with adapters warmstarts a
+    LoRA run: ``tests/test_torch_posttrain.py``)."""
     path = write_checkpoint(str(tmp_path), 1, {"params/lora/a": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RestoreError, match="params/w"):
         _apply_warmstart({"params": {"w": torch.zeros(2)}},
                          WarmstartSettings(source=path),
                          SimpleNamespace(config_dir="."), _quiet)
