@@ -22,9 +22,11 @@
    every ``FLASH_CASES`` shape of the JAX package's kernel tests, at the Qwen
    slice's prefill shape and at the training shape (batch 8), and at head
    dim 80 (Zamba2's prefill and training shapes, a ragged case in f32 and
-   bf16); ``ssd_scan`` at every ``SSD_CASES`` shape, at the Mamba2 slice's
-   shape, at the training shape, on a multi-group case and at Zamba2's
-   shape (H 80, P 64, N 64).
+   bf16), at head dim 160 (StableLM-2-12B's prefill shape, a ragged and a
+   windowed case, each in f32 and bf16) and at DeepSeekMoE-16B's prefill
+   and training shapes (dh 128); ``ssd_scan`` at every ``SSD_CASES``
+   shape, at the Mamba2 slice's shape, at the training shape, on a
+   multi-group case and at Zamba2's shape (H 80, P 64, N 64).
 3. Slice 1: ``serve_benchmark`` on full-width Qwen1.5-0.5B with
    ``use_flash_kernel=True``, batch 8, prompt 1024, 32 generated tokens,
    seeded random weights.  Checks the flash kernel's launch count over that
@@ -32,7 +34,14 @@
    match the plain-attention path on the same weights.
 4. Slice 2: the same on full-width Mamba2-780M, whose prefill runs the SSD
    kernel in every layer; the plain comparison runs ``ssd_chunked`` in its
-   place on the same weights.
+   place on the same weights.  Then the same on full-width StableLM-2-12B
+   (40 layers, flash at dh 160) and full-width DeepSeekMoE-16B (28 layers:
+   1 dense, 27 MoE of 64 routed experts, top 6, and 2 shared; flash at dh
+   128), whose prefill logits are held against the plain attention (both)
+   and against ``moe_dense`` in place of the MoE main path (the MoE) in
+   bf16 and f32 (``check_logits``: beside each the plain path's own spread,
+   a control that must fail where the check says so, and the token-layer
+   pairs routed to another expert set).
 5. Training (``repro_torch.run.api`` on ``examples/configs/quickstart.yaml``,
    its dataset written to a temporary directory): the unchanged document's
    60 steps; then full-width Qwen1.5-0.5B through the flash kernel (10
@@ -40,7 +49,10 @@
    gradients through the kernel against the plain attention path on the
    same params and batch; then full-width Mamba2-780M through the SSD kernel
    (3 steps), the same comparison against ``ssd_chunked``; then full-width
-   Zamba2-2.7B through both kernels (3 steps), against both plain versions.
+   Zamba2-2.7B through both kernels (3 steps), against both plain versions;
+   then DeepSeekMoE-16B at full width and depth 4 (1 dense + 3 MoE layers)
+   through the flash kernel (3 steps), its ``router_lb`` printed, the
+   router's gradients among those held against the plain path.
 6. Checkpoints: the two commands in ``warmstart.yaml``'s header (the
    unchanged quickstart with ``gym.config.ckpt_every=20``, then the
    unchanged ``warmstart.yaml`` from its checkpoint); then full-width
@@ -84,10 +96,11 @@
 9. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
-   dense engine, each 16 sampled requests of 256/512/1024 prompt tokens,
-   with two solo streams, and for Zamba2 three prompts' prefill logits
-   through the kernels against the plain path, beside a control that the
-   bounds must reject.
+   dense engine and full-width DeepSeekMoE-16B on the paged engine (pages
+   of 16, chunk 256), each 16 sampled requests of 256/512/1024 prompt
+   tokens, with two solo streams, and for Zamba2 three prompts' prefill
+   logits through the kernels against the plain path, beside a control
+   that the bounds must reject.
 
 Every launch counter is set to 0 just before a slice drives its main path
 (the serve run, the training run, the engine run) and read just after; the
@@ -173,6 +186,15 @@ TRAIN_SLICES = {
                         "arch.config.use_flash_kernel=true"],
                "flops": 6.0 * 2063676080 * 8 * 1024,
                "tols": {"bfloat16": (2e-3, 0.25), "float32": (1e-5, 1e-3)}},
+    # full width, depth cut to 4 (1 dense + 3 MoE layers: the 28 layers'
+    # params, gradients and AdamW moments would take 243 GiB); N counts the
+    # 6 of 64 routed experts a token uses (703,219,712 of 2,208,450,560)
+    "moe16b": {"arch": "deepseek_moe_16b", "steps": 3, "kernel": "flash_fwd",
+               "sets": ["arch.variant_key=deepseek_moe_16b",
+                        "arch.config.n_layers=4",
+                        "arch.config.use_flash_kernel=true"],
+               "flops": 6.0 * 703219712 * 8 * 1024,
+               "tols": {"bfloat16": (2e-3, 0.25), "float32": (1e-5, 5e-5)}},
 }
 TRAIN_TOL_WHY = {
     "bfloat16": (
@@ -190,14 +212,17 @@ TRAIN_TOL_WHY = {
         "(1e-4 of the loss) is above the Mamba2 floor's 7.4e-4. Zamba2 "
         "(both kernels): floor 0.091 and |dloss| 5.1e-4, the kernels' "
         "0.106 and 9.8e-4; its bounds are about twice the larger, 0.25 and "
-        "2e-3"),
+        "2e-3. DeepSeekMoE-16B at depth 4, where bf16 rounding also "
+        "reroutes tokens at router near-ties: floor 0.101 and |dloss| "
+        "4.2e-4, the kernel's 0.115 and 7.9e-4, both worst at the router; "
+        "bounds 0.25 and 2e-3"),
     "float32": (
         "f32 activations, where kernel and plain path differ only in f32 "
         "summation order (and the SSD kernel's hi/lo bf16 split of f32 "
         "operands): on an H100 with these seeds the worst leaf is 4.8e-6 "
-        "(Qwen), 1.0e-4 (Mamba2, floor 3e-5) and 7.6e-5 (Zamba2, floor "
-        "3.3e-5); each bound is about ten times that, the loss bound ten "
-        "times the 9.5e-7 seen"),
+        "(Qwen), 1.0e-4 (Mamba2, floor 3e-5), 7.6e-5 (Zamba2, floor "
+        "3.3e-5) and 4.8e-6 (DeepSeekMoE-16B, floor 5.2e-6); each bound is "
+        "about ten times that, the loss bound ten times the 9.5e-7 seen"),
 }
 def card_line() -> str:
     out = subprocess.run(
@@ -313,6 +338,23 @@ def flash_cases():
          (8, 1024, 1024, 32, 32, 80, True, 0, bf16)),
         ("B1S300H32K32d80cw0f32", (1, 300, 300, 32, 32, 80, True, 0, f32)),
         ("B1S300H32K32d80cw0bf16", (1, 300, 300, 32, 32, 80, True, 0, bf16)),
+        # dh 160, StableLM-2-12B (32 query heads over 8 kv heads): its
+        # prefill shape, a ragged case and a window in both paths
+        ("stablelm12b_B1S1024H32K8d160c_bf16",
+         (1, 1024, 1024, 32, 8, 160, True, 0, bf16)),
+        ("B1S1024H32K8d160cw0f32", (1, 1024, 1024, 32, 8, 160, True, 0, f32)),
+        ("B1S300H32K8d160cw0bf16", (1, 300, 300, 32, 8, 160, True, 0, bf16)),
+        ("B1S300H32K8d160cw0f32", (1, 300, 300, 32, 8, 160, True, 0, f32)),
+        ("B1S1024H32K8d160cw256bf16",
+         (1, 1024, 1024, 32, 8, 160, True, 256, bf16)),
+        ("B1S1024H32K8d160cw256f32",
+         (1, 1024, 1024, 32, 8, 160, True, 256, f32)),
+        # DeepSeekMoE-16B (16 heads = 16 kv heads of 128): its prefill and
+        # training shapes
+        ("moe16b_B1S1024H16K16d128c_bf16",
+         (1, 1024, 1024, 16, 16, 128, True, 0, bf16)),
+        ("moe16b_train_B8S1024H16K16d128c_bf16",
+         (8, 1024, 1024, 16, 16, 128, True, 0, bf16)),
     ]
 
 
@@ -496,8 +538,47 @@ def _plain_ssm_scan(chunk_override=0):
     return scan
 
 
+# StableLM-2-12B's and DeepSeekMoE-16B's prefill logits (one 1024-token
+# prompt, seed 1) against the plain paths, as check_logits takes them:
+# (activations, what is plain, bound, whether the control must fail it, why)
+STABLELM12B_LOGITS = [
+    ("bfloat16", "attention", 0.25, True,
+     "bf16 activations through 40 layers at dh 160: kernel and blockwise "
+     "loop sum the same f32 products in other orders and round the output "
+     "once to bf16; each difference grows through the later layers. On an "
+     "H100 with this seed the kernel reads 0.131 and the two plain "
+     "attentions differ by 0.133 (the floor); the bound is about twice the "
+     "larger, and the control reads 2.08"),
+    ("float32", "attention", 1e-4, True,
+     "f32 activations: only f32 sum orders differ. Kernel 1.8e-5, floor "
+     "2.0e-5, control 2.01 on an H100; the bound is five times the larger"),
+]
+MOE16B_LOGITS = [
+    ("bfloat16", "attention", 0.75, True,
+     "bf16 activations through 28 layers: at init the router's 64 "
+     "probabilities are close to uniform, so a token whose k-th and "
+     "(k+1)-th probabilities nearly tie takes another expert when its "
+     "hidden state moves by a bf16 step (a quarter of the token-layer "
+     "pairs on an H100 with this seed), and its state jumps. Kernel 0.254, "
+     "floor 0.363, control 2.30: the bound is about twice the larger"),
+    ("float32", "attention", 5e-4, True,
+     "f32 activations: f32 sum orders only, and no pair rerouted. Kernel "
+     "9.3e-6, floor 1.0e-4, control 2.34 on an H100; the bound is five "
+     "times the larger"),
+    ("bfloat16", "MoE", 0.75, True,
+     "the MoE layers' main path against moe_dense, attention through the "
+     "kernel on both: one bf16 rounding of each routed output on both, "
+     "from f32 sums of other orders, and the router ties that reaches "
+     "(3939 of 27648 pairs rerouted on an H100). Main path 0.258 against "
+     "the floor's 0.363, control 2.43: the attention row's bound"),
+    ("float32", "MoE", 5e-4, True,
+     "f32 activations: the same products summed in other orders, no pair "
+     "rerouted. Main path 8.0e-6 on an H100: the attention row's bound"),
+]
+
 # each slice: the arch and its config, the kernel its prefill runs, and the
 # bound on its kernel-vs-plain prefill logits for each activation dtype
+# (``tols``), or the checks of ``check_logits`` (``logits``)
 SLICES = {
     "qwen": {"arch": "qwen1p5_0p5b", "with": {"use_flash_kernel": True},
              "kernel": "flash_fwd",
@@ -506,6 +587,10 @@ SLICES = {
                "tols": {"bfloat16": (SSM_LOGITS_TOL, SSM_LOGITS_TOL_WHY),
                         "float32": (SSM_LOGITS_F32_TOL,
                                     SSM_LOGITS_F32_TOL_WHY)}},
+    "stablelm12b": {"arch": "stablelm_12b", "with": {"use_flash_kernel": True},
+                    "kernel": "flash_fwd", "logits": STABLELM12B_LOGITS},
+    "moe16b": {"arch": "deepseek_moe_16b", "with": {"use_flash_kernel": True},
+               "kernel": "flash_fwd", "logits": MOE16B_LOGITS},
 }
 
 
@@ -526,19 +611,20 @@ def add_launches(results: dict, counts: dict) -> None:
 
 def kernel_layers(cfg) -> dict:
     """Layers of ``cfg`` that launch each kernel once per forward: its
-    attention layers (dense blocks, or each use of the hybrid's shared
-    block) through ``flash_fwd`` when ``use_flash_kernel`` is set, its
-    Mamba2 layers through ``ssd_scan``."""
+    attention layers (dense and MoE blocks, or each use of the hybrid's
+    shared block) through ``flash_fwd`` when ``use_flash_kernel`` is set,
+    its Mamba2 layers through ``ssd_scan``."""
     from repro_torch.models import build_model
 
     kinds = build_model(cfg).kinds
-    attn = sum(k in ("dense_block", "attn_block") for k in kinds)
+    attn = sum(k in ("dense_block", "moe_block", "attn_block") for k in kinds)
     return {"flash_fwd": attn if cfg.use_flash_kernel else 0,
             "ssd_scan": kinds.count("ssm")}
 
 
 def _prefill_logits(cfg, params, tok, dtype, attention="kernel",
-                    ssd="kernel", chunk_override: int = 0):
+                    ssd="kernel", chunk_override: int = 0, moe="main",
+                    routes=None):
     """One request's last-token prefill logits with activations in
     ``dtype`` on the same weights and the card.  ``attention``: the model's
     ``flash_fwd`` (``"kernel"``, where ``cfg`` sets ``use_flash_kernel``),
@@ -547,10 +633,13 @@ def _prefill_logits(cfg, params, tok, dtype, attention="kernel",
     the kernel does (``"blockwise"``), or a function called in the flash
     wrapper's place (a control).  ``ssd``: the SSD kernel (``"kernel"``) or
     ``ssd_chunked`` at ``chunk_override`` or the model's chunk
-    (``"plain"``)."""
+    (``"plain"``).  ``moe``: the MoE layers' main path (``"main"``) or the
+    plain ``moe_dense`` (``"dense"``); ``routes``, a list, receives each
+    MoE layer's expert indices."""
     import contextlib
 
     import repro_torch.models.attention as attn
+    import repro_torch.models.moe as moe_mod
     import repro_torch.models.ssm as ssm
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.models import build_model
@@ -570,6 +659,19 @@ def _prefill_logits(cfg, params, tok, dtype, attention="kernel",
         elif callable(attention):
             stack.enter_context(mock.patch.object(
                 flash_ops, "flash_attention", attention))
+        if moe == "dense":
+            stack.enter_context(mock.patch.object(
+                moe_mod, "moe_routed", moe_mod.moe_dense))
+        if routes is not None:
+            route = moe_mod.route
+
+            def recording(cfg_, w, x):
+                out = route(cfg_, w, x)
+                routes.append(out[0])
+                return out
+
+            stack.enter_context(mock.patch.object(moe_mod, "route",
+                                                  recording))
         logits, _ = model.prefill(params, {"tokens": tok})
     return logits.float()
 
@@ -605,9 +707,10 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = counts[spec["kernel"]]
-    want = cfg.n_layers * (SLICE_BATCH + 1)
+    layers = kernel_layers(cfg)[spec["kernel"]]
+    want = layers * (SLICE_BATCH + 1)
     print(f"slice {key}: launches over serve_benchmark {counts}; "
-          f"{spec['kernel']} {launches} (want {cfg.n_layers} layers x "
+          f"{spec['kernel']} {launches} (want {layers} layers x "
           f"({SLICE_BATCH} admissions + 1 warm-up) = {want})", flush=True)
     ok &= launches == want
     add_launches(results, counts)
@@ -626,7 +729,10 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
     prompt = np.random.default_rng(1).integers(
         3, cfg.vocab, size=(1, SLICE_PROMPT), dtype=np.int32)
     tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
-    for dname, (tol, why) in spec["tols"].items():
+    if "logits" in spec:
+        ok &= check_logits(f"slice {key}", 1, cfg, params, tok,
+                           spec["logits"])
+    for dname, (tol, why) in spec.get("tols", {}).items():
         dtype = getattr(torch, dname)
         lk = _prefill_logits(cfg, params, tok, dtype)
         lp = _prefill_logits(cfg, params, tok, dtype, "full", "plain")
@@ -648,9 +754,21 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
         ok &= bool(torch.isfinite(lk).all()) and err <= tol
     if profile_dir:
         profile_slice(model, params, profile_dir, key)
-    del params
-    torch.cuda.empty_cache()
+    del params, res
+    _free()
     return ok
+
+
+def _free() -> None:
+    """Drop what the last phase left (a reference cycle can hold a run's
+    params) before the next phase allocates: the MoE phases need 61 GiB of
+    the card's 79."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_slice(model, params, out_dir: str, key: str) -> None:
@@ -872,7 +990,7 @@ def compare_train_step(key, cfg, params, batch, lora=None,
         dtype = getattr(torch, dname)
         kernel = step_grads(wrap(_acts(build_model(cfg), dtype)), params,
                             batch, trainable)
-        if key == "qwen":
+        if key in ("qwen", "moe16b"):
             plain_model = wrap(_acts(build_model(
                 cfg.with_(use_flash_kernel=False)), dtype))
             plain = step_grads(plain_model, params, batch, trainable)
@@ -978,6 +1096,12 @@ def phase_train_full(key: str, data_dir: str, results: dict, card: str,
     print(f"train {key}: loss per step "
           f"{json.dumps([round(x, 5) for x in losses])}; final < first "
           f"{losses[-1] < losses[0]}", flush=True)
+    if cfg.moe:
+        lbs = [h["router_lb"] for h in hist]
+        print(f"train {key}: router_lb (the balance loss, in the total) per "
+              f"step {json.dumps([round(x, 7) for x in lbs])}, finite "
+              f"{all(math.isfinite(x) for x in lbs)}", flush=True)
+        ok &= all(math.isfinite(x) and x > 0 for x in lbs)
     print(f"train {key}: launches over the run {counts} (want, for "
           f"{spec['kernel']}: {layers['flash_fwd']} attention layers and "
           f"{layers['ssd_scan']} SSM layers, each x 2 (forward and remat "
@@ -999,8 +1123,8 @@ def phase_train_full(key: str, data_dir: str, results: dict, card: str,
     ok &= compare_train_step(key, cfg, params, batch)
     if profile_dir:
         profile_train_step(key, cfg, params, batch, profile_dir)
-    del params, batch
-    torch.cuda.empty_cache()
+    del params, batch, res
+    _free()
     return bool(ok)
 
 
@@ -2150,10 +2274,14 @@ ZAMBA2_LOGITS = [
      "vs 128), the control 0.227, 0.209, 0.209: the bound is Mamba2's, "
      "about ten times the floor and three times the kernels' largest"),
 ]
-ENGINE_DENSE = {
+# the same trace on each model's engine: Mamba2 and Zamba2 on the dense
+# pool (an SSM state has no pages), DeepSeekMoE-16B on the paged pool
+ENGINE_SLICES = {
     "mamba2": {"arch": "mamba2_780m", "with": {}},
     "zamba2": {"arch": "zamba2_2p7b", "with": {"use_flash_kernel": True},
                "logits": ZAMBA2_LOGITS, "logit_seeds": (1, 2, 3)},
+    "moe16b": {"arch": "deepseek_moe_16b", "with": {"use_flash_kernel": True},
+               "engine": {"block_len": 16, "prefill_chunk": 256}},
 }
 
 
@@ -2409,13 +2537,15 @@ def profile_engine(engine, out_dir: str) -> None:
                                        *knobs), out_dir)
 
 
-def phase_engine_dense(key: str, results: dict) -> bool:
-    """A full-width model on the dense engine, sampled, closed loop: every
-    admission's prefill runs the model's kernels in every layer (Mamba2:
-    ``ssd_scan`` in 48 layers; Zamba2: ``ssd_scan`` in 45 Mamba2 layers and
-    ``flash_fwd`` in the 9 uses of the shared attention block).  Then two
-    requests alone in a fresh engine, and for Zamba2 three 1024-token
-    prompts' prefill logits through the kernels against the plain path."""
+def phase_engine_model(key: str, results: dict) -> bool:
+    """A full-width model on its engine, sampled, closed loop.  On the dense
+    engine every admission's prefill runs the model's kernels in every
+    layer (Mamba2: ``ssd_scan`` in 48 layers; Zamba2: ``ssd_scan`` in 45
+    Mamba2 layers and ``flash_fwd`` in the 9 uses of the shared attention
+    block); on the paged engine (DeepSeekMoE-16B) the chunked prefill runs
+    no kernel, as JAX's.  Then two requests alone in a fresh engine, and for
+    Zamba2 three 1024-token prompts' prefill logits through the kernels
+    against the plain path."""
     import numpy as np
     import torch
 
@@ -2424,7 +2554,7 @@ def phase_engine_dense(key: str, results: dict) -> bool:
     from repro_torch.serve.engine import ServeEngine, load_params
     from repro_torch.serve.workload import synthetic_trace
 
-    spec = ENGINE_DENSE[key]
+    spec = ENGINE_SLICES[key]
     cfg = get_config(spec["arch"]).with_(**spec["with"])
     model = build_model(cfg)
     params = load_params(model, seed=0, device="cuda")
@@ -2434,7 +2564,9 @@ def phase_engine_dense(key: str, results: dict) -> bool:
                             prompt_lens=m["prompt_lens"],
                             gen_tokens=m["gen_tokens"], max_len=max_len,
                             **SAMPLING)
-    engine = ServeEngine(model, params, n_slots=m["n_slots"], max_len=max_len)
+    paging = spec.get("engine", {})
+    engine = ServeEngine(model, params, n_slots=m["n_slots"], max_len=max_len,
+                         **paging)
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2448,25 +2580,35 @@ def phase_engine_dense(key: str, results: dict) -> bool:
     lengths = sorted({r.prompt_len for r in trace})
     layers = kernel_layers(cfg)
     admissions = len(trace) + len(lengths)
-    want = {name: n * admissions for name, n in layers.items()}
+    want = {name: 0 if paging else n * admissions
+            for name, n in layers.items()}
     streams = [r["gen_ids"] for r in res["requests"]]
-    done = (res["completed"] == len(trace) and not engine.paged
+    done = (res["completed"] == len(trace) and engine.paged == bool(paging)
             and all(len(s) == m["gen_tokens"][0]
                     and all(0 <= x < cfg.vocab for x in s) for s in streams))
-    solo = ServeEngine(model, params, n_slots=m["n_slots"], max_len=max_len)
+    solo = ServeEngine(model, params, n_slots=m["n_slots"], max_len=max_len,
+                       **paging)
     same = {r.rid: solo.run([r], realtime=False)["requests"][0]["gen_ids"]
             == streams[r.rid] for r in trace[:2]}
     tp = res["tpot_ms"]
+    pool = (f"paged engine (block_len {engine.block_len}, prefill_chunk "
+            f"{paging['prefill_chunk']})" if paging else "dense engine")
     print(f"engine {key}: {cfg.name} full width ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}), dense engine, {len(trace)} requests "
+          f"d_model {cfg.d_model}), {pool}, {len(trace)} requests "
           f"(prompts {m['prompt_lens']}, {m['gen_tokens'][0]} tokens each, "
           f"{SAMPLING}), closed loop: {res['completed']} complete, tokens in "
           f"[0, {cfg.vocab}): {done}", flush=True)
-    print(f"engine {key}: launches over the run {counts} (want "
-          f"{layers['flash_fwd']} attention and {layers['ssd_scan']} SSM "
-          f"layers x ({len(trace)} admissions + {len(lengths)} warm-up "
-          f"admissions, one per prompt length {lengths}) = {want}); alone in "
-          f"a fresh engine the same stream {same}", flush=True)
+    if paging:
+        why = ("0: JAX's paged prefill chunk (gqa_prefill_chunk) computes "
+               "its attention with einsums, outside any Pallas kernel, and "
+               "the port does the same")
+    else:
+        why = (f"{layers['flash_fwd']} attention and {layers['ssd_scan']} "
+               f"SSM layers x ({len(trace)} admissions + {len(lengths)} "
+               f"warm-up admissions, one per prompt length {lengths})")
+    print(f"engine {key}: launches over the run {counts} (want {want}: "
+          f"{why}); alone in a fresh engine the same stream {same}",
+          flush=True)
     print(f"engine {key}: tok_s {res['tok_s']} decode_tok_s "
           f"{res['decode_tok_s']} ttft_s p50 {res['ttft_s']['p50']:.4f} p95 "
           f"{res['ttft_s']['p95']:.4f} tpot_ms p50 {tp['p50']:.4f} p90 "
@@ -2478,68 +2620,96 @@ def phase_engine_dense(key: str, results: dict) -> bool:
         prompt = np.random.default_rng(seed).integers(
             3, cfg.vocab, size=(1, max(m["prompt_lens"])), dtype=np.int32)
         tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
-        ok &= check_hybrid_logits(key, seed, cfg, params, tok,
-                                  spec["logits"])
-    del params, engine, solo
-    torch.cuda.empty_cache()
+        ok &= check_logits(f"engine {key}", seed, cfg, params, tok,
+                           spec["logits"])
+    del params, engine, solo, res
+    _free()
     return bool(ok)
 
 
 def _flash_without_last_kstep(flash_attention):
-    """``flash_attention`` with head dims 64-79 left out of Q·Kᵀ (at dh 80,
-    the bf16 kernel's fifth k-step dropped): a control that a bound on the
-    kernel's logits has to reject."""
+    """``flash_attention`` with the last 16 head dims left out of Q·Kᵀ (the
+    bf16 kernel's last k-step dropped: dims 64-79 at dh 80, 112-127 at dh
+    128, 144-159 at dh 160): a control that a bound on the kernel's logits
+    has to reject."""
     def attention(q, k, v, **kw):
         q = q.clone()
-        q[..., 64:] = 0
+        q[..., q.shape[-1] - 16:] = 0
         return flash_attention(q, k, v, **kw)
 
     return attention
 
 
-def check_hybrid_logits(key, seed, cfg, params, tok, checks) -> bool:
-    """One prompt's prefill logits through both kernels against the plain
-    path, for each of ``checks``: with only the attention plain (the SSD
-    kernel on both sides) or both.  Beside each: the plain path's own
-    spread (the attention that rounds its probabilities to bf16, or
-    ``ssd_chunked`` at chunk 64 against the model's 128) and a control, the
-    flash kernel with its fifth k-step dropped, which must fail the bound
-    where the check says so."""
+def _rerouted(a, b) -> tuple:
+    """(token-layer pairs whose top-k expert sets differ between two runs'
+    recorded routes, pairs in all)."""
+    n = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b))
+    return n, sum(x.shape[0] for x in a)
+
+
+def check_logits(label, seed, cfg, params, tok, checks) -> bool:
+    """One prompt's prefill logits through the kernels against a plain
+    path, for each of ``checks`` (dtype, what is plain, bound, whether the
+    control must fail it, why): the attention (the blockwise online softmax,
+    which keeps f32 probabilities as ``flash_fwd`` does), the attention and
+    the SSD scan (``ssd_chunked``), or the MoE layers (``moe_dense`` in
+    place of the main path, the attention through the kernel on both
+    sides).  Beside each: the plain path's own spread (the attention that
+    rounds its probabilities to the activations' dtype against the
+    blockwise one, or ``ssd_chunked`` at chunk 64 against the model's 128),
+    a control, ``flash_fwd`` with its last k-step dropped, which must fail
+    the bound where the check says so, and for a MoE model the token-layer
+    pairs whose top-k expert set differs between the two paths."""
     import torch
 
     from repro_torch.kernels.flash import ops as flash_ops
 
     control = _flash_without_last_kstep(flash_ops.flash_attention)
+    floors: dict = {}
     ok = True
     for dname, plain, tol, control_fails, why in checks:
         dtype = getattr(torch, dname)
         ssd = "plain" if "SSD" in plain else "kernel"
-        lk = _prefill_logits(cfg, params, tok, dtype)
-        lp = _prefill_logits(cfg, params, tok, dtype, "blockwise", ssd)
+        moe = "dense" if plain == "MoE" else "main"
+        rk, rp = [], []
+        lk = _prefill_logits(cfg, params, tok, dtype, routes=rk)
+        lp = _prefill_logits(cfg, params, tok, dtype,
+                             "kernel" if moe == "dense" else "blockwise", ssd,
+                             moe=moe, routes=rp)
         if ssd == "plain":
             lo = _prefill_logits(cfg, params, tok, dtype, "blockwise", ssd, 64)
-            floor_what = "plain chunk 64 vs 128"
-        else:
+            floors[(dname, ssd)] = (float((lo - lp).abs().max()),
+                                    "plain chunk 64 vs 128")
+        elif (dname, ssd) not in floors:
+            lb = lp if moe == "main" else _prefill_logits(
+                cfg, params, tok, dtype, "blockwise", ssd)
             lo = _prefill_logits(cfg, params, tok, dtype, "full", ssd)
-            floor_what = ("plain attention with its probabilities rounded "
-                          "to the activations' dtype vs blockwise")
+            floors[(dname, ssd)] = (
+                float((lo - lb).abs().max()),
+                "plain attention with its probabilities rounded to the "
+                "activations' dtype vs blockwise")
+        floor, floor_what = floors[(dname, ssd)]
         lc = _prefill_logits(cfg, params, tok, dtype, control)
         torch.cuda.synchronize()
         err = float((lk - lp).abs().max())
-        floor = float((lo - lp).abs().max())
         ctl = float((lc - lp).abs().max())
         good = (bool(torch.isfinite(lk).all()) and err <= tol
                 and (ctl > tol or not control_fails))
-        print(f"engine {key}: prefill logits of one {tok.shape[1]}-token "
-              f"prompt (seed {seed}, {dname}), both kernels vs plain {plain} (blockwise "
-              f"attention): max abs diff {err:.6g}, max |logit| "
+        routed = ""
+        if rk:
+            n, total = _rerouted(rk, rp)
+            routed = (f"; token-layer pairs routed to another expert set "
+                      f"{n} of {total}")
+        print(f"{label}: prefill logits of one {tok.shape[1]}-token "
+              f"prompt (seed {seed}, {dname}), kernel path vs plain {plain}: "
+              f"max abs diff {err:.6g}, max |logit| "
               f"{float(lp.abs().max()):.4f}, same argmax "
-              f"{int(lk.argmax(-1)) == int(lp.argmax(-1))}; {floor_what} "
-              f"(the floor) {floor:.6g}; control, flash_fwd with its fifth "
-              f"k-step dropped, {ctl:.6g}; tol {tol}, kernel within"
-              f"{' and control outside' if control_fails else ''}: "
-              f"{'ok' if good else 'FAILED'} ({why})",
-              flush=True)
+              f"{int(lk.argmax(-1)) == int(lp.argmax(-1))}{routed}; "
+              f"{floor_what} (the floor) {floor:.6g}; control, flash_fwd "
+              f"with its last k-step dropped, {ctl:.6g}; tol {tol}, kernel "
+              f"within{' and control outside' if control_fails else ''}: "
+              f"{'ok' if good else 'FAILED'} ({why})", flush=True)
         ok &= good
     return ok
 
@@ -2627,8 +2797,8 @@ def main() -> int:
     engine_ok = phase_engine_qwen(results, args.profile)
     print(f"phase engine qwen: {'ok' if engine_ok else 'FAILED'}", flush=True)
     ok &= engine_ok
-    for key in ENGINE_DENSE:
-        engine_ok = phase_engine_dense(key, results)
+    for key in ENGINE_SLICES:
+        engine_ok = phase_engine_model(key, results)
         print(f"phase engine {key}: {'ok' if engine_ok else 'FAILED'}",
               flush=True)
         ok &= engine_ok

@@ -50,16 +50,26 @@
 //     128 threads, so each thread copies 5 chunks whose rows it works out
 //     one by one.  Rows of 88 bf16 (176 B) keep the 8 rows of an ldmatrix
 //     phase in 8 distinct bank groups (176 / 16 = 11 is odd).
+//   * dh 160 (StableLM-2-12B) is the widest: Q K^T takes 10 k-steps and
+//     P V 20 n-blocks, so the accumulator alone is 80 floats a thread.  Its
+//     Q fragments are loaded two k-steps at a time inside the Q K^T loop
+//     (8 registers live, where the other head dims hold all NKS k-steps'),
+//     and each group's ring has 2 stages, not 3: three would need 279,552 B
+//     of shared memory, above the 232,448 B a block may have; two need
+//     193,536 B.  A K/V row is 20 chunks of 16 B, copied 10 a thread as at
+//     dh 80; rows of 168 bf16 (336 B, 21 bank groups) keep ldmatrix free of
+//     conflicts.
 //   * Two kv groups of 4 warps hold the same q rows and walk alternate kv
 //     tiles, each with its own m, l and accumulator; at the end the second
 //     group's partial results pass through shared memory and merge into the
 //     first's with the usual rescaling.  Each walk is half as long, and 8
 //     warps per SM hide each other's latencies.
 //   * Each group's K and V tiles flow through its own ring of NSTAGE = 3
-//     stages in dynamic shared memory, filled by cp.async (16 B a thread,
-//     no registers on the way, out-of-range rows zero-filled): tiles i + 1
-//     and i + 2 are in flight while tile i's products run, and one group
-//     barrier per step both publishes tile i and frees the stage of i - 1.
+//     stages (2 at dh 160) in dynamic shared memory, filled by cp.async
+//     (16 B a thread, no registers on the way, out-of-range rows
+//     zero-filled): tiles i + 1 .. i + NSTAGE - 1 are in flight while tile
+//     i's products run, and one group barrier per step both publishes tile
+//     i and frees the stage of i - 1.
 //   * Products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
 //     accumulate); every K and V fragment feeds both m-tiles.  Fragments
 //     come from shared memory by ldmatrix: x4 for Q and K, x4.trans for V.
@@ -246,7 +256,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int NWARP = 4;            // warps of one kv group
 constexpr int NTG = NWARP * 32;     // threads of one kv group
-constexpr int NSTAGE = 3;           // K/V tiles in each group's ring
 constexpr float LOG2E = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16_t;
@@ -263,10 +272,15 @@ template <int V>
 struct IntC {
   static constexpr int value = V;
 };
+// NSTAGE K/V tiles in each group's ring; QSTREAM: Q's fragments are loaded
+// two k-steps at a time inside Q K^T instead of all at once (dh 160, whose
+// ring of 3 stages and registers would not fit)
 template <int DH>
 struct Bf16Tile {
   static constexpr int MT = DH <= 64 ? 2 : 1;
   static constexpr int NKG = 2;
+  static constexpr int NSTAGE = DH > 128 ? 2 : 3;
+  static constexpr bool QSTREAM = DH > 128;
   static constexpr int BQ = QT * MT;
   static constexpr int NT = NKG * NTG;
 };
@@ -276,9 +290,12 @@ struct Bf16Tile {
 template <int DH>
 constexpr size_t smem_bytes_bf16() {
   return sizeof(bf16_t) *
-         (size_t)(Bf16Tile<DH>::BQ + 2 * Bf16Tile<DH>::NKG * NSTAGE * BKV) *
+         (size_t)(Bf16Tile<DH>::BQ +
+                  2 * Bf16Tile<DH>::NKG * Bf16Tile<DH>::NSTAGE * BKV) *
          (DH + 8);
 }
+// the opt-in limit of one block's shared memory on the H100
+constexpr size_t SMEM_LIMIT = 232448;
 
 // barrier of one kv group's NTG threads (id 0 is __syncthreads')
 __device__ __forceinline__ void group_sync(int kg) {
@@ -387,6 +404,7 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
                                   // 8 distinct 16 B bank groups
   constexpr int MT = Bf16Tile<DH>::MT;
   constexpr int NKG = Bf16Tile<DH>::NKG;
+  constexpr int NSTAGE = Bf16Tile<DH>::NSTAGE;
   constexpr int BQ16 = Bf16Tile<DH>::BQ;
   constexpr int NKS = DH / 16;    // k-steps over dh for Q K^T (5 at dh 80:
                                   // the last one pairs with no other)
@@ -482,23 +500,24 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
     }
     cp_async_commit();
   };
-  // copy groups: Q, then the group's first two tiles (or empty groups), so
-  // that before step i exactly tiles i and i + 1 can be in flight
+  // copy groups: Q, then the group's first NSTAGE - 1 tiles (or empty
+  // groups), so that before step i exactly tiles i .. i + NSTAGE - 2 can be
+  // in flight
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
     load_tile_async<DH, QT, Bf16Tile<DH>::NT>(sQ + mt * QT * LD, qb, qrow,
                                              max(qtile[mt], 0) * QT,
                                              qtile[mt] < 0 ? 0 : Sq, tid);
   cp_async_commit();
-  fetch(0, 0);
-  fetch(1, 1);
+#pragma unroll
+  for (int i = 0; i + 1 < NSTAGE; ++i) fetch(i, i);
 
   // this warp's rows of m-tile mt: qw[mt] + g and + 8; both kv groups hold
   // the same rows
   int qw[MT];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) qw[mt] = max(qtile[mt], 0) * QT + warp * 16;
-  cp_async_wait<2>();  // this thread's part of Q
+  cp_async_wait<NSTAGE - 1>();  // this thread's part of Q
   __syncthreads();     // everyone's
   // this lane's ldmatrix row addresses in shared memory, in bytes: Q's and
   // V's matrices are (rows 0-7 | 8-15) x (cols 0-7 | 8-15), K's four
@@ -531,11 +550,12 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
     const int st = i % NSTAGE;
     const int t = t_begin + kg + i * NKG;
     const int k0 = t * BKV;
-    cp_async_wait<1>();  // all but the newest copy group: tile i has landed
+    // all but the newest NSTAGE - 2 copy groups: tile i has landed
+    cp_async_wait<NSTAGE - 2>();
     // tile i is visible to the whole kv group, and the group is done with
-    // step i - 1, whose stage the copy of tile i + 2 now reuses
+    // step i - 1, whose stage the copy of tile i + NSTAGE - 1 now reuses
     group_sync(kg);
-    fetch(i + 2, (st + 2) % NSTAGE);
+    fetch(i + NSTAGE - 1, (st + NSTAGE - 1) % NSTAGE);
     const uint32_t tK = k_lane + B2 * st * TILE;
     const uint32_t tV = v_lane + B2 * st * TILE;
     // one step over the m-tiles in ACT (a bit mask), which see this kv
@@ -543,45 +563,78 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
     // products
     auto step = [&](auto act_c) {
       constexpr int ACT = decltype(act_c)::value;
-      // Q -> A fragments, loaded again at each step so that they do not hold
-      // registers through the softmax and P V: matrices (rows 0-7 | 8-15) x
-      // (cols 0-7 | 8-15)
-      uint32_t qa[MT][NKS][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        if (!((ACT >> mt) & 1)) continue;
-#pragma unroll
-        for (int ks = 0; ks < NKS; ++ks)
-          ldsm_x4(qa[mt][ks], q_lane + B2 * (mt * QT * LD + ks * 16));
-      }
       // S = Q K^T: B[kdim][key] = K[key][kdim] is K's 8x8 blocks untransposed;
       // one x4 gives b0, b1 of k-steps ks and ks + 1, for every m-tile
       float s[MT][NNB][4];
+      if constexpr (Bf16Tile<DH>::QSTREAM) {
+        // Q's A fragments two k-steps at a time (dh 160): the k-step loop
+        // outside, the key n-blocks inside.  Each s[mt][nb] takes the same
+        // products in the same order as below.
+        static_assert(NKS % 2 == 0, "QSTREAM pairs k-steps");
 #pragma unroll
-      for (int nb = 0; nb < NNB; ++nb) {
+        for (int nb = 0; nb < NNB; ++nb)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
+          for (int mt = 0; mt < MT; ++mt)
+            s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks + 1 < NKS; ks += 2) {
-          uint32_t kf[4];
-          ldsm_x4(kf, tK + B2 * (nb * 8 * LD + ks * 16));
+        for (int ks = 0; ks < NKS; ks += 2) {
+          uint32_t qa[MT][2][4];
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             if (!((ACT >> mt) & 1)) continue;
-            mma_bf16(s[mt][nb], qa[mt][ks], kf[0], kf[1]);
-            mma_bf16(s[mt][nb], qa[mt][ks + 1], kf[2], kf[3]);
+            ldsm_x4(qa[mt][0], q_lane + B2 * (mt * QT * LD + ks * 16));
+            ldsm_x4(qa[mt][1], q_lane + B2 * (mt * QT * LD + ks * 16 + 16));
+          }
+#pragma unroll
+          for (int nb = 0; nb < NNB; ++nb) {
+            uint32_t kf[4];
+            ldsm_x4(kf, tK + B2 * (nb * 8 * LD + ks * 16));
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              if (!((ACT >> mt) & 1)) continue;
+              mma_bf16(s[mt][nb], qa[mt][0], kf[0], kf[1]);
+              mma_bf16(s[mt][nb], qa[mt][1], kf[2], kf[3]);
+            }
           }
         }
-        if constexpr (NKS % 2) {
-          // the odd last k-step (dh 80): one x2, lanes 0-15's addresses
-          // name its two 8-column blocks
-          uint32_t kf[2];
-          ldsm_x2(kf, tK + B2 * (nb * 8 * LD + (NKS - 1) * 16));
+      } else {
+        // Q -> A fragments, loaded again at each step so that they do not
+        // hold registers through the softmax and P V: matrices (rows 0-7 |
+        // 8-15) x (cols 0-7 | 8-15)
+        uint32_t qa[MT][NKS][4];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            if (!((ACT >> mt) & 1)) continue;
-            mma_bf16(s[mt][nb], qa[mt][NKS - 1], kf[0], kf[1]);
+        for (int mt = 0; mt < MT; ++mt) {
+          if (!((ACT >> mt) & 1)) continue;
+#pragma unroll
+          for (int ks = 0; ks < NKS; ++ks)
+            ldsm_x4(qa[mt][ks], q_lane + B2 * (mt * QT * LD + ks * 16));
+        }
+#pragma unroll
+        for (int nb = 0; nb < NNB; ++nb) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks + 1 < NKS; ks += 2) {
+            uint32_t kf[4];
+            ldsm_x4(kf, tK + B2 * (nb * 8 * LD + ks * 16));
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              if (!((ACT >> mt) & 1)) continue;
+              mma_bf16(s[mt][nb], qa[mt][ks], kf[0], kf[1]);
+              mma_bf16(s[mt][nb], qa[mt][ks + 1], kf[2], kf[3]);
+            }
+          }
+          if constexpr (NKS % 2) {
+            // the odd last k-step (dh 80): one x2, lanes 0-15's addresses
+            // name its two 8-column blocks
+            uint32_t kf[2];
+            ldsm_x2(kf, tK + B2 * (nb * 8 * LD + (NKS - 1) * 16));
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              if (!((ACT >> mt) & 1)) continue;
+              mma_bf16(s[mt][nb], qa[mt][NKS - 1], kf[0], kf[1]);
+            }
           }
         }
       }
@@ -684,6 +737,9 @@ flash_fwd_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
   // the other groups leave theirs in the rings' shared memory, laid out by
   // (thread in group, value) so that each value is one 4-byte column
   constexpr int NV = MT * (NDB * 4 + 4);
+  static_assert((NKG - 1) * NV * NTG * sizeof(float) <=
+                    2 * NKG * NSTAGE * TILE * sizeof(bf16_t),
+                "the exchange fits in the rings");
   float* xch = reinterpret_cast<float*>(sQ + BQ16 * LD);  // [NKG-1][NV][NTG]
   if (kg > 0) {
     float* mine = xch + (size_t)(kg - 1) * NV * NTG + gtid;
@@ -755,6 +811,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int H, int K, int causal, int window,
                float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes_f32<DH>();
+  static_assert(smem <= SMEM_LIMIT, "the f32 tile exceeds a block's shared memory");
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -775,6 +832,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int H, int K, int causal, int window,
                 float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes_bf16<DH>();
+  static_assert(smem <= SMEM_LIMIT, "the bf16 tile exceeds a block's shared memory");
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -810,6 +868,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       case 64: return launch_f32<64>(FLASH_ARGS);
       case 80: return launch_f32<80>(FLASH_ARGS);
       case 128: return launch_f32<128>(FLASH_ARGS);
+      case 160: return launch_f32<160>(FLASH_ARGS);
     }
   } else if (dtype == 1) {
     switch (dh) {
@@ -817,6 +876,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       case 64: return launch_bf16<64>(FLASH_ARGS);
       case 80: return launch_bf16<80>(FLASH_ARGS);
       case 128: return launch_bf16<128>(FLASH_ARGS);
+      case 160: return launch_bf16<160>(FLASH_ARGS);
     }
   }
 #undef FLASH_ARGS

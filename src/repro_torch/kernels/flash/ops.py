@@ -26,7 +26,7 @@ from ..build import load
 from .ref import attention_ref
 
 #: head dims the kernel is instantiated for
-SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since the last reset; ``chip_smoke.py`` sets it to 0

@@ -2,15 +2,28 @@
 from .base import ArchConfig, MLAConfig, Model, MoEConfig, SSMConfig  # noqa: F401
 
 
+def unported(cfg: ArchConfig) -> str:
+    """Why ``cfg`` cannot be built yet (its ROADMAP item), or ``""``."""
+    if cfg.mla:
+        item = "MLA comes with ROADMAP A7.2"
+    elif cfg.arch_type == "audio":
+        item = "the encoder-decoder comes with ROADMAP A7.5"
+    elif cfg.arch_type == "vlm" or cfg.n_patches:
+        item = "the VLM patch prefix comes with ROADMAP A7.6"
+    elif cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+        item = "the port has no such decoder"
+    else:
+        return ""
+    return (f"{cfg.name}: arch {cfg.arch_type!r} is not ported yet: {item} "
+            f"(the port has the dense, moe, ssm and hybrid decoders)")
+
+
 def build_model(cfg: ArchConfig) -> Model:
-    """The model for ``cfg``; the port has the dense, the ssm (Mamba2) and
-    the hybrid (Zamba2) decoders so far."""
-    kind = "mla" if cfg.mla else cfg.arch_type
-    if kind not in ("dense", "ssm", "hybrid") or cfg.n_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: arch {kind!r} is not ported yet (the port has the "
-            f"dense, ssm and hybrid decoders; moe, mla, audio and vlm come "
-            f"with ROADMAP A7)")
+    """The model for ``cfg``: the dense, MoE, ssm (Mamba2) and hybrid
+    (Zamba2) decoders."""
+    why = unported(cfg)
+    if why:
+        raise NotImplementedError(why)
     from .transformer import DecoderLM
 
     return DecoderLM(cfg)

@@ -17,12 +17,14 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
     """Truncated-normal (±3σ) fan-in init, std ``1/sqrt(fan_in)``.
 
     Made on ``gen.device`` from ``gen``; the same seed gives other numbers
-    than ``jax.random`` (tests carry JAX's params across instead)."""
+    than ``jax.random`` (tests carry JAX's params across instead).  Scaled
+    in place: a full-width MoE stack's expert leaf is 20 GB in f32, and a
+    second copy of it would not fit on the card beside the others."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (out * std).to(dtype)
+    return out.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32):

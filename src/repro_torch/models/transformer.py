@@ -1,18 +1,20 @@
-"""Decoder-only LM (port of ``repro.models.transformer``): dense, SSM
-(Mamba2) and hybrid (Zamba2: Mamba2 layers with one weight-shared attention
-block after every ``attn_every - 1`` of them) stacks.
+"""Decoder-only LM (port of ``repro.models.transformer``): dense, MoE
+(leading dense layers, then shared + routed experts), SSM (Mamba2) and
+hybrid (Zamba2: Mamba2 layers with one weight-shared attention block after
+every ``attn_every - 1`` of them) stacks.
 
 Training runs ``apply`` (embed, the ``Stacked`` fold with its remat policy,
 logits).  Serving has two cache layouts: the dense slot pool (``prefill`` /
 ``prefill_into`` for admission, ``decode_step`` for each tick) and, for
-dense full-context attention, the paged block pool (``init_paged_cache``,
-``prefill_chunk`` for admission in fixed-shape chunks, ``decode_step`` with
-``pages``/``active`` for each tick).  Params keep the JAX tree (``embed``,
-``final_norm``, one stacked tree per homogeneous stack: ``blocks`` for
-dense layers, ``ssm_blocks`` for Mamba2 layers, and for the hybrid one
-unstacked ``shared_attn`` dense block), so ``repro_torch.bridge`` copies JAX
-params in key for key.  MoE, MLA, audio and VLM blocks come with later
-slices.
+dense and MoE full-context attention, the paged block pool
+(``init_paged_cache``, ``prefill_chunk`` for admission in fixed-shape
+chunks, ``decode_step`` with ``pages``/``active`` for each tick).  Params
+keep the JAX tree (``embed``, ``final_norm``, one stacked tree per
+homogeneous stack: ``blocks`` for dense layers, ``dense_blocks`` and
+``moe_blocks`` for a MoE arch with leading dense layers, ``ssm_blocks`` for
+Mamba2 layers, and for the hybrid one unstacked ``shared_attn`` dense
+block), so ``repro_torch.bridge`` copies JAX params in key for key.  MLA
+(A7.2), audio (A7.5) and VLM (A7.6) blocks come with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from . import attention as A
 from . import base as B
 from . import mlp as M
+from . import moe as MOE
 from . import ssm as S
 from . import stacked as ST
 from .common import apply_norm, embed_init, norm_axes, norm_params
@@ -32,11 +35,12 @@ from .common import apply_norm, embed_init, norm_axes, norm_params
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 def _layer_kind(cfg: B.ArchConfig, i: int) -> str:
-    """Layer ``i``'s block kind (JAX's MoE kind comes with its slice)."""
     if cfg.arch_type == "ssm":
         return "ssm"
     if cfg.arch_type == "hybrid":
         return "attn_block" if (i + 1) % cfg.attn_every == 0 else "ssm"
+    if cfg.arch_type == "moe" and i >= cfg.moe.n_dense_layers:
+        return "moe_block"
     return "dense_block"
 
 
@@ -55,13 +59,24 @@ def init_dense_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
     }
 
 
+def init_moe_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
+    lead = tuple(lead)
+    return {
+        "attn_norm": _stacked_norm(cfg, gen, lead),
+        "attn": A.init_gqa(cfg, gen, lead),
+        "mlp_norm": _stacked_norm(cfg, gen, lead),
+        "moe": MOE.init_moe(cfg, gen, lead),
+    }
+
+
 def init_ssm_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
     lead = tuple(lead)
     return {"norm": _stacked_norm(cfg, gen, lead),
             "ssm": S.init_ssm(cfg, gen, lead)}
 
 
-_INIT_BY_KIND = {"dense_block": init_dense_block, "ssm": init_ssm_block}
+_INIT_BY_KIND = {"dense_block": init_dense_block, "moe_block": init_moe_block,
+                 "ssm": init_ssm_block}
 
 
 def dense_block_axes(cfg: B.ArchConfig):
@@ -70,6 +85,15 @@ def dense_block_axes(cfg: B.ArchConfig):
         "attn": A.gqa_axes(cfg),
         "mlp_norm": norm_axes(cfg),
         "mlp": M.mlp_axes(cfg),
+    }
+
+
+def moe_block_axes(cfg: B.ArchConfig):
+    return {
+        "attn_norm": norm_axes(cfg),
+        "attn": A.gqa_axes(cfg),
+        "mlp_norm": norm_axes(cfg),
+        "moe": MOE.moe_axes(cfg),
     }
 
 
@@ -84,20 +108,29 @@ def _with_layer_axis(axes_tree):
     return (B.LAYER,) + tuple(axes_tree)
 
 
-_AXES_BY_KIND = {"dense_block": dense_block_axes, "ssm": ssm_block_axes}
+_AXES_BY_KIND = {"dense_block": dense_block_axes,
+                 "moe_block": moe_block_axes, "ssm": ssm_block_axes}
+
+
+def _ffn(cfg, kind, p, h):
+    """The block's feed-forward half on the normed ``h``: (out, aux), aux
+    the MoE layer's router balance loss, None for a dense MLP."""
+    if kind == "moe_block":
+        return MOE.moe_forward(cfg, p["moe"], h)
+    return M.mlp_forward(cfg, p["mlp"], h), None
 
 
 def apply_block(cfg, kind, p, x, positions):
     """Residual block of the training forward; returns (x, aux).  ``aux``
-    is the router balance loss of MoE blocks, zero here."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    is the router balance loss of MoE blocks, zero for the others."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         return x + S.ssm_forward(cfg, p["ssm"],
-                                 apply_norm(cfg, p["norm"], x)), aux
+                                 apply_norm(cfg, p["norm"], x)), zero
     h = apply_norm(cfg, p["attn_norm"], x)
     x = x + A.gqa_forward(cfg, p["attn"], h, positions)
-    h = apply_norm(cfg, p["mlp_norm"], x)
-    return x + M.mlp_forward(cfg, p["mlp"], h), aux
+    h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
+    return x + h, zero if aux is None else aux
 
 
 def decode_block(cfg, kind, p, cache, x, positions):
@@ -109,39 +142,36 @@ def decode_block(cfg, kind, p, cache, x, positions):
     h = apply_norm(cfg, p["attn_norm"], x)
     h, new_cache = A.gqa_decode(cfg, p["attn"], cache, h, positions)
     x = x + h
-    h = apply_norm(cfg, p["mlp_norm"], x)
-    return x + M.mlp_forward(cfg, p["mlp"], h), new_cache
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
+    return x + h, new_cache
 
 
-def _paged_refusals(cfg, kind):
+def _paged_refusals(cfg):
     if cfg.mla:
         raise NotImplementedError(
             "the paged MLA branch comes with MLA (ROADMAP A7.2)")
-    if kind == "moe_block":
-        raise NotImplementedError(
-            "the paged MoE branch comes with MoE (ROADMAP A7.1)")
 
 
 def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active):
     """``decode_block`` reading/writing K/V through page tables."""
-    _paged_refusals(cfg, kind)
+    _paged_refusals(cfg)
     h = apply_norm(cfg, p["attn_norm"], x)
     h, new_cache = A.gqa_decode_paged(cfg, p["attn"], cache, h, positions,
                                       pages, active)
     x = x + h
-    h = apply_norm(cfg, p["mlp_norm"], x)
-    return x + M.mlp_forward(cfg, p["mlp"], h), new_cache
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
+    return x + h, new_cache
 
 
 def prefill_chunk_block(cfg, kind, p, cache, x, positions, pages_row, n_valid):
     """One layer of the fixed-shape chunked-prefill program."""
-    _paged_refusals(cfg, kind)
+    _paged_refusals(cfg)
     h = apply_norm(cfg, p["attn_norm"], x)
     h, new_cache = A.gqa_prefill_chunk(cfg, p["attn"], cache, h, positions,
                                        pages_row, n_valid)
     x = x + h
-    h = apply_norm(cfg, p["mlp_norm"], x)
-    return x + M.mlp_forward(cfg, p["mlp"], h), new_cache
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
+    return x + h, new_cache
 
 
 def _pad_cache_seq(k, max_len, window):
@@ -181,8 +211,8 @@ def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype):
         "v": _pad_cache_seq(v.to(cache_dtype), max_len, cfg.window),
     }
     x = x + h
-    h = apply_norm(cfg, p["mlp_norm"], x)
-    return x + M.mlp_forward(cfg, p["mlp"], h), cache
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
+    return x + h, cache
 
 
 def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
@@ -192,15 +222,15 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
 
 
 class DecoderLM(B.Model):
-    """Decoder-only language model: ``dense``, ``ssm`` and ``hybrid``
-    archs."""
+    """Decoder-only language model: ``dense``, ``moe``, ``ssm`` and
+    ``hybrid`` archs."""
 
     def __init__(self, cfg: B.ArchConfig):
-        if (cfg.arch_type not in ("dense", "ssm", "hybrid") or cfg.mla
-                or cfg.n_patches):
-            raise NotImplementedError(
-                f"{cfg.name}: the port has dense, ssm and hybrid decoder "
-                f"blocks only so far (arch_type {cfg.arch_type!r})")
+        from . import unported
+
+        why = unported(cfg)
+        if why:
+            raise NotImplementedError(why)
         super().__init__(cfg)
         self.kinds = [_layer_kind(cfg, i) for i in range(cfg.n_layers)]
 
@@ -208,13 +238,21 @@ class DecoderLM(B.Model):
     def _stacks(self):
         """(name, kind, layer indices) of each homogeneous stack; dense and
         ssm archs have one, and so has the hybrid: its Mamba2 layers (the
-        shared attention block is one unstacked tree)."""
-        if self.cfg.arch_type == "hybrid":
+        shared attention block is one unstacked tree).  A MoE arch with
+        leading dense layers has two, ``dense_blocks`` then
+        ``moe_blocks``."""
+        cfg = self.cfg
+        if cfg.arch_type == "hybrid":
             return [("ssm_blocks", "ssm",
                      [i for i, k in enumerate(self.kinds) if k == "ssm"])]
+        if cfg.arch_type == "moe" and cfg.moe.n_dense_layers:
+            nd = cfg.moe.n_dense_layers
+            return [("dense_blocks", "dense_block", list(range(nd))),
+                    ("moe_blocks", "moe_block", list(range(nd, cfg.n_layers)))]
         kind = self.kinds[0]
-        name = {"dense_block": "blocks", "ssm": "ssm_blocks"}[kind]
-        return [(name, kind, list(range(self.cfg.n_layers)))]
+        name = {"dense_block": "blocks", "moe_block": "moe_blocks",
+                "ssm": "ssm_blocks"}[kind]
+        return [(name, kind, list(range(cfg.n_layers)))]
 
     # -- params --------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Dict[str, Any]:

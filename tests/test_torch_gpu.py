@@ -50,6 +50,12 @@ EXTRA_CASES = [
     (1, 300, 300, 4, 2, 80, True, 64, bf16),
     (1, 300, 300, 4, 2, 80, True, 64, f32),
     (2, 192, 192, 4, 2, 80, True, 0, bf16),
+    # dh 160 (StableLM-2-12B, 32 query heads over 8 kv heads): its prefill
+    # shape, a window and a ragged edge in both paths, MQA with Sq != Skv
+    (1, 1024, 1024, 32, 8, 160, True, 0, bf16),
+    (1, 300, 300, 4, 2, 160, True, 64, bf16),
+    (1, 300, 300, 4, 2, 160, True, 64, f32),
+    (1, 128, 384, 4, 1, 160, False, 0, bf16),
 ]
 
 pytestmark = pytest.mark.gpu
@@ -305,6 +311,49 @@ def test_hybrid_train_step_goes_through_both_kernels(cuda):
 # ---------------------------------------------------------------------------
 # training through the kernels (their autograd Functions)
 # ---------------------------------------------------------------------------
+def test_dh160_kernel_gradients_match_plain(cuda):
+    """The wrapper's backward at dh 160 (GQA, causal, f32): the gradients
+    through the kernel's ``autograd.Function`` against autograd of the
+    plain version, within the JAX kernel test's 2e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ins = [torch.randn(shape, generator=gen, device=cuda)
+           for shape in ((1, 160, 4, 160), (1, 160, 2, 160), (1, 160, 2, 160))]
+    a = [t.clone().requires_grad_(True) for t in ins]
+    b = [t.clone().requires_grad_(True) for t in ins]
+    before = ops.launches
+    got = torch.autograd.grad(torch.sum(ops.flash_attention(*a) ** 2), a)
+    assert ops.launches == before + 1
+    want = torch.autograd.grad(torch.sum(attention_ref(*b) ** 2), b)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("T", [8, 1024], ids=["gathered", "grouped"])
+def test_moe_main_path_on_the_card_matches_moe_dense(T, cuda):
+    """DeepSeekMoE-16B's routed experts at full width (64 of width 1408,
+    top 6, d_model 2048) on the card: the main path against the plain
+    ``moe_dense`` on the same routing, 8 tokens (a decode tick: the
+    per-assignment gather) and 1024 (a prefill: grouped by expert).  f32
+    within 1e-5 of the largest element (sums of other orders); bf16 within
+    one bf16 step of it, 2**-7."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+
+    cfg = get_config("deepseek_moe_16b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: v for k, v in MOE.init_moe(cfg, gen).items() if k != "shared"}
+    x32 = torch.randn((T, cfg.d_model), generator=gen, device=cuda)
+    for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        x = x32.to(dt)
+        idx, gate, _ = MOE.route(cfg, p["router"], x)
+        want = MOE.moe_dense(cfg, p, x, idx, gate)
+        got = MOE.moe_routed(cfg, p, x, idx, gate)
+        assert got.dtype == dt and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=rel * scale,
+                                   rtol=0)
+
+
 def _chip_smoke():
     """``chip_smoke.py`` at the repo root: its train-step tolerances."""
     import importlib
