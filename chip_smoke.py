@@ -41,7 +41,13 @@
    and against ``moe_dense`` in place of the MoE main path (the MoE) in
    bf16 and f32 (``check_logits``: beside each the plain path's own spread,
    a control that must fail where the check says so, and the token-layer
-   pairs routed to another expert set).
+   pairs routed to another expert set).  Then DeepSeek-V3 at every width
+   of its config, depth cut to 4 (the 3 dense layers and one MoE layer of
+   256 routed experts, top 8, 1 shared; MLA, which runs no kernel, as in
+   JAX), with ``dsv3_checks``: 2 requests' decode against ``apply`` (f32),
+   the absorbed decode against the expanded one (f32, bf16), the full MLA
+   path against the blockwise one, and the MoE main path against
+   ``moe_dense`` beside a control that drops each token's k-th expert.
 5. Training (``repro_torch.run.api`` on ``examples/configs/quickstart.yaml``,
    its dataset written to a temporary directory): the unchanged document's
    60 steps; then full-width Qwen1.5-0.5B through the flash kernel (10
@@ -52,7 +58,10 @@
    Zamba2-2.7B through both kernels (3 steps), against both plain versions;
    then DeepSeekMoE-16B at full width and depth 4 (1 dense + 3 MoE layers)
    through the flash kernel (3 steps), its ``router_lb`` printed, the
-   router's gradients among those held against the plain path.
+   router's gradients among those held against the plain path; then
+   DeepSeek-V3 at full width and depth 3 (the dense layers) with its MTP
+   head (3 steps), its ce, MTP and total losses by step, one step's loss
+   and gradients through the full MLA path against the blockwise one.
 6. Checkpoints: the two commands in ``warmstart.yaml``'s header (the
    unchanged quickstart with ``gym.config.ckpt_every=20``, then the
    unchanged ``warmstart.yaml`` from its checkpoint); then full-width
@@ -100,7 +109,9 @@
    of 16, chunk 256), each 16 sampled requests of 256/512/1024 prompt
    tokens, with two solo streams, and for Zamba2 three prompts' prefill
    logits through the kernels against the plain path, beside a control
-   that the bounds must reject.
+   that the bounds must reject; last, DeepSeek-V3 at depth 4 on the paged
+   engine, the same trace with the expanded and with the absorbed MLA
+   decode, and the latent cache's bytes.
 
 Every launch counter is set to 0 just before a slice drives its main path
 (the serve run, the training run, the engine run) and read just after; the
@@ -163,6 +174,14 @@ SSM_LOGITS_F32_TOL_WHY = (
 SSD_STATE_TOL = 1e-4
 
 
+# DeepSeek-V3 (arXiv:2412.19437) at every width of its config, depth cut:
+# serving runs the 3 leading dense layers and one MoE layer of 256 routed
+# experts, top 8, 1 shared (14,388,066,304 params, 53.6 GiB in f32; the 61
+# layers' 671 B would not fit one card), training the 3 dense layers and
+# the MTP head (2,880,780,288 params; with the MoE layer, params, gradients
+# and AdamW moments would take ~214 GiB).
+DSV3_SERVE_LAYERS, DSV3_TRAIN_LAYERS = 4, 3
+
 # training: the quickstart document at full width, the steps of each run,
 # and for each activation dtype the (loss, gradient) tolerances of one step
 # through the kernel against the plain path (see TRAIN_TOL_WHY)
@@ -195,6 +214,16 @@ TRAIN_SLICES = {
                         "arch.config.use_flash_kernel=true"],
                "flops": 6.0 * 703219712 * 8 * 1024,
                "tols": {"bfloat16": (2e-3, 0.25), "float32": (1e-5, 5e-5)}},
+    # full width, depth cut to DSV3_TRAIN_LAYERS (the dense layers, an
+    # empty MoE stack) + the MTP head; no kernel (MLA is einsums, as in
+    # JAX): its step holds the full MLA path against the blockwise one
+    "dsv3": {"arch": "deepseek_v3_671b", "steps": 3,
+             "kernel": "no kernel (MLA's einsums)",
+             "sets": ["arch.variant_key=deepseek_v3_671b",
+                      f"arch.config.n_layers={DSV3_TRAIN_LAYERS}"],
+             "flops": 6.0 * 2880780288 * 8 * 1024,
+             "compare": "full MLA path vs blockwise",
+             "tols": {"bfloat16": (1e-3, 0.06), "float32": (1e-5, 1e-4)}},
 }
 TRAIN_TOL_WHY = {
     "bfloat16": (
@@ -215,14 +244,22 @@ TRAIN_TOL_WHY = {
         "2e-3. DeepSeekMoE-16B at depth 4, where bf16 rounding also "
         "reroutes tokens at router near-ties: floor 0.101 and |dloss| "
         "4.2e-4, the kernel's 0.115 and 7.9e-4, both worst at the router; "
-        "bounds 0.25 and 2e-3"),
+        "bounds 0.25 and 2e-3. DeepSeek-V3 at depth 3 + MTP holds its full "
+        "MLA path (probabilities rounded to bf16 before PV) against the "
+        "blockwise one (f32 probabilities), beside the floor of the "
+        "blockwise path at kv blocks of 512 against 256: on an H100 with "
+        "these seeds |dloss| 2.6e-4 and worst leaf 0.020 (the MTP block's "
+        "q_norm), floor 9.9e-5 and 0.016; Qwen's bounds, 1e-3 and 0.06, "
+        "about three times the larger"),
     "float32": (
         "f32 activations, where kernel and plain path differ only in f32 "
         "summation order (and the SSD kernel's hi/lo bf16 split of f32 "
         "operands): on an H100 with these seeds the worst leaf is 4.8e-6 "
         "(Qwen), 1.0e-4 (Mamba2, floor 3e-5), 7.6e-5 (Zamba2, floor "
         "3.3e-5) and 4.8e-6 (DeepSeekMoE-16B, floor 5.2e-6); each bound is "
-        "about ten times that, the loss bound ten times the 9.5e-7 seen"),
+        "about ten times that, the loss bound ten times the 9.5e-7 seen. "
+        "DeepSeek-V3 (full vs blockwise MLA): 6.5e-6, floor 6.3e-6, |dloss| "
+        "0; Qwen's bound, 1e-4"),
 }
 def card_line() -> str:
     out = subprocess.run(
@@ -591,6 +628,46 @@ SLICES = {
                     "kernel": "flash_fwd", "logits": STABLELM12B_LOGITS},
     "moe16b": {"arch": "deepseek_moe_16b", "with": {"use_flash_kernel": True},
                "kernel": "flash_fwd", "logits": MOE16B_LOGITS},
+    # full width, depth cut to DSV3_SERVE_LAYERS; no kernel (MLA is einsums,
+    # as in JAX), its checks are dsv3_checks'
+    "dsv3": {"arch": "deepseek_v3_671b",
+             "with": {"n_layers": DSV3_SERVE_LAYERS}, "kernel": "flash_fwd",
+             # (a lambda: dsv3_checks is defined further down)
+             "checks": lambda *a: dsv3_checks(*a)},
+}
+
+# the decode checks teacher-force the first DSV3_CHECK_REQUESTS of the
+# slice's requests along their generated tokens; the MoE check runs a
+# DSV3_MOE_PROMPT-token prompt (moe_dense's [T, 256, 7168] f32 outputs at
+# 1024 tokens would not fit beside the params)
+DSV3_CHECK_REQUESTS, DSV3_MOE_PROMPT = 2, 256
+# (name, activations, bound, why) of each DeepSeek-V3 serving check
+DSV3_DECODE_TOL = 5e-4
+DSV3_DECODE_WHY = (
+    "JAX's bound for decode against the forward in f32 "
+    "(tests/test_decode_consistency.py): the latent cache holds the "
+    "forward's own rows, so only f32 sum orders differ")
+DSV3_BF16_TOL = 1.0
+DSV3_BF16_WHY = (
+    "bf16 activations: the two paths round at other places (the absorbed "
+    "decode scores in the latent space; the full forward rounds its "
+    "probabilities to bf16 before PV, the blockwise one keeps them in f32) "
+    "and a token-layer pair at a near-tie of the MoE layer's 256 router "
+    "probabilities takes another expert set. On an H100 with these seeds "
+    "the floor (the expanded decode against the forward, bf16) reads "
+    "0.477, absorbed vs expanded 0.512 and full vs blockwise 0.109 at "
+    "logits of size ~9; the bound is about twice the floor")
+DSV3_MOE_TOLS = {
+    "float32": (5e-4, "f32 activations: the same expert products summed in "
+                "other orders, and a single MoE layer, so no pair is "
+                "rerouted between the two paths. Main path 7.6e-6, floor "
+                "2.1e-5, control 0.291 on an H100: DSV3_DECODE_TOL"),
+    "bfloat16": (0.1, "bf16 activations, the routing the same on both paths "
+                 "(one MoE layer, the last): one bf16 rounding of each "
+                 "routed output from f32 sums of other orders. Main path "
+                 "0.031, control 0.258 on an H100 with this seed (the "
+                 "attention's floor, 0.42, is another path's): the bound "
+                 "lies between the two"),
 }
 
 
@@ -633,9 +710,21 @@ def _prefill_logits(cfg, params, tok, dtype, attention="kernel",
     the kernel does (``"blockwise"``), or a function called in the flash
     wrapper's place (a control).  ``ssd``: the SSD kernel (``"kernel"``) or
     ``ssd_chunked`` at ``chunk_override`` or the model's chunk
-    (``"plain"``).  ``moe``: the MoE layers' main path (``"main"``) or the
-    plain ``moe_dense`` (``"dense"``); ``routes``, a list, receives each
+    (``"plain"``).  ``moe``: the MoE layers' main path (``"main"``), the
+    plain ``moe_dense`` (``"dense"``) or a function called in
+    ``moe_routed``'s place (a control); ``routes``, a list, receives each
     MoE layer's expert indices."""
+    model, stack = _patched(cfg, dtype, attention, ssd, chunk_override, moe,
+                            routes)
+    with stack:
+        logits, _ = model.prefill(params, {"tokens": tok})
+    return logits.float()
+
+
+def _patched(cfg, dtype, attention="kernel", ssd="kernel",
+             chunk_override: int = 0, moe="main", routes=None):
+    """(model, context): ``cfg``'s model and the patches that
+    ``_prefill_logits`` describes, to enter around the calls."""
     import contextlib
 
     import repro_torch.models.attention as attn
@@ -648,32 +737,32 @@ def _prefill_logits(cfg, params, tok, dtype, attention="kernel",
     model = build_model(cfg.with_(use_flash_kernel=False) if plain_attn
                         else cfg)
     embed = model.embed_tokens
-    with contextlib.ExitStack() as stack:
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        model, "embed_tokens", lambda p, t: embed(p, t, dtype=dtype)))
+    if ssd == "plain":
         stack.enter_context(mock.patch.object(
-            model, "embed_tokens", lambda p, t: embed(p, t, dtype=dtype)))
-        if ssd == "plain":
-            stack.enter_context(mock.patch.object(
-                ssm, "ssd_scan", _plain_ssm_scan(chunk_override)))
-        if attention == "blockwise":
-            stack.enter_context(mock.patch.object(attn, "_BLOCKWISE_AT", 0))
-        elif callable(attention):
-            stack.enter_context(mock.patch.object(
-                flash_ops, "flash_attention", attention))
-        if moe == "dense":
-            stack.enter_context(mock.patch.object(
-                moe_mod, "moe_routed", moe_mod.moe_dense))
-        if routes is not None:
-            route = moe_mod.route
+            ssm, "ssd_scan", _plain_ssm_scan(chunk_override)))
+    if attention == "blockwise":
+        stack.enter_context(mock.patch.object(attn, "_BLOCKWISE_AT", 0))
+    elif callable(attention):
+        stack.enter_context(mock.patch.object(
+            flash_ops, "flash_attention", attention))
+    if moe == "dense":
+        stack.enter_context(mock.patch.object(
+            moe_mod, "moe_routed", moe_mod.moe_dense))
+    elif callable(moe):
+        stack.enter_context(mock.patch.object(moe_mod, "moe_routed", moe))
+    if routes is not None:
+        route = moe_mod.route
 
-            def recording(cfg_, w, x):
-                out = route(cfg_, w, x)
-                routes.append(out[0])
-                return out
+        def recording(cfg_, w, x):
+            out = route(cfg_, w, x)
+            routes.append(out[0])
+            return out
 
-            stack.enter_context(mock.patch.object(moe_mod, "route",
-                                                  recording))
-        logits, _ = model.prefill(params, {"tokens": tok})
-    return logits.float()
+        stack.enter_context(mock.patch.object(moe_mod, "route", recording))
+    return model, stack
 
 
 def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
@@ -732,6 +821,8 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
     if "logits" in spec:
         ok &= check_logits(f"slice {key}", 1, cfg, params, tok,
                            spec["logits"])
+    if "checks" in spec:
+        ok &= spec["checks"](cfg, params, res, tok)
     for dname, (tol, why) in spec.get("tols", {}).items():
         dtype = getattr(torch, dname)
         lk = _prefill_logits(cfg, params, tok, dtype)
@@ -757,6 +848,165 @@ def phase_slice(key: str, results: dict, profile_dir: str = "") -> bool:
     del params, res
     _free()
     return ok
+
+
+def _decode_logits(cfg, params, prompts, gen, dtype, routes=None):
+    """Teacher-forced decode on the dense latent cache: ``prompts [B, P]``
+    prefilled into a cache of ``dtype`` with P + G rows, then
+    ``gen[:, :G - 1]`` decoded a token a step; the logits that predict
+    positions P .. P + G - 1, ``[B, G, vocab]`` in f32."""
+    import torch
+
+    model, stack = _patched(cfg, dtype, routes=routes)
+    B, P = prompts.shape
+    G = gen.shape[1]
+    outs = []
+    with stack, torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_len=P + G, cache_dtype=dtype)
+        outs.append(logits.float())
+        for j in range(G - 1):
+            logits, cache = model.decode_step(
+                params, cache, gen[:, j],
+                torch.full((B,), P + j, dtype=torch.int64,
+                           device=prompts.device))
+            outs.append(logits.float())
+    return torch.stack(outs, 1)
+
+
+def _forward_logits(cfg, params, prompts, gen, dtype, attention="kernel"):
+    """``apply`` on ``prompts`` followed by ``gen[:, :G - 1]``: the logits
+    at the positions ``_decode_logits`` returns, in f32."""
+    import torch
+
+    model, stack = _patched(cfg, dtype, attention)
+    P, G = prompts.shape[1], gen.shape[1]
+    with stack, torch.no_grad():
+        logits, _ = model.apply(params, {"tokens": torch.cat(
+            [prompts, gen[:, :G - 1]], 1)})
+    return logits[:, P - 1:].float().contiguous()
+
+
+def _moe_without_last_expert():
+    """The MoE main path with each token's k-th expert left out (its gate
+    set to 0): a control that a bound on the MoE logits has to reject."""
+    import torch
+
+    import repro_torch.models.moe as moe_mod
+
+    routed = moe_mod.moe_routed
+
+    def moe(cfg, p, x, idx, gate):
+        keep = torch.arange(gate.shape[1], device=gate.device) < \
+            gate.shape[1] - 1
+        return routed(cfg, p, x, idx, gate * keep)
+
+    return moe
+
+
+def _dsv3_row(label, err, size, tol, floor, floor_what, why, extra="",
+              control=None):
+    """Print one DeepSeek-V3 check; True when ``err`` is within ``tol`` and
+    the ``control`` reading, where there is one, outside it."""
+    good = err <= tol and (control is None or control > tol)
+    print(f"slice dsv3: {label}: max abs diff {err:.6g}, max |logit| "
+          f"{size:.4f}{extra}; {floor_what} (the floor) {floor:.6g}; tol "
+          f"{tol}: {'ok' if good else 'FAILED'} ({why})", flush=True)
+    return good
+
+
+def dsv3_checks(cfg, params, res, tok) -> bool:
+    """DeepSeek-V3's serving checks on the card, on the slice's weights:
+    (1) the decode of the first ``DSV3_CHECK_REQUESTS`` requests,
+    teacher-forced along their generated tokens, against ``apply`` on
+    prompt + tokens, f32; (2) the absorbed decode against the expanded one,
+    f32 and bf16; (3) ``mla_forward``'s full path against
+    ``_mla_blockwise`` (``_BLOCKWISE_AT`` lowered here only) on one prompt's
+    prefill logits, f32 and bf16; (4) the MoE main path against
+    ``moe_dense`` on a ``DSV3_MOE_PROMPT``-token prompt, f32 and bf16,
+    beside a control that drops each token's k-th expert.  bf16 rows count
+    the token-layer pairs routed to another expert set."""
+    import numpy as np
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = DSV3_CHECK_REQUESTS
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        3, cfg.vocab, size=(SLICE_BATCH, SLICE_PROMPT), dtype=np.int32)[:n],
+        dtype=torch.int64, device="cuda")
+    gen = torch.as_tensor(res["generated_ids"][:n], dtype=torch.int64,
+                          device="cuda")
+    G = gen.shape[1]
+    absorbed = cfg.with_(mla_absorb=True)
+    what = f"{n} requests x {G} positions"
+    ok = True
+
+    dec = _decode_logits(cfg, params, prompts, gen, f32)
+    fwd = _forward_logits(cfg, params, prompts, gen, f32)
+    floor32 = float((fwd - _forward_logits(cfg, params, prompts, gen, f32,
+                                           "blockwise")).abs().max())
+    fw32 = "full vs blockwise forward, f32"
+    ok &= _dsv3_row(f"(1) decode vs forward (float32, {what})",
+                    float((dec - fwd).abs().max()), float(fwd.abs().max()),
+                    DSV3_DECODE_TOL, floor32, fw32, DSV3_DECODE_WHY)
+    ok &= bool(torch.isfinite(dec).all())
+    dec_a = _decode_logits(absorbed, params, prompts, gen, f32)
+    ok &= _dsv3_row(f"(2) absorbed vs expanded decode (float32, {what})",
+                    float((dec_a - dec).abs().max()), float(dec.abs().max()),
+                    DSV3_DECODE_TOL, floor32, fw32, DSV3_DECODE_WHY)
+    del dec, fwd, dec_a
+    ra, rb = [], []
+    dec16 = _decode_logits(cfg, params, prompts, gen, bf16, routes=ra)
+    dec16_a = _decode_logits(absorbed, params, prompts, gen, bf16,
+                             routes=rb)
+    floor16 = float((dec16 - _forward_logits(cfg, params, prompts, gen,
+                                             bf16)).abs().max())
+    fw16 = "expanded decode vs forward, bf16"
+    r, total = _rerouted(ra, rb)
+    ok &= _dsv3_row(f"(2) absorbed vs expanded decode (bfloat16, {what})",
+                    float((dec16_a - dec16).abs().max()),
+                    float(dec16.abs().max()), DSV3_BF16_TOL, floor16, fw16,
+                    DSV3_BF16_WHY, f"; token-layer pairs routed to another "
+                    f"expert set {r} of {total}")
+    del dec16, dec16_a
+
+    for dname, tol, floor, fwhat, why in (
+            ("float32", DSV3_DECODE_TOL, floor32, fw32, DSV3_DECODE_WHY),
+            ("bfloat16", DSV3_BF16_TOL, floor16, fw16, DSV3_BF16_WHY)):
+        dt = getattr(torch, dname)
+        r1, r2 = [], []
+        lf = _prefill_logits(cfg, params, tok, dt, routes=r1)
+        lb = _prefill_logits(cfg, params, tok, dt, "blockwise", routes=r2)
+        r, total = _rerouted(r1, r2)
+        ok &= _dsv3_row(
+            f"(3) prefill logits of one {tok.shape[1]}-token prompt, "
+            f"mla_forward full vs _mla_blockwise ({dname})",
+            float((lf - lb).abs().max()), float(lf.abs().max()), tol, floor,
+            fwhat, why, f", same argmax {int(lf.argmax()) == int(lb.argmax())}"
+            f"; token-layer pairs routed to another expert set {r} of "
+            f"{total}")
+
+    short = tok[:, :DSV3_MOE_PROMPT]
+    control = _moe_without_last_expert()
+    for dname, (tol, why) in DSV3_MOE_TOLS.items():
+        dt = getattr(torch, dname)
+        r1, r2 = [], []
+        lm = _prefill_logits(cfg, params, short, dt, routes=r1)
+        ld = _prefill_logits(cfg, params, short, dt, moe="dense", routes=r2)
+        lc = _prefill_logits(cfg, params, short, dt, moe=control)
+        floor = float((lm - _prefill_logits(cfg, params, short, dt,
+                                            "blockwise")).abs().max())
+        r, total = _rerouted(r1, r2)
+        ctl = float((lc - ld).abs().max())
+        ok &= _dsv3_row(
+            f"(4) prefill logits of one {DSV3_MOE_PROMPT}-token prompt, the "
+            f"MoE main path vs moe_dense ({dname})",
+            float((lm - ld).abs().max()), float(ld.abs().max()), tol, floor,
+            "full vs blockwise attention", why,
+            f"; token-layer pairs routed to another expert set {r} of "
+            f"{total}; control, each token's k-th expert dropped, {ctl:.6g} "
+            f"(must exceed the tol)", control=ctl)
+    return bool(ok)
 
 
 def _free() -> None:
@@ -941,6 +1191,8 @@ def grad_diff(a, b):
     lb, gb = b
     rel = {}
     for path, x, y in zip(_leaf_paths(ga), tree_leaves(ga), tree_leaves(gb)):
+        if not x.numel():
+            continue          # an empty stack (DeepSeek-V3 at depth 3)
         scale = float(x.float().abs().max())
         rel[path] = float((x.float() - y.float()).abs().max()) / max(
             scale, 1e-30)
@@ -969,6 +1221,7 @@ def compare_train_step(key, cfg, params, batch, lora=None,
     plain path, in bf16 and in f32 activations, beside the model's own
     spread (two plain paths).  With ``lora`` (Qwen) the model is wrapped in
     those adapters and the gradients are the adapters' alone."""
+    import functools
     import math
 
     import torch
@@ -985,62 +1238,104 @@ def compare_train_step(key, cfg, params, batch, lora=None,
     def wrap(model):
         return model if lora is None else LO.LoRAModel(model, lora)
 
-    ok = True
-    for dname, (loss_tol, grad_tol) in TRAIN_SLICES[key]["tols"].items():
-        dtype = getattr(torch, dname)
-        kernel = step_grads(wrap(_acts(build_model(cfg), dtype)), params,
-                            batch, trainable)
+    def paths(dtype):
+        """(plain path, a second plain path for the floor, what the floor
+        compares), each a call that returns one step's (loss, grads)."""
         if key in ("qwen", "moe16b"):
             plain_model = wrap(_acts(build_model(
                 cfg.with_(use_flash_kernel=False)), dtype))
-            plain = step_grads(plain_model, params, batch, trainable)
-            # the online-softmax path (f32 probabilities) in place of
-            # _full_attn (probabilities rounded to the activation dtype
-            # before PV): the same function summed in another order
-            with mock.patch.object(attn, "_BLOCKWISE_AT", 0):
-                other = step_grads(plain_model, params, batch, trainable)
-            floor_what = "plain full vs plain blockwise attention"
-        elif key == "zamba2":
-            plain_model = _acts(build_model(cfg.with_(use_flash_kernel=False)),
-                                dtype)
-            with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan()):
-                plain = step_grads(plain_model, params, batch)
-            with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan(64)), \
-                    mock.patch.object(attn, "_BLOCKWISE_AT", 0):
-                other = step_grads(plain_model, params, batch)
-            floor_what = ("plain full attention and chunk 128 vs plain "
-                          "blockwise attention and chunk 64")
-        else:
+
+            def other():
+                # the online-softmax path (f32 probabilities) in place of
+                # _full_attn (probabilities rounded to the activation dtype
+                # before PV): the same function summed in another order
+                with mock.patch.object(attn, "_BLOCKWISE_AT", 0):
+                    return step_grads(plain_model, params, batch, trainable)
+
+            return (lambda: step_grads(plain_model, params, batch, trainable),
+                    other, "plain full vs plain blockwise attention")
+        if key == "dsv3":
+            # no kernel: the full MLA path against the blockwise loop, and
+            # the blockwise loop at two block sizes as the floor
             model = _acts(build_model(cfg), dtype)
+
+            def plain():
+                with mock.patch.object(attn, "_BLOCKWISE_AT", 0):
+                    return step_grads(model, params, batch)
+
+            def other():
+                with mock.patch.object(attn, "_BLOCKWISE_AT", 0), \
+                        mock.patch.object(attn, "_mla_blockwise",
+                                          functools.partial(
+                                              attn._mla_blockwise,
+                                              kv_block=256)):
+                    return step_grads(model, params, batch)
+
+            return plain, other, "blockwise at kv blocks of 512 vs 256"
+        if key == "zamba2":
+            model = _acts(build_model(cfg.with_(use_flash_kernel=False)),
+                          dtype)
+
+            def plain():
+                with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan()):
+                    return step_grads(model, params, batch)
+
+            def other():
+                with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan(64)), \
+                        mock.patch.object(attn, "_BLOCKWISE_AT", 0):
+                    return step_grads(model, params, batch)
+
+            return plain, other, ("plain full attention and chunk 128 vs "
+                                  "plain blockwise attention and chunk 64")
+        model = _acts(build_model(cfg), dtype)
+
+        def plain():
             with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan()):
-                plain = step_grads(model, params, batch)
+                return step_grads(model, params, batch)
+
+        def other():
             with mock.patch.object(ssm, "ssd_scan", _plain_ssm_scan(64)):
-                other = step_grads(model, params, batch)
-            floor_what = "plain chunk 128 vs plain chunk 64"
+                return step_grads(model, params, batch)
+
+        return plain, other, "plain chunk 128 vs plain chunk 64"
+
+    ok = True
+    for dname, (loss_tol, grad_tol) in TRAIN_SLICES[key]["tols"].items():
+        dtype = getattr(torch, dname)
+        plain_fn, other_fn, floor_what = paths(dtype)
+        # two gradient trees live at a time: a full-width one is 10.7 GiB
+        # in f32 for DeepSeek-V3 at depth 3
+        kernel = step_grads(wrap(_acts(build_model(cfg), dtype)), params,
+                            batch, trainable)
+        plain = plain_fn()
         torch.cuda.synchronize()
         dloss, rel, worst = grad_diff(plain, kernel)
-        floss, frel, fworst = grad_diff(plain, other)
         finite = math.isfinite(kernel[0]) and all(
             bool(torch.isfinite(g).all()) for g in tree_leaves(kernel[1]))
         nonzero = all(float(g.float().abs().max()) > 0
-                      for g in tree_leaves(kernel[1]))
+                      for g in tree_leaves(kernel[1]) if g.numel())
+        kernel_loss = kernel[0]
+        del kernel
+        other = other_fn()
+        floss, frel, fworst = grad_diff(plain, other)
         good = (finite and nonzero and dloss <= loss_tol
                 and rel[worst] <= grad_tol)
         ok &= good
-        print(f"{label}: one step ({dname}) kernel vs plain: loss "
-              f"{kernel[0]:.6f} vs {plain[0]:.6f}, |dloss| {dloss:.6g} (tol "
+        vs = TRAIN_SLICES[key].get("compare", "kernel vs plain")
+        print(f"{label}: one step ({dname}) {vs}: loss "
+              f"{kernel_loss:.6f} vs {plain[0]:.6f}, |dloss| {dloss:.6g} (tol "
               f"{loss_tol}); worst leaf {worst} max|dg|/max|g| "
               f"{rel[worst]:.6g} (tol {grad_tol}); every leaf's gradient "
               f"finite {finite} and non-zero {nonzero}: "
               f"{'ok' if good else 'FAILED'}", flush=True)
-        print(f"{label}: ({dname}) per leaf max|dg|/max|g| kernel vs "
-              f"plain {json.dumps({p: float(f"{v:.4g}") for p, v in rel.items()})}",
+        print(f"{label}: ({dname}) per leaf max|dg|/max|g| {vs} "
+              f"{json.dumps({p: float(f"{v:.4g}") for p, v in rel.items()})}",
               flush=True)
         print(f"{label}: ({dname}) the model's own spread "
               f"({floor_what}): |dloss| {floss:.6g}, per leaf "
               f"{json.dumps({p: float(f"{v:.4g}") for p, v in frel.items()})}; "
               f"tolerances: {TRAIN_TOL_WHY[dname]}", flush=True)
-        del kernel, plain, other
+        del plain, other
     return ok
 
 
@@ -1098,10 +1393,28 @@ def phase_train_full(key: str, data_dir: str, results: dict, card: str,
           f"{losses[-1] < losses[0]}", flush=True)
     if cfg.moe:
         lbs = [h["router_lb"] for h in hist]
+        routed = cfg.n_layers > cfg.moe.n_dense_layers
         print(f"train {key}: router_lb (the balance loss, in the total) per "
               f"step {json.dumps([round(x, 7) for x in lbs])}, finite "
-              f"{all(math.isfinite(x) for x in lbs)}", flush=True)
-        ok &= all(math.isfinite(x) and x > 0 for x in lbs)
+              f"{all(math.isfinite(x) for x in lbs)}"
+              f"{'' if routed else ' (no MoE layer at this depth: 0)'}",
+              flush=True)
+        ok &= all(math.isfinite(x) and (x > 0 if routed else x == 0)
+                  for x in lbs)
+    if cfg.mtp:
+        mtps = [h["mtp"] for h in hist]
+        totals = [h["loss"] + h["router_lb"] + 0.3 * m
+                  for h, m in zip(hist, mtps)]
+        def fmt(xs):
+            return json.dumps([round(x, 5) for x in xs])
+
+        print(f"train {key}: ce per step {fmt(losses)}, mtp (the MTP head's "
+              f"loss) {fmt(mtps)}, total (ce + router_lb + 0.3 mtp) "
+              f"{fmt(totals)}; each finite and "
+              f"falling {all(math.isfinite(x) for x in mtps + totals)} and "
+              f"{mtps[-1] < mtps[0] and totals[-1] < totals[0]}", flush=True)
+        ok &= (all(math.isfinite(x) for x in mtps + totals)
+               and mtps[-1] < mtps[0] and totals[-1] < totals[0])
     print(f"train {key}: launches over the run {counts} (want, for "
           f"{spec['kernel']}: {layers['flash_fwd']} attention layers and "
           f"{layers['ssd_scan']} SSM layers, each x 2 (forward and remat "
@@ -2282,6 +2595,12 @@ ENGINE_SLICES = {
                "logits": ZAMBA2_LOGITS, "logit_seeds": (1, 2, 3)},
     "moe16b": {"arch": "deepseek_moe_16b", "with": {"use_flash_kernel": True},
                "engine": {"block_len": 16, "prefill_chunk": 256}},
+    # the served depth (DSV3_SERVE_LAYERS), latent pages, run with the
+    # expanded decode (JAX's default) and with the absorbed one
+    "dsv3": {"arch": "deepseek_v3_671b",
+             "with": {"n_layers": DSV3_SERVE_LAYERS},
+             "engine": {"block_len": 16, "prefill_chunk": 256},
+             "absorb": (False, True)},
 }
 
 
@@ -2542,22 +2861,50 @@ def phase_engine_model(key: str, results: dict) -> bool:
     engine every admission's prefill runs the model's kernels in every
     layer (Mamba2: ``ssd_scan`` in 48 layers; Zamba2: ``ssd_scan`` in 45
     Mamba2 layers and ``flash_fwd`` in the 9 uses of the shared attention
-    block); on the paged engine (DeepSeekMoE-16B) the chunked prefill runs
-    no kernel, as JAX's.  Then two requests alone in a fresh engine, and for
-    Zamba2 three 1024-token prompts' prefill logits through the kernels
-    against the plain path."""
+    block); on the paged engine (DeepSeekMoE-16B, DeepSeek-V3) the chunked
+    prefill runs no kernel, as JAX's.  Then two requests alone in a fresh
+    engine, and for Zamba2 three 1024-token prompts' prefill logits
+    through the kernels against the plain path.  DeepSeek-V3 runs the trace
+    twice on the same weights, with the expanded and the absorbed MLA
+    decode."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serve.engine import ServeEngine, load_params
-    from repro_torch.serve.workload import synthetic_trace
+    from repro_torch.serve.engine import load_params
 
     spec = ENGINE_SLICES[key]
     cfg = get_config(spec["arch"]).with_(**spec["with"])
+    params = load_params(build_model(cfg), seed=0, device="cuda")
+    ok = True
+    for absorb in spec.get("absorb", (None,)):
+        run_cfg = cfg if absorb is None else cfg.with_(mla_absorb=absorb)
+        label = key if absorb is None else (
+            f"{key} ({'absorbed' if absorb else 'expanded'} decode)")
+        ok &= _engine_run(label, spec, run_cfg, params, results)
+    m = ENGINE_DENSE_TRACE
+    for seed in spec.get("logit_seeds", ()):
+        prompt = np.random.default_rng(seed).integers(
+            3, cfg.vocab, size=(1, max(m["prompt_lens"])), dtype=np.int32)
+        tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
+        ok &= check_logits(f"engine {key}", seed, cfg, params, tok,
+                           spec["logits"])
+    del params
+    _free()
+    return bool(ok)
+
+
+def _engine_run(key: str, spec: dict, cfg, params, results: dict) -> bool:
+    """``ENGINE_DENSE_TRACE`` through ``cfg``'s engine, its launches, its
+    metrics, and its first two requests alone in a fresh engine."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.workload import synthetic_trace
+
     model = build_model(cfg)
-    params = load_params(model, seed=0, device="cuda")
     m = ENGINE_DENSE_TRACE
     max_len = max(m["prompt_lens"]) + max(m["gen_tokens"])
     trace = synthetic_trace(m["n_requests"], cfg.vocab, seed=0,
@@ -2599,9 +2946,9 @@ def phase_engine_model(key: str, results: dict) -> bool:
           f"{SAMPLING}), closed loop: {res['completed']} complete, tokens in "
           f"[0, {cfg.vocab}): {done}", flush=True)
     if paging:
-        why = ("0: JAX's paged prefill chunk (gqa_prefill_chunk) computes "
-               "its attention with einsums, outside any Pallas kernel, and "
-               "the port does the same")
+        why = ("0: JAX's paged prefill chunk (gqa_prefill_chunk, "
+               "mla_prefill_chunk) computes its attention with einsums, "
+               "outside any Pallas kernel, and the port does the same")
     else:
         why = (f"{layers['flash_fwd']} attention and {layers['ssd_scan']} "
                f"SSM layers x ({len(trace)} admissions + {len(lengths)} "
@@ -2615,16 +2962,22 @@ def phase_engine_model(key: str, results: dict) -> bool:
           f"{tp['p90']:.4f} slot_utilization {res['slot_utilization']} "
           f"compile_s {res['compile_s']} elapsed_s {res['elapsed_s']} "
           f"peak_mem_gib {peak_gib:.3f}", flush=True)
-    ok = done and counts == want and all(same.values())
-    for seed in spec.get("logit_seeds", ()):
-        prompt = np.random.default_rng(seed).integers(
-            3, cfg.vocab, size=(1, max(m["prompt_lens"])), dtype=np.int32)
-        tok = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")
-        ok &= check_logits(f"engine {key}", seed, cfg, params, tok,
-                           spec["logits"])
-    del params, engine, solo, res
-    _free()
-    return bool(ok)
+    if cfg.mla and paging:
+        pool_bytes = sum(
+            t.numel() * t.element_size() for stack in model.init_paged_cache(
+                engine.n_blocks, engine.block_len, engine.cache_dtype,
+                "meta").values() for t in stack.values())
+        mc = cfg.mla
+        per_token = (mc.kv_lora + mc.head_dim_rope) * cfg.n_layers * 2
+        kv_token = (2 * cfg.n_heads * mc.head_dim_v * cfg.n_layers * 2)
+        print(f"engine {key}: latent cache {pool_bytes} bytes ("
+              f"{engine.n_blocks} pages + the scratch block of "
+              f"{engine.block_len} tokens, {per_token} bytes a token over "
+              f"{cfg.n_layers} layers in bf16; expanded K/V of 2 x "
+              f"{cfg.n_heads} heads x {mc.head_dim_v} would take "
+              f"{kv_token} bytes a token)", flush=True)
+    del engine, solo, res
+    return bool(done and counts == want and all(same.values()))
 
 
 def _flash_without_last_kstep(flash_attention):

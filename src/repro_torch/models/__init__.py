@@ -4,9 +4,7 @@ from .base import ArchConfig, MLAConfig, Model, MoEConfig, SSMConfig  # noqa: F4
 
 def unported(cfg: ArchConfig) -> str:
     """Why ``cfg`` cannot be built yet (its ROADMAP item), or ``""``."""
-    if cfg.mla:
-        item = "MLA comes with ROADMAP A7.2"
-    elif cfg.arch_type == "audio":
+    if cfg.arch_type == "audio":
         item = "the encoder-decoder comes with ROADMAP A7.5"
     elif cfg.arch_type == "vlm" or cfg.n_patches:
         item = "the VLM patch prefix comes with ROADMAP A7.6"
@@ -19,8 +17,8 @@ def unported(cfg: ArchConfig) -> str:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    """The model for ``cfg``: the dense, MoE, ssm (Mamba2) and hybrid
-    (Zamba2) decoders."""
+    """The model for ``cfg``: the dense, MoE (MLA and MTP included), ssm
+    (Mamba2) and hybrid (Zamba2) decoders."""
     why = unported(cfg)
     if why:
         raise NotImplementedError(why)

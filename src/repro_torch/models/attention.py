@@ -1,6 +1,8 @@
-"""GQA/MQA attention (+bias, sliding window): prefill, dense decode and
-paged (block-pool) decode and chunked-prefill paths (port of the GQA half
-of ``repro.models.attention``; its MLA half comes with ROADMAP A7.2).
+"""Attention: GQA/MQA (+bias, sliding window) and MLA (DeepSeek-V3's
+latent KV compression), each with prefill, dense decode and paged
+(block-pool) decode and chunked-prefill paths (port of
+``repro.models.attention``; its encoder and cross attention come with
+ROADMAP A7.5).
 
 Long sequences (> ``_BLOCKWISE_AT``) use a blockwise online-softmax loop so
 no [S, S] score tensor is ever live.  With ``cfg.use_flash_kernel`` prefill
@@ -15,10 +17,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import base as B
-from .common import apply_rope, dense_init
+from .common import apply_rope, dense_init, rmsnorm
 
 _BLOCKWISE_AT = 4096     # use blockwise path for S strictly above this
 _KV_BLOCK = 1024
+_MLA_KV_BLOCK = 512
 
 NEG_INF = -1e30
 
@@ -340,9 +343,260 @@ def gqa_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
     return out, cache
 
 
-def _mla_paged(*_args, **_kw):
-    raise NotImplementedError(
-        "the paged MLA cache comes with MLA (ROADMAP A7.2)")
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): latent KV compression
+# ---------------------------------------------------------------------------
+# The cache holds one latent row a token (``c_kv [kv_lora]``, normed) and
+# one rope key shared by every head (``k_rope [head_dim_rope]``); attention
+# expands the latent to per-head ``k_nope``/``v`` through ``wkv_b``, or,
+# with ``absorb``, folds ``wkv_b`` into the query and output sides and
+# scores in the latent space.  The scale is ``1/sqrt(nope + rope)``, the
+# query's width, whatever ``cfg.head_dim`` says.  As in JAX, no path reaches
+# the flash kernel: the products are einsums (qk width 192, v width 128 at
+# full size).
+def init_mla(cfg: B.ArchConfig, gen: torch.Generator, lead=()) -> Dict[str, Any]:
+    """JAX's tree and shapes; ``lead`` prepends stacked dims."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    lead = tuple(lead)
+
+    def ones(n):
+        return torch.ones(lead + (n,), dtype=torch.float32, device=gen.device)
+
+    return {
+        "wq_a": dense_init(gen, lead + (D, m.q_lora), D),
+        "q_norm": ones(m.q_lora),
+        "wq_b": dense_init(gen, lead + (m.q_lora, H, m.head_dim_nope
+                                       + m.head_dim_rope), m.q_lora),
+        "wkv_a": dense_init(gen, lead + (D, m.kv_lora + m.head_dim_rope), D),
+        "kv_norm": ones(m.kv_lora),
+        "wkv_b": dense_init(gen, lead + (m.kv_lora, H, m.head_dim_nope
+                                        + m.head_dim_v), m.kv_lora),
+        "wo": dense_init(gen, lead + (H, m.head_dim_v, D), H * m.head_dim_v),
+    }
 
 
-mla_init_paged_cache = mla_decode_paged = mla_prefill_chunk = _mla_paged
+def mla_axes(cfg: B.ArchConfig) -> Dict[str, Any]:
+    return {
+        "wq_a": (B.D_MODEL, B.LORA),
+        "q_norm": (B.LORA,),
+        "wq_b": (B.LORA, B.HEADS, B.HEAD_DIM),
+        "wkv_a": (B.D_MODEL, B.LORA),
+        "kv_norm": (B.LORA,),
+        "wkv_b": (B.LORA, B.HEADS, B.HEAD_DIM),
+        "wo": (B.HEADS, B.HEAD_DIM, B.D_MODEL),
+    }
+
+
+def _mla_scale(cfg) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.head_dim_nope + m.head_dim_rope)
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """x [B,S,D] -> (q_nope [B,S,H,dn], q_rope [B,S,H,dr], c_kv [B,S,r],
+    k_rope [B,S,dr]); ``k_rope`` is one head, roped as ``[B,S,1,dr]``."""
+    m = cfg.mla
+    cq = torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype))
+    cq = rmsnorm(cq, p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"].to(x.dtype))
+    q_nope, q_rope = torch.split(q, [m.head_dim_nope, m.head_dim_rope], -1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(x.dtype))
+    c_kv, k_rope = torch.split(ckv, [m.kv_lora, m.head_dim_rope], -1)
+    c_kv = rmsnorm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(cfg, p, c_kv):
+    """Latent ``c_kv [B,T,r]`` -> (k_nope [B,T,H,dn], v [B,T,H,dv])."""
+    m = cfg.mla
+    kv = torch.einsum("bsr,rhk->bshk", c_kv, p["wkv_b"].to(c_kv.dtype))
+    return torch.split(kv, [m.head_dim_nope, m.head_dim_v], -1)
+
+
+def _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, valid, dtype):
+    """The expanded path: scores of the queries against the latent rows
+    ``c_kv [B,T,r]``/``k_rope [B,T,dr]`` (both in ``dtype``), summed in
+    ``dtype`` and scaled in f32, masked by ``valid`` (broadcast to [B,H,S,
+    T]), probabilities rounded to ``dtype`` before PV, as in JAX."""
+    k_nope, v = _mla_expand_kv(cfg, p, c_kv)
+    s = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+    s = s + torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+    s = (s.float() * _mla_scale(cfg)).masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def mla_forward(cfg: B.ArchConfig, p, x, positions, return_latent: bool = False):
+    """Training/prefill MLA self-attention (blockwise over KV for long S)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    if x.shape[1] <= _BLOCKWISE_AT:
+        causal = (positions[:, None] - positions[None, :]) >= 0     # [S, T]
+        o = _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, causal, x.dtype)
+    else:
+        o = _mla_blockwise(cfg, p, q_nope, q_rope, c_kv, k_rope, positions,
+                           _mla_scale(cfg))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    if return_latent:
+        return out, (c_kv, k_rope)
+    return out
+
+
+def _mla_blockwise(cfg, p, q_nope, q_rope, c_kv, k_rope, positions, scale,
+                   kv_block: int = _MLA_KV_BLOCK):
+    """Blockwise MLA: the latent expanded to k/v one block at a time, an
+    online softmax in f32 over the blocks."""
+    m = cfg.mla
+    Bq, S, H, _ = q_nope.shape
+    T = c_kv.shape[1]
+    qn, qr = q_nope.float(), q_rope.float()
+    dev = q_nope.device
+    mx = torch.full((Bq, H, S), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((Bq, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((Bq, H, S, m.head_dim_v), dtype=torch.float32,
+                      device=dev)
+    for lo in range(0, T, kv_block):
+        # the ragged last block is sliced short here instead of padded with
+        # position -1e9 rows, which only ever got probability 0
+        k_nope, v = _mla_expand_kv(cfg, p, c_kv[:, lo:lo + kv_block])
+        s = torch.einsum("bshk,bthk->bhst", qn, k_nope.float())
+        s = s + torch.einsum("bshk,btk->bhst", qr,
+                             k_rope[:, lo:lo + kv_block].float())
+        s = s * scale
+        pblk = positions[lo:lo + kv_block]
+        s = s.masked_fill((positions[:, None] - pblk[None, :]) < 0, NEG_INF)
+        m_new = torch.maximum(mx, s.amax(dim=-1))
+        pr = torch.exp(s - m_new[..., None])
+        corr = torch.exp(mx - m_new)
+        l = l * corr + pr.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthk->bhsk", pr,
+                                                   v.float())
+        mx = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q_nope.dtype)               # [B,S,H,dv]
+
+
+def mla_init_cache(cfg: B.ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, m.head_dim_rope), dtype=dtype,
+                              device=device),
+    }
+
+
+def _mla_absorbed(cfg, p, q_nope, q_rope, c_kv, k_rope, valid, dtype):
+    """The absorbed path: ``wkv_b`` split into ``wk``/``wv`` and folded into
+    the query (``q_lat = q_nope·wk``) and output sides, so the scores and
+    the weighted sum run against the raw latent rows, with no per-step K/V
+    expansion.  The latent keeps the cache's dtype; mixed operands compute
+    in their promoted dtype, as JAX's einsums promote."""
+    m = cfg.mla
+    wk, wv = torch.split(p["wkv_b"].to(dtype),
+                         [m.head_dim_nope, m.head_dim_v], -1)
+    dt = torch.promote_types(dtype, c_kv.dtype)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk)              # [B,1,H,r]
+    s = torch.einsum("bshr,btr->bhst", q_lat.to(dt), c_kv.to(dt))
+    s = s + torch.einsum("bshk,btk->bhst", q_rope.to(dt), k_rope.to(dt))
+    s = (s.float() * _mla_scale(cfg)).masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(dtype)
+    o_lat = torch.einsum("bhst,btr->bshr", probs.to(dt), c_kv.to(dt))
+    return torch.einsum("bshr,rhk->bshk", o_lat, wv.to(dt))         # [B,1,H,dv]
+
+
+def _mla_decode_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, valid, dtype,
+                       absorb):
+    """One query token against a cache view (dense rows or gathered pages)
+    with validity ``valid [B,T]``; the expanded path casts the view to the
+    activations' dtype first, as JAX's ``mla_decode``."""
+    valid = valid[:, None, None, :]
+    if absorb:
+        return _mla_absorbed(cfg, p, q_nope, q_rope, c_kv, k_rope, valid,
+                             dtype)
+    return _mla_attend(cfg, p, q_nope, q_rope, c_kv.to(dtype),
+                       k_rope.to(dtype), valid, dtype)
+
+
+def _wo(p, x, o):
+    """``wo`` in the activations' dtype, promoted to ``o``'s (an absorbed
+    output against an f32 cache is f32 under bf16 activations)."""
+    return p["wo"].to(x.dtype).to(o.dtype)
+
+
+def mla_decode(cfg: B.ArchConfig, p, cache, x, positions, absorb: bool = False):
+    """Single-token MLA decode against the latent cache: x [B,1,D],
+    positions [B]; the cache is updated in place (every slot writes at its
+    own position, as ``gqa_decode``)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions[:, None])
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    bidx = torch.arange(x.shape[0], device=x.device)
+    cc[bidx, positions] = c_kv[:, 0].to(cc.dtype)
+    cr[bidx, positions] = k_rope[:, 0].to(cr.dtype)
+    L = cc.shape[1]
+    valid = torch.arange(L, device=x.device)[None, :] <= positions[:, None]
+    o = _mla_decode_attend(cfg, p, q_nope, q_rope, cc, cr, valid, x.dtype,
+                           absorb)
+    out = torch.einsum("bshk,hkd->bsd", o, _wo(p, x, o))
+    return out, cache
+
+
+def mla_init_paged_cache(cfg: B.ArchConfig, n_blocks: int, block_len: int,
+                         dtype=torch.bfloat16, device=None):
+    """``n_blocks`` latent pages and the scratch block, zeroed."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((n_blocks + 1, block_len, m.kv_lora), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((n_blocks + 1, block_len, m.head_dim_rope),
+                              dtype=dtype, device=device),
+    }
+
+
+def mla_decode_paged(cfg: B.ArchConfig, p, cache, x, positions, pages,
+                     active=None, absorb: bool = False):
+    """Single-token MLA decode against the paged latent cache (the page
+    conventions of ``gqa_decode_paged``)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions[:, None])
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    bl = cc.shape[1]
+    phys = _page_of(pages, positions, bl)
+    if active is not None:
+        phys = torch.where(active, phys, scratch_block(cc))
+    _paged_write(cc, phys, positions % bl, c_kv[:, 0])
+    _paged_write(cr, phys, positions % bl, k_rope[:, 0])
+    vc = paged_view(cc, pages)                                   # [B,T,r]
+    vr = paged_view(cr, pages)
+    T = vc.shape[1]
+    valid = torch.arange(T, device=x.device)[None, :] <= positions[:, None]
+    o = _mla_decode_attend(cfg, p, q_nope, q_rope, vc, vr, valid, x.dtype,
+                           absorb)
+    out = torch.einsum("bshk,hkd->bsd", o, _wo(p, x, o))
+    return out, cache
+
+
+def mla_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
+                      n_valid: int):
+    """One fixed-shape MLA prefill chunk (see ``gqa_prefill_chunk``)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    bl = cc.shape[1]
+    row_idx = torch.arange(positions.shape[0], device=x.device)
+    phys = torch.where(row_idx < n_valid, _page_of(pages_row, positions, bl),
+                       scratch_block(cc))
+    _paged_write(cc, phys, positions % bl, c_kv[0])
+    _paged_write(cr, phys, positions % bl, k_rope[0])
+    vc = paged_view(cc, pages_row[None])                         # [1,T,r]
+    vr = paged_view(cr, pages_row[None])
+    T = vc.shape[1]
+    causal = (positions[:, None]
+              >= torch.arange(T, device=x.device)[None, :])      # [C,T]
+    o = _mla_attend(cfg, p, q_nope, q_rope, vc.to(x.dtype), vr.to(x.dtype),
+                    causal, x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache

@@ -1,7 +1,9 @@
 """Decoder-only LM (port of ``repro.models.transformer``): dense, MoE
 (leading dense layers, then shared + routed experts), SSM (Mamba2) and
 hybrid (Zamba2: Mamba2 layers with one weight-shared attention block after
-every ``attn_every - 1`` of them) stacks.
+every ``attn_every - 1`` of them) stacks; attention is GQA, or MLA where
+``cfg.mla`` is set (DeepSeek-V3), whose ``cfg.mtp`` adds the depth-1
+multi-token-prediction head (``p["mtp"]``, its loss ``aux["mtp"]``).
 
 Training runs ``apply`` (embed, the ``Stacked`` fold with its remat policy,
 logits).  Serving has two cache layouts: the dense slot pool (``prefill`` /
@@ -12,9 +14,10 @@ chunks, ``decode_step`` with ``pages``/``active`` for each tick).  Params
 keep the JAX tree (``embed``, ``final_norm``, one stacked tree per
 homogeneous stack: ``blocks`` for dense layers, ``dense_blocks`` and
 ``moe_blocks`` for a MoE arch with leading dense layers, ``ssm_blocks`` for
-Mamba2 layers, and for the hybrid one unstacked ``shared_attn`` dense
-block), so ``repro_torch.bridge`` copies JAX params in key for key.  MLA
-(A7.2), audio (A7.5) and VLM (A7.6) blocks come with later slices.
+Mamba2 layers, for the hybrid one unstacked ``shared_attn`` dense block,
+and with MTP the unstacked ``mtp`` head), so ``repro_torch.bridge`` copies
+JAX params in key for key.  Audio (A7.5) and VLM (A7.6) blocks come with
+later slices.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from . import mlp as M
 from . import moe as MOE
 from . import ssm as S
 from . import stacked as ST
-from .common import apply_norm, embed_init, norm_axes, norm_params
+from .common import (apply_norm, embed_init, norm_axes, norm_params,
+                     softmax_cross_entropy)
 
 
 # ---------------------------------------------------------------------------
@@ -49,11 +53,19 @@ def _stacked_norm(cfg, gen, lead):
             for k, v in norm_params(cfg, gen.device).items()}
 
 
+def _init_attn(cfg, gen, lead):
+    return (A.init_mla if cfg.mla else A.init_gqa)(cfg, gen, lead)
+
+
+def _attn_axes(cfg):
+    return A.mla_axes(cfg) if cfg.mla else A.gqa_axes(cfg)
+
+
 def init_dense_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
     lead = tuple(lead)
     return {
         "attn_norm": _stacked_norm(cfg, gen, lead),
-        "attn": A.init_gqa(cfg, gen, lead),
+        "attn": _init_attn(cfg, gen, lead),
         "mlp_norm": _stacked_norm(cfg, gen, lead),
         "mlp": M.init_mlp(cfg, gen, lead=lead),
     }
@@ -63,7 +75,7 @@ def init_moe_block(cfg: B.ArchConfig, gen: torch.Generator, lead=()):
     lead = tuple(lead)
     return {
         "attn_norm": _stacked_norm(cfg, gen, lead),
-        "attn": A.init_gqa(cfg, gen, lead),
+        "attn": _init_attn(cfg, gen, lead),
         "mlp_norm": _stacked_norm(cfg, gen, lead),
         "moe": MOE.init_moe(cfg, gen, lead),
     }
@@ -82,7 +94,7 @@ _INIT_BY_KIND = {"dense_block": init_dense_block, "moe_block": init_moe_block,
 def dense_block_axes(cfg: B.ArchConfig):
     return {
         "attn_norm": norm_axes(cfg),
-        "attn": A.gqa_axes(cfg),
+        "attn": _attn_axes(cfg),
         "mlp_norm": norm_axes(cfg),
         "mlp": M.mlp_axes(cfg),
     }
@@ -91,7 +103,7 @@ def dense_block_axes(cfg: B.ArchConfig):
 def moe_block_axes(cfg: B.ArchConfig):
     return {
         "attn_norm": norm_axes(cfg),
-        "attn": A.gqa_axes(cfg),
+        "attn": _attn_axes(cfg),
         "mlp_norm": norm_axes(cfg),
         "moe": MOE.moe_axes(cfg),
     }
@@ -128,7 +140,8 @@ def apply_block(cfg, kind, p, x, positions):
         return x + S.ssm_forward(cfg, p["ssm"],
                                  apply_norm(cfg, p["norm"], x)), zero
     h = apply_norm(cfg, p["attn_norm"], x)
-    x = x + A.gqa_forward(cfg, p["attn"], h, positions)
+    attn = A.mla_forward if cfg.mla else A.gqa_forward
+    x = x + attn(cfg, p["attn"], h, positions)
     h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
     return x + h, zero if aux is None else aux
 
@@ -140,24 +153,25 @@ def decode_block(cfg, kind, p, cache, x, positions):
                                     apply_norm(cfg, p["norm"], x))
         return x + h, new_cache
     h = apply_norm(cfg, p["attn_norm"], x)
-    h, new_cache = A.gqa_decode(cfg, p["attn"], cache, h, positions)
+    if cfg.mla:
+        h, new_cache = A.mla_decode(cfg, p["attn"], cache, h, positions,
+                                    absorb=cfg.mla_absorb)
+    else:
+        h, new_cache = A.gqa_decode(cfg, p["attn"], cache, h, positions)
     x = x + h
     h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
     return x + h, new_cache
 
 
-def _paged_refusals(cfg):
-    if cfg.mla:
-        raise NotImplementedError(
-            "the paged MLA branch comes with MLA (ROADMAP A7.2)")
-
-
 def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active):
     """``decode_block`` reading/writing K/V through page tables."""
-    _paged_refusals(cfg)
     h = apply_norm(cfg, p["attn_norm"], x)
-    h, new_cache = A.gqa_decode_paged(cfg, p["attn"], cache, h, positions,
-                                      pages, active)
+    if cfg.mla:
+        h, new_cache = A.mla_decode_paged(cfg, p["attn"], cache, h, positions,
+                                          pages, active, absorb=cfg.mla_absorb)
+    else:
+        h, new_cache = A.gqa_decode_paged(cfg, p["attn"], cache, h, positions,
+                                          pages, active)
     x = x + h
     h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
     return x + h, new_cache
@@ -165,10 +179,10 @@ def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active):
 
 def prefill_chunk_block(cfg, kind, p, cache, x, positions, pages_row, n_valid):
     """One layer of the fixed-shape chunked-prefill program."""
-    _paged_refusals(cfg)
     h = apply_norm(cfg, p["attn_norm"], x)
-    h, new_cache = A.gqa_prefill_chunk(cfg, p["attn"], cache, h, positions,
-                                       pages_row, n_valid)
+    chunk = A.mla_prefill_chunk if cfg.mla else A.gqa_prefill_chunk
+    h, new_cache = chunk(cfg, p["attn"], cache, h, positions, pages_row,
+                         n_valid)
     x = x + h
     h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
     return x + h, new_cache
@@ -205,11 +219,20 @@ def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype):
                               return_state=True)
         return x + h, st
     h = apply_norm(cfg, p["attn_norm"], x)
-    h, (k, v) = A.gqa_forward(cfg, p["attn"], h, positions, return_kv=True)
-    cache = {
-        "k": _pad_cache_seq(k.to(cache_dtype), max_len, cfg.window),
-        "v": _pad_cache_seq(v.to(cache_dtype), max_len, cfg.window),
-    }
+    if cfg.mla:
+        h, (c_kv, k_rope) = A.mla_forward(cfg, p["attn"], h, positions,
+                                          return_latent=True)
+        cache = {
+            "c_kv": _pad_cache_seq(c_kv.to(cache_dtype), max_len, 0),
+            "k_rope": _pad_cache_seq(k_rope.to(cache_dtype), max_len, 0),
+        }
+    else:
+        h, (k, v) = A.gqa_forward(cfg, p["attn"], h, positions,
+                                  return_kv=True)
+        cache = {
+            "k": _pad_cache_seq(k.to(cache_dtype), max_len, cfg.window),
+            "v": _pad_cache_seq(v.to(cache_dtype), max_len, cfg.window),
+        }
     x = x + h
     h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
     return x + h, cache
@@ -218,6 +241,8 @@ def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype):
 def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
     if kind == "ssm":
         return S.ssm_init_state(cfg, batch, device=device)
+    if cfg.mla:
+        return A.mla_init_cache(cfg, batch, max_len, dtype, device)
     return A.gqa_init_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -270,6 +295,12 @@ class DecoderLM(B.Model):
                                     gen, len(idxs))
         if cfg.arch_type == "hybrid":
             p["shared_attn"] = init_dense_block(cfg, gen)
+        if cfg.mtp:
+            p["mtp"] = {
+                "proj": embed_init(gen, (2 * cfg.d_model, cfg.d_model)),
+                "block": init_dense_block(cfg, gen),
+                "norm": norm_params(cfg, gen.device),
+            }
         return p
 
     def param_axes(self) -> Dict[str, Any]:
@@ -287,6 +318,12 @@ class DecoderLM(B.Model):
             p[name] = _with_layer_axis(_AXES_BY_KIND[kind](cfg))
         if cfg.arch_type == "hybrid":
             p["shared_attn"] = dense_block_axes(cfg)
+        if cfg.mtp:
+            p["mtp"] = {
+                "proj": (B.D_MODEL, B.D_MODEL),
+                "block": dense_block_axes(cfg),
+                "norm": norm_axes(cfg),
+            }
         return p
 
     def _hybrid_groups(self):
@@ -341,7 +378,9 @@ class DecoderLM(B.Model):
         return x, aux_total
 
     def apply(self, params, batch):
-        """Training forward: (logits [B, S, vocab], {"router_lb": aux}).
+        """Training forward: (logits [B, S, vocab], {"router_lb": aux}),
+        and with an MTP head and ``labels`` in the batch also ``"mtp"``,
+        its loss.
 
         Activations are bf16 (``embed_tokens``); with tied embeddings the
         table takes gradient from both uses, the gather and the logits.
@@ -349,7 +388,31 @@ class DecoderLM(B.Model):
         x = self.embed_tokens(params, batch["tokens"].long())
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self.backbone(params, x, positions)
-        return self.logits(params, x), {"router_lb": aux}
+        aux_d = {"router_lb": aux}
+        if self.cfg.mtp and "labels" in batch:
+            aux_d["mtp"] = self._mtp_loss(params, x, batch, positions)
+        return self.logits(params, x), aux_d
+
+    def _mtp_loss(self, params, h, batch, positions):
+        """DeepSeek-V3's depth-1 MTP head (JAX's ``_mtp_loss``): the
+        backbone's output normed by the head's own norm (before the final
+        norm), beside the embeddings of ``labels`` (token t+1), projected
+        and run through one dense block; the shared logits head predicts
+        token t+2, ``roll(labels, -1)``, its last column masked."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        labels = batch["labels"].long()
+        emb_next = self.embed_tokens(params, labels)
+        z = torch.cat([apply_norm(cfg, mp["norm"], h), emb_next], dim=-1)
+        z = torch.einsum("bse,ed->bsd", z, mp["proj"].to(h.dtype))
+        z, _ = apply_block(cfg, "dense_block", mp["block"], z, positions)
+        labels2 = torch.roll(labels, -1, dims=1)
+        mask = torch.ones(labels2.shape, dtype=torch.float32,
+                          device=labels2.device)
+        mask[:, -1] = 0.0
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"]
+        return softmax_cross_entropy(self.logits(params, z), labels2, mask)
 
     # -- forward pieces ------------------------------------------------------
     def logits(self, params, x):
@@ -460,8 +523,9 @@ class DecoderLM(B.Model):
                 f"layers (arch {cfg.arch_type}, window {cfg.window})")
         cache: Dict[str, Any] = {}
         for name, kind, idxs in self._stacks():
-            one = A.gqa_init_paged_cache(cfg, n_blocks, block_len, dtype,
-                                         device)
+            one = (A.mla_init_paged_cache if cfg.mla
+                   else A.gqa_init_paged_cache)(cfg, n_blocks, block_len,
+                                                dtype, device)
             cache[name] = {k: torch.zeros((len(idxs),) + tuple(v.shape),
                                           dtype=v.dtype, device=v.device)
                            for k, v in one.items()}

@@ -15,15 +15,18 @@ from ..models.common import sharded_cross_entropy
 from ..tree import tree_leaves, tree_map, tree_select, tree_unflatten
 
 
-def compute_loss(model, params, batch):
+def compute_loss(model, params, batch, mtp_coef: float = 0.3):
     """(total loss, {"ce", **aux}) of one batch; ``total`` adds the router
-    balance loss, which is zero for the dense and ssm archs."""
+    balance loss, which is zero for the dense and ssm archs, and
+    ``mtp_coef`` times the MTP head's loss where the model has one."""
     logits, aux = model.apply(params, batch)
     loss = sharded_cross_entropy(logits, batch["labels"],
                                  batch.get("loss_mask"))
     total = loss
     if "router_lb" in aux:
         total = total + aux["router_lb"]
+    if "mtp" in aux:
+        total = total + mtp_coef * aux["mtp"]
     return total, {"ce": loss, **aux}
 
 
@@ -70,8 +73,9 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
     ``grad_accum > 1`` the batch is split into contiguous microbatches, the
     gradients are summed in a carry of at least f32 (also for bf16 params,
     as JAX's ``:60-76``: a bf16 carry would round every micro-step) and the
-    gradients and metrics averaged.  Metrics stay 0-d tensors on the device:
-    ``ce``, ``router_lb`` and ``loss``.
+    gradients and metrics averaged.  Metrics stay 0-d tensors on the device,
+    keyed in JAX's (sorted) order: ``ce``, ``loss``, ``mtp`` (with an MTP
+    head) and ``router_lb``.
 
     Unlike JAX's pure step, the step updates ``state`` in place: the
     optimizer writes the params and its state leaf by leaf (see
@@ -108,7 +112,9 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
                      "step": state["step"] + 1}
         metrics = dict(metrics)
         metrics["loss"] = metrics["ce"]
-        return new_state, metrics
+        # sorted by key, as JAX's jitted step returns its dict: the logged
+        # rows (history, telemetry) keep JAX's column order
+        return new_state, dict(sorted(metrics.items()))
 
     return train_step
 

@@ -715,3 +715,81 @@ def test_dpo_first_loss_is_log2_and_reference_outlives_nan_params(cuda):
         assert bool(torch.isfinite(r).all())
     _, again = step(state, batch, ref)
     assert not math.isfinite(float(again["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MLA and MTP on the card (no kernel: einsums, as in JAX)
+# ---------------------------------------------------------------------------
+def _dsv3(cuda, **kw):
+    """Reduced DeepSeek-V3 on the card with f32 activations, its seeded
+    params."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+
+    model = build_model(get_reduced("deepseek_v3_671b").with_(**kw))
+    embed = model.embed_tokens
+    model.embed_tokens = lambda p, t: embed(p, t, dtype=f32)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    return model, params
+
+
+def _dsv3_decode(model, params, toks, cuda, paged=False):
+    B, L = toks.shape
+    kw = {}
+    if paged:
+        cache = model.init_paged_cache(B * L // 4, 4, dtype=f32, device=cuda)
+        kw = {"pages": torch.arange(B * L // 4, dtype=torch.int32,
+                                    device=cuda).flip(0).reshape(B, -1),
+              "active": torch.ones(B, dtype=torch.bool, device=cuda)}
+    else:
+        cache = model.init_cache(B, L, dtype=f32, device=cuda)
+    outs = []
+    with torch.no_grad():
+        for pos in range(L):
+            lg, cache = model.decode_step(params, cache, toks[:, pos],
+                                          torch.full((B,), pos, device=cuda),
+                                          **kw)
+            outs.append(lg)
+    return torch.stack(outs, 1)
+
+
+def _dsv3_tokens(cuda, L=20):
+    return torch.randint(3, 512, (2, L), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+
+
+def test_dsv3_decode_matches_forward_on_the_card(cuda):
+    """Reduced DeepSeek-V3 in f32 on the card: token-by-token decode on the
+    latent cache reproduces the forward's logits within JAX's 5e-4, and
+    ``apply`` with labels carries a finite MTP loss."""
+    model, params = _dsv3(cuda)
+    toks = _dsv3_tokens(cuda)
+    with torch.no_grad():
+        full, aux = model.apply(params, {"tokens": toks,
+                                         "labels": toks.roll(-1, 1)})
+    assert torch.isfinite(aux["mtp"]) and float(aux["mtp"]) > 0
+    err = float((full - _dsv3_decode(model, params, toks, cuda)).abs().max())
+    assert err < 5e-4, err
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_dsv3_absorb_matches_expanded_on_the_card(paged, cuda):
+    """The absorbed MLA decode against the expanded one, f32, dense and
+    paged caches: within 5e-4, the decode-vs-forward bound."""
+    toks = _dsv3_tokens(cuda, 16)
+    runs = []
+    for absorb in (False, True):
+        model, params = _dsv3(cuda, mla_absorb=absorb)
+        runs.append(_dsv3_decode(model, params, toks, cuda, paged))
+    err = float((runs[0] - runs[1]).abs().max())
+    assert err < 5e-4, err
+
+
+def test_dsv3_paged_matches_dense_on_the_card(cuda):
+    """The paged latent cache read through a reversed page table against
+    the dense slot rows, f32: within 5e-4."""
+    model, params = _dsv3(cuda)
+    toks = _dsv3_tokens(cuda, 16)
+    dense = _dsv3_decode(model, params, toks, cuda)
+    paged = _dsv3_decode(model, params, toks, cuda, paged=True)
+    assert float((dense - paged).abs().max()) < 5e-4

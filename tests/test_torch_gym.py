@@ -243,7 +243,6 @@ REFUSED = [
     ("gym.config.mesh_provider={component_key: mesh_provider, "
      "variant_key: single_device}", "A8"),
     ("arch.variant_key=whisper_tiny", "A7"),
-    ("arch.variant_key=deepseek_v3_671b", "A7"),
 ]
 
 

@@ -356,6 +356,6 @@ def test_unported_paths_raise():
         ServeEngine(model, params, n_slots=1, max_len=8, mesh=object())
     with pytest.raises(NotImplementedError, match="A8"):
         ServeEngine(model, params, n_slots=1, max_len=8, plan=object())
-    for arch in ("deepseek_v3_671b", "whisper_tiny", "llava_next_34b"):
+    for arch in ("whisper_tiny", "llava_next_34b"):
         with pytest.raises(NotImplementedError):
             build_model(get_reduced(arch))

@@ -61,6 +61,17 @@ STEP_LOSS_TOL = 3e-3
 STEP_F32_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Reduced models: their ops are far too small to split across threads,
+    and the suite's parallel workers share the host's cores.  One thread
+    for this module, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x, np.float32)
 
