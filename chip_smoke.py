@@ -62,6 +62,14 @@
    DeepSeek-V3 at full width and depth 3 (the dense layers) with its MTP
    head (3 steps), its ce, MTP and total losses by step, one step's loss
    and gradients through the full MLA path against the blockwise one.
+   Then the ``bench`` kind (``Gym.bench`` through the run API): (a)
+   ``bench.yaml`` unchanged but for its data and output directories
+   (reduced Qwen, 30 steps after 3, 5 windows; no kernel launch, the
+   tracked ``BENCH_quickstart.json``'s keys, its bytes untouched); (b)
+   full-width Qwen1.5-0.5B through the flash kernel at 8 x 1024, three
+   times, each run's windows and the runs' spread printed beside the
+   training phase's median ms/step; (c) full-width Mamba2-780M through the
+   SSD kernel (10 steps after 1).
 6. Checkpoints: the two commands in ``warmstart.yaml``'s header (the
    unchanged quickstart with ``gym.config.ckpt_every=20``, then the
    unchanged ``warmstart.yaml`` from its checkpoint); then full-width
@@ -114,7 +122,8 @@
    decode, and the latent cache's bytes.
 
 Every launch counter is set to 0 just before a slice drives its main path
-(the serve run, the training run, the engine run) and read just after; the
+(the serve run, the training run, the bench run, the engine run) and read
+just after; the
 ``kernels`` line adds up every path's launches.  Imports neither JAX nor the JAX package.  Exits
 non-zero, printing no result, without a CUDA device or without the port next
 to it; exits non-zero when any phase fails.  The last line is the JSON
@@ -1426,6 +1435,7 @@ def phase_train_full(key: str, data_dir: str, results: dict, card: str,
           f"{peak_gib:.3f}", flush=True)
     ok &= mfu_line(f"train {key}", res, med, spec["flops"], card)
     add_launches(results, counts)
+    results.setdefault("train_median_ms", {})[key] = med
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     from repro_torch.models import build_model
@@ -1466,6 +1476,162 @@ CKPT_STEPS, CKPT_AT, WARM_STEPS = 6, 3, 2
 # the resumed run against the straight one (JAX's bound in
 # tests/test_ckpt.py); the step is deterministic on the card, so the run
 # prints whether they are also bit-equal
+# ---------------------------------------------------------------------------
+# the bench kind
+# ---------------------------------------------------------------------------
+# bench.yaml's own settings (30 steps after 3 of warm-up, 5 windows) for
+# full-width Qwen, run BENCH_QWEN_RUNS times for the spread; Mamba2's
+# ~2.6 s step gets 10 after 1
+BENCH_QWEN_RUNS = 3
+BENCH_SLICES = {
+    "qwen": {"steps": 30, "warmup": 3, "runs": BENCH_QWEN_RUNS,
+             "sets": ["arch.config.use_flash_kernel=true"]},
+    "mamba2": {"steps": 10, "warmup": 1, "runs": 1,
+               "sets": ["arch.variant_key=mamba2_780m"]},
+}
+
+
+def bench_doc(data_dir: str, name: str, *sets: str) -> dict:
+    """``examples/configs/bench.yaml`` with ``sets`` applied, its dataset
+    written to ``data_dir/bench_name.*`` and its run (and so, through
+    ``bench_dir: "."``, its bench file) under ``data_dir``."""
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run.overrides import apply_overrides, parse_overrides
+
+    doc = load_yaml(os.path.join(ROOT, "examples", "configs", "bench.yaml"))
+    return apply_overrides(doc, parse_overrides(
+        [f"dataset.config.prefix={os.path.join(data_dir, 'bench_' + name)}",
+         f"run.output_dir={os.path.join(data_dir, 'bench_run_' + name)}",
+         *sets]))
+
+
+def _bench_run(doc: dict) -> tuple:
+    """One run of the ``bench`` kind on the card with every launch counter
+    set to 0 just before it; (result, launches)."""
+    import torch
+
+    from repro_torch.run import api
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    res = api.execute_doc(doc, device="cuda", write_result=True, log=_quiet)
+    return res, {name: c.launches for name, c in counters.items()}
+
+
+def _bench_line(label: str, res: dict, card: str) -> str:
+    win = [w["step_ms"] for w in res["windows"]]
+    return (f"{label}: steady_step_ms {res['steady_step_ms']} (median of "
+            f"{len(win)} windows of {[w['steps'] for w in res['windows']]} "
+            f"steps; windows min {min(win)}, max {max(win)}), "
+            f"steady_step_ms_mean {res['steady_step_ms_mean']}, "
+            f"tokens_per_s {res.get('tokens_per_s')}, mfu "
+            f"{res.get('mfu', 0.0):.6f}, compile_s {res['compile_s']}, "
+            f"setup_s {res['setup_s']}, final_loss {res['final_loss']} "
+            f"[{card}]")
+
+
+def phase_bench(data_dir: str, results: dict, card: str) -> bool:
+    """The ``bench`` kind (``Gym.bench`` through the run API) on the card,
+    after the train phases (the kernels are built and loaded, so
+    ``compile_s`` is a warm first step): (a) ``bench.yaml`` unchanged but
+    for its data and output directories: reduced Qwen, no kernel, the
+    tracked ``BENCH_quickstart.json``'s keys and bytes; (b) full-width
+    Qwen1.5-0.5B through ``flash_fwd`` at 8 x 1024, ``BENCH_QWEN_RUNS``
+    times, with the spread of its windows and runs, beside ``train qwen``'s
+    median ms/step; (c) full-width Mamba2-780M through ``ssd_scan``."""
+    import math
+    import statistics
+
+    from repro_torch.configs import get_config
+
+    tracked = os.path.join(ROOT, "BENCH_quickstart.json")
+    with open(tracked, "rb") as f:
+        tracked_bytes = f.read()
+    keys_jax = set(json.loads(tracked_bytes))
+    before = _checkout_files()
+    res, counts = _bench_run(bench_doc(data_dir, "quickstart"))
+    written = sorted(p for p, st in _checkout_files().items()
+                     if before.get(p) != st)
+    with open(res["bench_file"]) as f:
+        keys = set(json.load(f))
+    with open(tracked, "rb") as f:
+        unchanged = f.read() == tracked_bytes
+    ok = (counts == {"flash_fwd": 0, "ssd_scan": 0} and keys == keys_jax
+          and unchanged and not written and res["goodput"] == 1.0
+          and res["steps_dispatched"] == 30 and len(res["windows"]) == 5
+          and math.isfinite(res["final_loss"]))
+    print(_bench_line("bench (a) quickstart", res, card), flush=True)
+    print(f"bench (a) quickstart: launches {counts} (want 0: bench.yaml "
+          f"leaves use_flash_kernel off, as in JAX), goodput "
+          f"{res['goodput']}, steps_dispatched {res['steps_dispatched']}; "
+          f"{res['bench_file']} has the tracked BENCH_quickstart.json's keys "
+          f"{keys == keys_jax} (differ: {sorted(keys ^ keys_jax)}), tracked "
+          f"file unchanged {unchanged}, files written under the checkout "
+          f"{written}: {'ok' if ok else 'FAILED'}", flush=True)
+    add_launches(results, counts)
+    _free()
+
+    for key, spec in BENCH_SLICES.items():
+        train = TRAIN_SLICES[key]
+        n = 1 + spec["warmup"] + spec["steps"]
+        sets = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
+                f"loader.config.global_batch={TRAIN_BATCH}",
+                f"dataset.config.n_tokens={n * TRAIN_BATCH * (TRAIN_SEQ + 1)}",
+                f"run.bench.steps={spec['steps']}",
+                f"run.bench.warmup={spec['warmup']}", *spec["sets"]]
+        doc = bench_doc(data_dir, key, *sets)
+        cfg = get_config(train["arch"])
+        if "arch.config.use_flash_kernel=true" in spec["sets"]:
+            cfg = cfg.with_(use_flash_kernel=True)
+        want = {name: layers * 2 * n
+                for name, layers in kernel_layers(cfg).items()}
+        runs = []
+        for i in range(spec["runs"]):
+            res, counts = _bench_run(doc)
+            run_ok = (counts == want and res["goodput"] == 1.0
+                      and res["steps_dispatched"] == spec["steps"]
+                      and res["model_flops_per_step"] == train["flops"]
+                      and res["steady_step_ms"] > 0
+                      and math.isfinite(res["final_loss"]))
+            print(_bench_line(f"bench {key} run {i + 1}", res, card),
+                  flush=True)
+            print(f"bench {key} run {i + 1}: launches {counts} (want "
+                  f"{want}: {kernel_layers(cfg)} layers x 2 (remat) x "
+                  f"{n} steps), model_flops_per_step "
+                  f"{res['model_flops_per_step']!r} (want "
+                  f"{train['flops']!r}), steps_dispatched "
+                  f"{res['steps_dispatched']}, goodput {res['goodput']}: "
+                  f"{'ok' if run_ok else 'FAILED'}", flush=True)
+            ok &= run_ok
+            if i == 0:
+                add_launches(results, counts)
+            runs.append(res)
+            del res
+            _free()
+        steady = [r["steady_step_ms"] for r in runs]
+        windows = [w["step_ms"] for r in runs for w in r["windows"]]
+        med = statistics.median(steady)
+        line = (f"bench {key}: {cfg.name} full width, batch {TRAIN_BATCH} x "
+                f"{TRAIN_SEQ}, remat {cfg.remat}, {spec['steps']} steps after "
+                f"{spec['warmup']}; steady_step_ms over {len(runs)} run(s) "
+                f"{steady}, median {med}, spread (max - min) "
+                f"{max(steady) - min(steady):.3f} ms = "
+                f"{(max(steady) - min(steady)) / med:.4f} of the median; "
+                f"every window min {min(windows)}, max {max(windows)}; "
+                f"tokens_per_s {[r.get('tokens_per_s') for r in runs]}, mfu "
+                f"{[round(r.get('mfu', 0.0), 6) for r in runs]}")
+        train_ms = results.get("train_median_ms", {}).get(key)
+        if train_ms:
+            line += (f"; train {key}'s median {train_ms:.3f} ms/step (steps "
+                     f"2-{train['steps']}, a metrics fetch a step): bench "
+                     f"- train {med - train_ms:+.3f} ms = "
+                     f"{(med - train_ms) / train_ms:+.4f}")
+        print(line + f" [{card}]", flush=True)
+    return bool(ok)
+
+
 RESUME_TOL = 1e-6
 
 
@@ -3131,6 +3297,9 @@ def main() -> int:
             print(f"phase train {key}: {'ok' if train_ok else 'FAILED'}",
                   flush=True)
             ok &= train_ok
+        bench_ok = phase_bench(data_dir, results, card)
+        print(f"phase bench: {'ok' if bench_ok else 'FAILED'}", flush=True)
+        ok &= bench_ok
         ckpt_ok = phase_ckpt_quickstart(data_dir)
         ckpt_ok &= phase_ckpt_qwen(data_dir, results, card)
         print(f"phase ckpt qwen: {'ok' if ckpt_ok else 'FAILED'}", flush=True)

@@ -123,6 +123,9 @@ class Registry:
             )
         return instance
 
+    def variants(self, component_key: str):
+        return sorted(v for c, v in self._entries if c == component_key)
+
 
 #: the port's default registry (populated by repro_torch.core.components)
 DEFAULT_REGISTRY = Registry()

@@ -14,7 +14,10 @@ the post-training datasets ``dataset/sft_synthetic`` and
 match ``repro.core.components``, so a run YAML of the JAX package
 resolves here unchanged; settings of later slices (mesh and sharding plan,
 ``dataset/sft_jsonl`` and the tokenizers) raise ``NotImplementedError``
-naming the slice.
+naming the slice.  Each component key is bound to its interface
+(:mod:`.interfaces`), as in JAX: the registry refuses a built instance
+that does not satisfy it, and the port's concrete classes are registered
+into the ABCs they implement.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..configs import ARCH_IDS, get_config, get_reduced
 from ..models import build_model
 from ..models.base import ArchConfig, MLAConfig, Model, MoEConfig, SSMConfig
 from ..models.stacked import REMAT_VARIANTS, RematPolicy
+from . import interfaces as IF
 
 _REGISTERED = False
 
@@ -36,6 +40,7 @@ def register_all() -> None:
     if _REGISTERED:
         return
     _REGISTERED = True
+    _register_interfaces()
     for arch in ARCH_IDS + ["llama3_8b"]:
         REG.register("arch_config", arch,
                      (lambda a: (lambda reduced=False, **overrides:
@@ -45,6 +50,27 @@ def register_all() -> None:
     REG.register("model", "auto", lambda arch_config: build_model(arch_config),
                  Model)
     _register_training()
+
+
+def _register_interfaces() -> None:
+    """Bind the IFs and virtual-subclass the concrete classes into them."""
+    from ..ckpt import AsyncCheckpointer
+    from ..data.packed_dataset import ChunkedLMDataset, ShardedLoader
+    from ..data.prefetch import PrefetchLoader
+    from ..optim.adamw import AdamW
+    from ..posttrain.dpo import PreferencePairDataset
+    from ..posttrain.lora import FrozenBaseOptimizer
+    from ..posttrain.sft import PackedSFTDataset
+
+    IF.register_builtin_interfaces()
+    IF.OptimizerIF.register(AdamW)
+    IF.OptimizerIF.register(FrozenBaseOptimizer)
+    IF.DatasetIF.register(ChunkedLMDataset)
+    IF.DatasetIF.register(PackedSFTDataset)
+    IF.DatasetIF.register(PreferencePairDataset)
+    IF.LoaderIF.register(ShardedLoader)
+    IF.LoaderIF.register(PrefetchLoader)
+    IF.CheckpointerIF.register(AsyncCheckpointer)
 
 
 def _register_training() -> None:
@@ -64,7 +90,7 @@ def _register_training() -> None:
                  grad_clip=1.0: AdamW(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay,
                                       grad_clip=grad_clip),
-                 AdamW)
+                 IF.OptimizerIF)
     REG.register("lr_schedule", "constant", SCHED.constant)
     REG.register("lr_schedule", "warmup_cosine", SCHED.warmup_cosine)
     REG.register("lr_schedule", "wsd", SCHED.wsd)
@@ -72,7 +98,8 @@ def _register_training() -> None:
     REG.register("dataset", "packed_chunked",
                  lambda prefix, seq_len, seed=0, shuffle=True:
                  ChunkedLMDataset(PackedDataset(prefix), seq_len, seed,
-                                  shuffle))
+                                  shuffle),
+                 IF.DatasetIF)
     REG.register("dataset", "synthetic", _synthetic_chunked)
     # post-training datasets (loss-masked SFT rows, DPO preference pairs)
     from ..posttrain.dpo import preference_synthetic_dataset
@@ -87,10 +114,11 @@ def _register_training() -> None:
     REG.register("dataset", "sft_jsonl", _refusal("dataset/sft_jsonl", a11))
     for variant in ("byte", "bpe"):
         REG.register("tokenizer", variant,
-                     _refusal(f"tokenizer/{variant}", a11))
+                     _refusal(f"tokenizer/{variant}", a11), IF.TokenizerIF)
     REG.register("loader", "sharded",
                  lambda dataset, global_batch, dp_rank=0, dp_size=1:
-                 ShardedLoader(dataset, global_batch, dp_rank, dp_size))
+                 ShardedLoader(dataset, global_batch, dp_rank, dp_size),
+                 IF.LoaderIF)
     REG.register("loader", "prefetch",
                  lambda loader, depth=2, to_device=True:
                  PrefetchLoader(loader, depth=depth, to_device=to_device))
@@ -102,7 +130,8 @@ def _register_training() -> None:
                  lambda dataset, n_samples=16, offset=None, batch=4:
                  PerplexityEvaluator(dataset, n_samples, offset, batch))
 
-    REG.register("tracker", "stdout", lambda prefix="": _StdoutTracker(prefix))
+    REG.register("tracker", "stdout", lambda prefix="": _StdoutTracker(prefix),
+                 IF.TrackerIF)
     REG.register("tracker", "jsonl", lambda path: _JsonlTracker(path))
     REG.register("sink", "jsonl", lambda path: JsonlSink(path), TelemetrySink)
     REG.register("sink", "csv", lambda path: CsvSink(path), TelemetrySink)
@@ -132,12 +161,12 @@ def _register_training() -> None:
                  lambda ckpt_dir, keep_last=3, keep_every=0:
                  AsyncCheckpointer(ckpt_dir, RetentionPolicy(
                      int(keep_last), int(keep_every))),
-                 AsyncCheckpointer)
+                 IF.CheckpointerIF)
     REG.register("checkpointer", "sync",
                  lambda ckpt_dir, keep_last=3, keep_every=0:
                  AsyncCheckpointer(ckpt_dir, RetentionPolicy(
                      int(keep_last), int(keep_every)), background=False),
-                 AsyncCheckpointer)
+                 IF.CheckpointerIF)
 
     from ..resilience import FaultInjector
 
@@ -146,16 +175,19 @@ def _register_training() -> None:
                  FaultInjector)
 
     # components of later slices: a JAX document naming one resolves to a
-    # refusal that names the slice
-    for key, variants, slice_ in (
+    # refusal that names the slice (``sharding_plan`` has no IF until then)
+    for key, variants, iface in (
             ("mesh_provider", ("single_device", "local", "production",
-                               "split"), "the parallelism slice (ROADMAP A8)"),
+                               "split"), IF.MeshProviderIF),
             ("sharding_plan", ("ddp", "fsdp", "hsdp", "fsdp_tp", "hsdp_tp",
                                "fsdp_tp_ep", "hsdp_tp_ep", "serve_ep",
                                "pp2_fsdp", "pp2_fsdp_tp", "pp2_fsdp_tp_ep",
-                               "custom"), "the parallelism slice (ROADMAP A8)")):
+                               "custom"), None)):
         for variant in variants:
-            REG.register(key, variant, _refusal(f"{key}/{variant}", slice_))
+            REG.register(key, variant,
+                         _refusal(f"{key}/{variant}",
+                                  "the parallelism slice (ROADMAP A8)"),
+                         iface)
 
 
 def _cfg(arch: str, reduced: bool, overrides: Dict[str, Any]) -> ArchConfig:
@@ -193,7 +225,7 @@ def _synthetic_chunked(n_tokens: int, vocab: int, prefix: str, seq_len: int,
     return ChunkedLMDataset(PackedDataset(prefix), seq_len, seed, shuffle)
 
 
-class _StdoutTracker:
+class _StdoutTracker(IF.TrackerIF):
     def __init__(self, prefix: str = ""):
         self.prefix = prefix
 
@@ -201,7 +233,7 @@ class _StdoutTracker:
         print(self.prefix + json.dumps(metrics, default=float), flush=True)
 
 
-class _JsonlTracker:
+class _JsonlTracker(IF.TrackerIF):
     def __init__(self, path: str):
         self.path = path
 

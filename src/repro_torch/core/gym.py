@@ -365,6 +365,120 @@ class Gym:
                 "steps_dispatched": dispatched,
                 "productive_steps": max(0, final_step - start)}
 
+    # -- benchmarking ------------------------------------------------------
+    def bench(self, steps: int = 20, warmup: int = 3,
+              windows: int = 5) -> Dict[str, Any]:
+        """Measure the hot path: the first step's time, steady-state step
+        time, tokens/sec and modeled MFU.  The one timing implementation
+        behind the ``bench`` run kind (``python -m repro_torch bench``),
+        with JAX's steps, windows and result keys.
+
+        The ``steps`` are split into ``windows`` synchronized windows and
+        ``steady_step_ms`` is the median of the per-window step times: one
+        hiccup of the host clock skews one window, not the figure.  The
+        card is synchronized after the first step, after the warm-up and at
+        each window's end; inside a window the metrics stay on the device.
+        ``compile_s`` keeps JAX's name for the first step's time: the port
+        traces nothing, so it holds the lazy load of the kernel libraries
+        (and their build when the build directory is cold), cuBLAS and the
+        allocator's warm-up.  Exactly ``1 + warmup + steps`` batches are
+        drawn; the prefetch worker is stopped before returning.
+        """
+        import statistics
+
+        from ..telemetry import accounting as ACC
+
+        t0 = time.perf_counter()
+        state = self.setup()
+        setup_s = time.perf_counter() - t0
+        start = int(state["step"])
+        tel = self.telemetry
+        dev = self._device
+        n_w = max(1, min(int(windows), steps))
+        base, rem = divmod(steps, n_w)
+        sizes = [base + (1 if w < rem else 0) for w in range(n_w)]
+        sizes = [s for s in sizes if s > 0]
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def step(state):
+            return self._step(state, place_batch(next(it), dev))
+
+        batches = self._wrapped_loader().batches(1 + warmup + steps,
+                                                 start_step=start)
+        try:
+            it = iter(batches)
+            t0 = time.perf_counter()
+            state, m = step(state)
+            sync()
+            compile_s = time.perf_counter() - t0  # first call: loads + run
+            for _ in range(warmup):
+                state, m = step(state)
+            sync()
+            window_rows: List[Dict[str, Any]] = []
+            for k in sizes:
+                tw0 = time.perf_counter()
+                for _ in range(k):
+                    state, m = step(state)
+                sync()
+                tw1 = time.perf_counter()
+                window_rows.append({"steps": k, "wall_s": round(tw1 - tw0, 6),
+                                    "step_ms": round((tw1 - tw0) / k * 1000,
+                                                     3)})
+                if tel is not None:
+                    tel.metric(len(window_rows),
+                               {"bench_step_ms": window_rows[-1]["step_ms"],
+                                "bench_window_steps": k},
+                               phase="bench_window")
+        finally:
+            close = getattr(batches, "close", None)
+            if callable(close):
+                close()  # stop the prefetch worker
+        wall = sum(r["wall_s"] for r in window_rows)
+        steady_ms = statistics.median(r["step_ms"] for r in window_rows)
+        loss = float(m["loss"] if "loss" in m else m["ce"])
+        result = {
+            "steps": steps,
+            "warmup": warmup,
+            "setup_s": round(setup_s, 3),
+            "compile_s": round(compile_s, 3),
+            "steady_step_ms": round(steady_ms, 3),
+            "steady_step_ms_mean": round(wall / steps * 1000, 3),
+            "windows": window_rows,
+            "steps_per_s": round(steps / wall, 3) if wall > 0 else 0.0,
+            "final_loss": round(loss, 6),
+            "prefetch": self.prefetch,
+            "grad_accum": self.grad_accum,
+            # a clean bench dispatches every step productively by
+            # construction (no rollback/preempt paths): goodput is 1.0
+            "goodput": 1.0,
+            "steps_dispatched": steps,
+            "rollback_count": 0,
+            "retry_count": int(getattr(self.checkpointer,
+                                       "retry_count", 0) or 0),
+            "graceful_exit": False,
+        }
+        flops = ACC.flops_per_train_step(self.model, self.loader,
+                                         self.grad_accum)
+        if flops:
+            result["model_flops_per_step"] = flops
+            result["mfu"] = ACC.mfu(flops, steady_ms / 1000.0)
+        gb = getattr(self.loader, "global_batch", None)
+        seq = getattr(getattr(self.loader, "dataset", None), "seq_len", None)
+        if gb and seq:
+            result["global_batch"] = int(gb)
+            result["seq_len"] = int(seq)
+            result["tokens_per_s"] = int(gb * seq / (steady_ms / 1000.0)) \
+                if steady_ms > 0 else 0
+        if tel is not None:
+            tel.metric(None, {"steady_step_ms": result["steady_step_ms"],
+                              "mfu": result.get("mfu"),
+                              "tokens_per_s": result.get("tokens_per_s"),
+                              "goodput": 1.0}, phase="bench_summary")
+        return result
+
     def _rollback(self, like, event, events, history, data_offset,
                   rollbacks, ckpt):
         """Recover from an anomaly: restore the newest committed checkpoint

@@ -5,6 +5,7 @@
   python -m repro_torch serve     --config run.yaml [--set ...] [--device ...]
   python -m repro_torch sft       --config run.yaml [--set ...] [--device ...]
   python -m repro_torch dpo       --config run.yaml [--set ...] [--device ...]
+  python -m repro_torch bench     --config run.yaml [--set ...] [--device ...]
   python -m repro_torch replay    <run_dir> [--device ...]
   python -m repro_torch validate  <yaml-or-dir> [...]
 
@@ -12,6 +13,9 @@ A run runs on the card unless ``--device cpu`` is given; with no card and
 no ``--device cpu`` it stops with an error.  Every run writes
 ``resolved.yaml``, ``manifest.json`` and ``result.json`` into its output
 directory; ``replay`` re-executes such a directory (of either package).
+``bench`` times the resolved gym's hot path and writes
+``BENCH_<name>.json`` into the run's output directory (never the JAX
+package's tracked files at the repo root).
 ``validate`` checks documents without building anything: ``ok`` for a
 document the port runs, ``skip`` (naming the ROADMAP item) for one of a
 later slice, ``FAIL`` for a broken one (exit 1).  A train run stopped by
@@ -55,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                      "reference (static pairs or on-policy sampling)")
     _add_kind_parser(sub, "serve",
                      "continuous-batching engine / static-batch shim")
+    _add_kind_parser(sub, "bench",
+                     "hot-path timing: first step, steady ms/step, tok/s")
     r = sub.add_parser("replay",
                        help="re-execute a run from its resolved.yaml artifact")
     r.add_argument("run_dir", help="directory holding resolved.yaml + "
@@ -81,6 +87,9 @@ def _print_result(kind: str, result) -> None:
             print(f"dpo: margin {result['first_margin']:.4f} -> "
                   f"{result['final_margin']:.4f}, reward accuracy "
                   f"{result['final_reward_accuracy']:.3f}", flush=True)
+    elif kind == "bench":
+        print(f"bench artifact: {result.get('bench_file', '(disabled)')}",
+              flush=True)
     elif "bench_file" in result:
         print(f"done: {result['completed']}/{result['n_requests']} requests, "
               f"{result['tok_s']} tok/s, decode {result['decode_tok_s']} "

@@ -1,5 +1,5 @@
 """Run documents of the port (the ``train``, ``warmstart``, ``serve``,
-``sft`` and ``dpo`` kinds of ``repro.run.config``).
+``sft``, ``dpo`` and ``bench`` kinds of ``repro.run.config``).
 
 A run document is a YAML mapping with a ``run:`` header naming the kind and
 a per-kind settings section; everything else is the component graph the
@@ -11,7 +11,9 @@ settings; ``serve`` runs the static-batch shim (``batch``, ``prompt_len``,
 continuous-batching engine over a seeded ``workload`` with per-request
 ``sampling`` and a ``faults`` schedule; ``sft`` and ``dpo`` post-train the
 resolved gym like ``train``, optionally through LoRA adapters (``lora``),
-DPO against a frozen reference and with pairs sampled ``onpolicy``.  The
+DPO against a frozen reference and with pairs sampled ``onpolicy``;
+``bench`` times the resolved gym's hot path (``steps`` after ``warmup``,
+in ``windows``).  The
 ``resilience`` block of the train-shaped kinds (sentinel, rollback,
 preemption, checkpoint retries, faults) and ``telemetry.profile`` (the
 profiler window) are JAX's grammar, with JAX's error messages.  A
@@ -19,7 +21,9 @@ document without a ``run:`` section is a ``train`` run when it has a
 ``gym`` and a sweep when it has a sweep spec, as in JAX.  The
 JAX package's other kinds and settings are recognised and refused with the
 slice that will bring them, so a document never runs with settings
-ignored.
+ignored.  A new kind is a settings schema (:func:`register_run_settings`)
+plus an executor, registered together by
+:func:`repro_torch.run.kinds.register_run_kind`.
 """
 from __future__ import annotations
 
@@ -31,8 +35,6 @@ from typing import Any, Dict, Optional, Type
 #: the JAX package's other run kinds, and the slice of the port that brings
 #: each
 OTHER_KINDS = {
-    "bench": "the bench kind comes with the port's benchmarks (ROADMAP A9); "
-             "its JAX counterpart writes BENCH_<name>.json at the repo root",
     "dryrun": "dryrun, trace and sweeps come with ROADMAP A9",
     "trace": "dryrun, trace and sweeps come with ROADMAP A9",
     "sweep": "dryrun, trace and sweeps come with ROADMAP A9",
@@ -436,6 +438,33 @@ class WarmstartKindSettings:
 
 
 @dataclasses.dataclass
+class BenchSettings:
+    """``run.bench``: measure the train hot path (the first step's time,
+    steady-state step time, tokens/sec) for the resolved gym and keep it as
+    an artifact.
+
+    Writes ``BENCH_<name>.json`` into ``bench_dir`` besides the run
+    directory's ``result.json``.  ``bench_dir`` keeps JAX's default ``"."``
+    (so the run document's fingerprint is JAX's), but the port reads
+    ``"."`` as the run's ``output_dir`` (see ``run.kinds.execute_bench``);
+    ``""`` writes none.
+    """
+
+    steps: int = 20               # measured steps (post-warmup)
+    warmup: int = 3               # steps between the first and measurement
+    windows: int = 5              # median-of-windows steady-state timing
+    gym_key: str = "gym"          # top-level graph entry that is the gym
+    bench_dir: str = "."          # where BENCH_<name>.json lands
+    telemetry: Any = None         # mapping/bool -> TelemetrySettings
+
+    def __post_init__(self):
+        if self.windows < 1:
+            raise RunError(f"run.bench.windows must be >= 1, "
+                           f"got {self.windows}")
+        self.telemetry = _coerce_telemetry("bench", self.telemetry)
+
+
+@dataclasses.dataclass
 class SamplingSettings:
     """``run.serve.sampling``: default sampling knobs for engine workloads.
 
@@ -588,8 +617,19 @@ class RunConfig:
                                   # source, replay)
 
 
-_SETTINGS = {"train": TrainSettings, "warmstart": WarmstartKindSettings,
-             "serve": ServeSettings, "sft": SFTSettings, "dpo": DPOSettings}
+#: kind -> settings dataclass (None => a free-form mapping)
+SETTINGS_SCHEMAS: Dict[str, Optional[Type]] = {
+    "train": TrainSettings, "warmstart": WarmstartKindSettings,
+    "serve": ServeSettings, "sft": SFTSettings, "dpo": DPOSettings,
+    "bench": BenchSettings}
+
+KINDS = tuple(SETTINGS_SCHEMAS)
+
+
+def register_run_settings(kind: str, settings_cls: Optional[Type]) -> None:
+    """Add a new run kind's settings schema (new kinds are a registry entry
+    plus this schema — no new script)."""
+    SETTINGS_SCHEMAS[kind] = settings_cls
 
 
 def _infer_kind(doc: Dict[str, Any]) -> Optional[str]:
@@ -615,28 +655,33 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
     if kind is not None and doc_kind != kind:
         raise RunError(f"document declares kind {doc_kind!r} but was "
                        f"launched as {kind!r}")
-    if doc_kind in OTHER_KINDS:
+    if doc_kind in OTHER_KINDS and doc_kind not in SETTINGS_SCHEMAS:
         raise NotImplementedError(f"run kind {doc_kind!r}: "
                                   f"{OTHER_KINDS[doc_kind]}")
-    if doc_kind not in _SETTINGS:
+    if doc_kind not in SETTINGS_SCHEMAS:
         raise RunError(f"unknown run kind {doc_kind!r}; the port runs "
-                       f"{sorted(_SETTINGS)}")
+                       f"{sorted(SETTINGS_SCHEMAS)}")
     unknown = set(run_sec) - {"kind", "name", "output_dir", doc_kind}
     if unknown:
         raise RunError(f"run section has unknown keys {sorted(unknown)}")
     section = dict(run_sec.get(doc_kind) or {})
-    cls = _SETTINGS[doc_kind]
-    fields = {f.name for f in dataclasses.fields(cls)}
-    if set(section) - fields:
-        raise RunError(f"run.{doc_kind}: unknown settings "
-                       f"{sorted(set(section) - fields)}; accepted: "
-                       f"{sorted(fields)}")
+    cls = SETTINGS_SCHEMAS[doc_kind]
     name = str(run_sec.get("name") or default_name)
     output_dir = str(run_sec.get("output_dir")
                      or os.path.join("results", "runs", name))
-    settings = cls(**section)
-    normalized_run = {"kind": doc_kind, "name": name, "output_dir": output_dir,
-                      doc_kind: dataclasses.asdict(settings)}
+    normalized_run = {"kind": doc_kind, "name": name, "output_dir": output_dir}
+    if cls is None:  # schema-less kind: keep whatever mapping was given
+        settings = section
+        if section:
+            normalized_run[doc_kind] = dict(section)
+    else:
+        fields = {f.name for f in dataclasses.fields(cls)}
+        if set(section) - fields:
+            raise RunError(f"run.{doc_kind}: unknown settings "
+                           f"{sorted(set(section) - fields)}; accepted: "
+                           f"{sorted(fields)}")
+        settings = cls(**section)
+        normalized_run[doc_kind] = dataclasses.asdict(settings)
     return RunConfig(kind=doc_kind, name=name, output_dir=output_dir,
                      settings=settings, graph=doc,
                      doc={"run": normalized_run, **doc},

@@ -96,7 +96,7 @@ def test_serve_document_parses_and_engine_mode_is_refused():
         parse_run_doc(apply_overrides(engine_doc, parse_overrides(
             ["run.serve.sampling.top_p=0.0"])))
     with pytest.raises(NotImplementedError, match="A9"):
-        parse_run_doc({"run": {"kind": "bench"}})
+        parse_run_doc({"run": {"kind": "dryrun"}})
 
 
 def test_custom_arch_config_resolves_as_in_jax():

@@ -793,3 +793,48 @@ def test_dsv3_paged_matches_dense_on_the_card(cuda):
     dense = _dsv3_decode(model, params, toks, cuda)
     paged = _dsv3_decode(model, params, toks, cuda, paged=True)
     assert float((dense - paged).abs().max()) < 5e-4
+
+
+# ---------------------------------------------------------------------------
+# the bench kind on the card
+# ---------------------------------------------------------------------------
+def test_bench_kind_on_the_card_goes_through_the_kernel(cuda, tmp_path,
+                                                        monkeypatch):
+    """``bench.yaml`` at reduced size with ``use_flash_kernel``: the card is
+    synchronized after the first step, after the warm-up and at each
+    window's end; every step launches ``flash_fwd`` in each attention layer
+    forward and in the remat recompute; ``bench_dir: "."`` writes under the
+    run's output_dir and leaves the working directory alone."""
+    import os
+
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run import api
+    from repro_torch.run.overrides import apply_overrides, parse_overrides
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "configs", "bench.yaml")
+    doc = apply_overrides(load_yaml(path), parse_overrides(
+        [f"dataset.config.prefix={tmp_path / 'bq'}",
+         f"run.output_dir={tmp_path / 'run'}", "run.bench.steps=3",
+         "run.bench.warmup=1", "run.bench.windows=3",
+         "arch.config.use_flash_kernel=true"]))
+    cwd = tmp_path / "cwd"
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    syncs = []
+    sync = torch.cuda.synchronize
+
+    def counting(device=None):
+        syncs.append(device)
+        sync(device)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    before = ops.launches
+    res = api.execute_doc(doc, device=cuda, write_result=True,
+                          log=lambda m: None)
+    layers = 2 * 2          # reduced Qwen's attention layers x (fwd + remat)
+    assert ops.launches - before == layers * (1 + 1 + 3)
+    assert len(syncs) >= 1 + 1 + 3
+    assert res["steady_step_ms"] > 0 and len(res["windows"]) == 3
+    assert res["bench_file"] == str(tmp_path / "run" / "BENCH_quickstart.json")
+    assert os.listdir(cwd) == []

@@ -234,7 +234,7 @@ def test_train_without_device_needs_a_card(tmp_path):
 
 
 REFUSED = [
-    ("run.kind=bench", "A9"),
+    ("run={kind: dryrun}", "A9"),
     ("run.kind=dryrun", "A9"),
     ("run.kind=trace", "A9"),
     ("run.kind=sweep", "A9"),

@@ -32,8 +32,9 @@ from repro_torch.run.overrides import apply_overrides, parse_overrides
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CONFIGS = os.path.join(ROOT, "examples", "configs")
-PORTED = ["quickstart", "serve", "serve_engine", "warmstart", "sft", "dpo"]
-NOT_PORTED = {"ablation_dryrun": "A9", "bench": "A9", "dryrun": "A9",
+PORTED = ["quickstart", "serve", "serve_engine", "warmstart", "sft", "dpo",
+          "bench"]
+NOT_PORTED = {"ablation_dryrun": "A9", "dryrun": "A9",
               "lr_sweep": "A9", "trace": "A9", "train_pp": "A8"}
 
 
