@@ -1,8 +1,7 @@
 """Attention: GQA/MQA (+bias, sliding window) and MLA (DeepSeek-V3's
 latent KV compression), each with prefill, dense decode and paged
-(block-pool) decode and chunked-prefill paths (port of
-``repro.models.attention``; its encoder and cross attention come with
-ROADMAP A7.5).
+(block-pool) decode and chunked-prefill paths, and the encoder-decoder's
+bidirectional and cross attention (port of ``repro.models.attention``).
 
 Long sequences (> ``_BLOCKWISE_AT``) use a blockwise online-softmax loop so
 no [S, S] score tensor is ever live.  With ``cfg.use_flash_kernel`` prefill
@@ -167,6 +166,38 @@ def gqa_forward(cfg: B.ArchConfig, p, x, positions, window: Optional[int] = None
     if return_kv:
         return out, (k, v)
     return out
+
+
+def bidir_forward(cfg: B.ArchConfig, p, x):
+    """Bidirectional (encoder) self-attention, no rope (Whisper's positions
+    are learned).  The plain path, as in JAX: no kernel."""
+    q, k, v = _project_qkv(p, x, cfg)
+    pos = torch.arange(x.shape[1], device=x.device)
+    o = _full_attn(q, k, v, pos, pos, window=0, causal=False)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def cross_forward(cfg: B.ArchConfig, p, x, enc_kv):
+    """Cross-attention: q from x, k/v precomputed from the encoder's output
+    (``cross_kv``)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    k, v = enc_kv
+    pos_q = torch.arange(x.shape[1], device=x.device)
+    pos_k = torch.arange(k.shape[1], device=x.device)
+    o = _full_attn(q, k, v, pos_q, pos_k, window=0, causal=False)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def cross_kv(cfg: B.ArchConfig, p, enc_out):
+    """The cross-attention's k/v of the encoder's output ``[B, F, D]``."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(enc_out.dtype))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,17 @@ def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32):
     return (out * 0.02).to(dtype)
 
 
+def embed_lookup(table, tokens, dtype):
+    """The rows of ``table`` at ``tokens`` in ``dtype``.  JAX casts the
+    whole table, then gathers.  Gathering first gives the same numbers
+    without casting the ``[vocab, D]`` table every call, which serving
+    does; when the table takes a gradient, it is cast whole as in JAX, so
+    that its gradient is summed in ``dtype`` there too."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return table.to(dtype)[tokens]
+    return table[tokens].to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # norms (computed in f32, cast back to the input dtype)
 # ---------------------------------------------------------------------------

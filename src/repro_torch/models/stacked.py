@@ -100,6 +100,9 @@ def stack_layers(trees):
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_layers([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(stack_layers([t[i] for t in trees])
+                     for i in range(len(first)))
     return torch.stack(trees)
 
 

@@ -4,6 +4,9 @@ hybrid (Zamba2: Mamba2 layers with one weight-shared attention block after
 every ``attn_every - 1`` of them) stacks; attention is GQA, or MLA where
 ``cfg.mla`` is set (DeepSeek-V3), whose ``cfg.mtp`` adds the depth-1
 multi-token-prediction head (``p["mtp"]``, its loss ``aux["mtp"]``).
+The ``vlm`` arch is the dense stack behind a prefix of stub image-patch
+embeddings (``batch["patch_embeds"] [B, n_patches, D]``), which ``apply``
+and ``prefill`` put in front of the token embeddings.
 
 Training runs ``apply`` (embed, the ``Stacked`` fold with its remat policy,
 logits).  Serving has two cache layouts: the dense slot pool (``prefill`` /
@@ -16,8 +19,7 @@ homogeneous stack: ``blocks`` for dense layers, ``dense_blocks`` and
 ``moe_blocks`` for a MoE arch with leading dense layers, ``ssm_blocks`` for
 Mamba2 layers, for the hybrid one unstacked ``shared_attn`` dense block,
 and with MTP the unstacked ``mtp`` head), so ``repro_torch.bridge`` copies
-JAX params in key for key.  Audio (A7.5) and VLM (A7.6) blocks come with
-later slices.
+JAX params in key for key.  The ``audio`` arch is ``encdec.EncDecLM``.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from . import mlp as M
 from . import moe as MOE
 from . import ssm as S
 from . import stacked as ST
-from .common import (apply_norm, embed_init, norm_axes, norm_params,
-                     softmax_cross_entropy)
+from .common import (apply_norm, embed_init, embed_lookup, norm_axes,
+                     norm_params, softmax_cross_entropy)
 
 
 # ---------------------------------------------------------------------------
@@ -247,15 +249,17 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
 
 
 class DecoderLM(B.Model):
-    """Decoder-only language model: ``dense``, ``moe``, ``ssm`` and
-    ``hybrid`` archs."""
+    """Decoder-only language model: ``dense``, ``moe``, ``ssm``,
+    ``hybrid`` and ``vlm`` archs."""
 
     def __init__(self, cfg: B.ArchConfig):
         from . import unported
 
         why = unported(cfg)
-        if why:
-            raise NotImplementedError(why)
+        if why or cfg.arch_type == "audio":
+            raise NotImplementedError(
+                why or f"{cfg.name}: the audio arch is an encoder-decoder "
+                f"(build_model gives its EncDecLM)")
         super().__init__(cfg)
         self.kinds = [_layer_kind(cfg, i) for i in range(cfg.n_layers)]
 
@@ -384,8 +388,12 @@ class DecoderLM(B.Model):
 
         Activations are bf16 (``embed_tokens``); with tied embeddings the
         table takes gradient from both uses, the gather and the logits.
+        A VLM batch's ``patch_embeds`` go in front of the tokens, so the
+        logits cover ``n_patches + S`` rows (``compute_loss`` drops the
+        patches' rows).
         """
-        x = self.embed_tokens(params, batch["tokens"].long())
+        x = self._with_patches(batch, self.embed_tokens(
+            params, batch["tokens"].long()))
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self.backbone(params, x, positions)
         aux_d = {"router_lb": aux}
@@ -415,6 +423,14 @@ class DecoderLM(B.Model):
         return softmax_cross_entropy(self.logits(params, z), labels2, mask)
 
     # -- forward pieces ------------------------------------------------------
+    def _with_patches(self, batch, x):
+        """``batch["patch_embeds"]``, cast to the activations' dtype, in
+        front of the token embeddings ``x`` when the arch has patches and
+        the batch carries them (JAX's ``apply`` and ``prefill``)."""
+        if self.cfg.n_patches and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        return x
+
     def logits(self, params, x):
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
@@ -422,23 +438,18 @@ class DecoderLM(B.Model):
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
     def embed_tokens(self, params, tokens, dtype=torch.bfloat16):
-        """The token embeddings in ``dtype``.  JAX casts the whole table,
-        then gathers.  Gathering first gives the same numbers without
-        casting the ``[vocab, D]`` table every call, which serving does; when
-        the table takes a gradient, it is cast whole as in JAX, so that its
-        gradient is summed in ``dtype`` there too."""
-        table = params["embed"]
-        if table.requires_grad and torch.is_grad_enabled():
-            return table.to(dtype)[tokens]
-        return table[tokens].to(dtype)
+        """The token embeddings in ``dtype`` (``common.embed_lookup``)."""
+        return embed_lookup(params["embed"], tokens, dtype)
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16):
-        """Run the full prompt, returning (last-token logits, decode cache)."""
+        """Run the full prompt, returning (last-token logits, decode cache).
+        A VLM batch's patches come first: the cache then holds ``n_patches
+        + S`` rows, and decoding goes on at position ``n_patches + S``."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self.embed_tokens(params, tokens)
+        x = self._with_patches(batch, self.embed_tokens(params,
+                                                        batch["tokens"]))
         S = x.shape[1]
         max_len = max_len or S
         positions = torch.arange(S, device=x.device)

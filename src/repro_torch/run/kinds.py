@@ -295,10 +295,31 @@ def _rebase_master(state):
     return dict(state, opt=dict(opt, master=master))
 
 
+def _refuse_modality_archs(kind: str, gym) -> None:
+    """The train-family kinds step on the loader's token batches; the
+    audio arch also needs ``frames`` and a VLM ``patch_embeds``, which only
+    a stub frontend makes, and only the serve shim and a direct
+    ``make_train_step`` call feed one.  Refused here, before the first
+    step (JAX's gym raises a ``KeyError`` or a shape error instead)."""
+    cfg = getattr(getattr(gym, "model", None), "cfg", None)
+    if cfg is None or not (cfg.arch_type == "audio" or cfg.n_patches):
+        return
+    need = ("'frames' (the encoder's input)" if cfg.arch_type == "audio"
+            else f"'patch_embeds' ({cfg.n_patches} image-patch embeddings)")
+    raise RunError(
+        f"{kind}: {cfg.name} needs {need} in every batch, and the loader "
+        f"yields tokens only: the frames or patch embeddings come from a "
+        f"stub frontend that only the serve shim and a direct "
+        f"train.steps.make_train_step call feed")
+
+
 def _prepare_gym(ctx, s, gym) -> None:
     """Checkpoint-dir defaulting and fingerprint stamping (``getattr``
-    chains: a custom-registry gym need not carry these fields)."""
+    chains: a custom-registry gym need not carry these fields); refuses an
+    audio or VLM model (``_refuse_modality_archs``)."""
     from .fingerprint import fingerprint as _fp
+
+    _refuse_modality_archs(ctx.cfg.kind, gym)
 
     # a run that checkpoints but names no directory lands in the run dir —
     # and a resuming run looks there even when IT doesn't checkpoint
@@ -603,6 +624,7 @@ def execute_sft(ctx) -> Dict[str, Any]:
     s = ctx.cfg.settings
     graph = _resolve_graph(ctx)
     gym = _graph_get(graph, s.gym_key, "sft")
+    _refuse_modality_archs("sft", gym)
     lora_model = _inject_lora(gym, s.lora, ctx.log)
     _wire_evaluator(graph, gym, ctx.log)
     result = _drive_gym(ctx, s, gym)
@@ -631,6 +653,7 @@ def execute_dpo(ctx) -> Dict[str, Any]:
     base_gym = _graph_get(graph, s.gym_key, "dpo")
     if not isinstance(base_gym, Gym):
         raise RunError(f"dpo: graph entry {s.gym_key!r} is not a gym")
+    _refuse_modality_archs("dpo", base_gym)
     # rebuild the resolved gym as a DPOGym: same injected components, the
     # preference step swapped in through the step hooks
     fields = {f.name: getattr(base_gym, f.name)
@@ -711,6 +734,7 @@ def execute_bench(ctx) -> Dict[str, Any]:
     s: BenchSettings = ctx.cfg.settings
     graph = _resolve_graph(ctx)
     gym = _graph_get(graph, s.gym_key, "bench")
+    _refuse_modality_archs("bench", gym)
     gym.device = ctx.device
     rec = _build_telemetry(ctx, s)
     if rec is not None and hasattr(gym, "telemetry"):

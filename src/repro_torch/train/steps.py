@@ -18,8 +18,11 @@ from ..tree import tree_leaves, tree_map, tree_select, tree_unflatten
 def compute_loss(model, params, batch, mtp_coef: float = 0.3):
     """(total loss, {"ce", **aux}) of one batch; ``total`` adds the router
     balance loss, which is zero for the dense and ssm archs, and
-    ``mtp_coef`` times the MTP head's loss where the model has one."""
+    ``mtp_coef`` times the MTP head's loss where the model has one.  A VLM
+    arch's first ``n_patches`` logits (the patch prefix) take no loss."""
     logits, aux = model.apply(params, batch)
+    if model.cfg.n_patches:
+        logits = logits[:, model.cfg.n_patches:]
     loss = sharded_cross_entropy(logits, batch["labels"],
                                  batch.get("loss_mask"))
     total = loss

@@ -56,6 +56,14 @@ EXTRA_CASES = [
     (1, 300, 300, 4, 2, 160, True, 64, bf16),
     (1, 300, 300, 4, 2, 160, True, 64, f32),
     (1, 128, 384, 4, 1, 160, False, 0, bf16),
+    # Whisper-tiny's decoder prefill (6 heads of 64, 416 = 6.5 q tiles: the
+    # paired q tiles of dh <= 64 meet a ragged last one), and LLaVA-NeXT-
+    # 34B's (56 query heads over 8 kv heads, a group of 7) at its prefill
+    # length and a ragged one, in both paths
+    (8, 416, 416, 6, 6, 64, True, 0, bf16),
+    (4, 1024, 1024, 56, 8, 128, True, 0, bf16),
+    (1, 600, 600, 56, 8, 128, True, 0, bf16),
+    (1, 600, 600, 56, 8, 128, True, 0, f32),
 ]
 
 pytestmark = pytest.mark.gpu
@@ -133,6 +141,42 @@ def test_flash_prefill_matches_plain_prefill(cuda):
         params, {"tokens": tokens})
     plain, _ = build_model(cfg).prefill(params, {"tokens": tokens})
     torch.testing.assert_close(flash.float(), plain.float(), atol=3e-2, rtol=0)
+
+
+def test_encdec_prefill_on_the_card_matches_the_cpu(cuda):
+    """Reduced Whisper, bf16: the card's prefill (its decoder's
+    self-attention through the kernel) against the CPU's (the plain
+    version) on the same params, frames and prompt, within the bound of
+    ``test_flash_prefill_matches_plain_prefill``; the caches too."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import load_params
+
+    cfg = get_reduced("whisper_tiny").with_(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(3, cfg.vocab, (2, 40), generator=gen),
+             "frames": 0.02 * torch.randn((2, cfg.encoder_frames,
+                                           cfg.d_model), generator=gen)}
+    want, want_c = model.prefill(params, batch, max_len=48)
+    before = ops.launches
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    got, got_c = model.prefill({k: _to(v, cuda) for k, v in params.items()},
+                               on_card, max_len=48)
+    torch.cuda.synchronize()
+    assert ops.launches - before == cfg.n_layers
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=3e-2,
+                               rtol=0)
+    for key in ("cross_k", "cross_v"):
+        torch.testing.assert_close(got_c[key].float().cpu(),
+                                   want_c[key].float(), atol=3e-2, rtol=3e-2)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 # SSD_CASES of tests/test_kernels.py, then the serving slice's shape (Mamba2

@@ -242,7 +242,9 @@ REFUSED = [
      "variant_key: fsdp}", "A8"),
     ("gym.config.mesh_provider={component_key: mesh_provider, "
      "variant_key: single_device}", "A8"),
-    ("arch.variant_key=whisper_tiny", "A7"),
+    # the encoder-decoder is ported, but the loader yields no frames: the
+    # train kind refuses it before its first step
+    ("arch.variant_key=whisper_tiny", "^train: .*'frames'"),
 ]
 
 
@@ -250,8 +252,11 @@ REFUSED = [
                          ids=[s.split("=")[0] + "=" + s.split("=")[1][:12]
                               for s, _ in REFUSED])
 def test_settings_of_later_slices_are_refused(tmp_path, setting, slice_):
+    from repro_torch.run.config import RunError
+
     doc = _doc(tmp_path, "run.train.steps=1", setting)
-    with pytest.raises(NotImplementedError, match=slice_):
+    err = RunError if slice_.startswith("^") else NotImplementedError
+    with pytest.raises(err, match=slice_):
         api.execute_doc(doc, device="cpu", log=_quiet)
 
 

@@ -192,8 +192,18 @@ def test_param_axes_match_jax():
 @pytest.mark.parametrize("arch,item", [("whisper_tiny", "A7.5"),
                                        ("llava_next_34b", "A7.6")])
 def test_unported_archs_name_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        build_model(get_config(arch))
+    """The last two archs, once refused with their ROADMAP item, build at
+    full width: Whisper's encoder-decoder (A7.5), LLaVA's decoder behind
+    its 576-patch prefix (A7.6)."""
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.transformer import DecoderLM
+
+    model = build_model(get_config(arch))
+    if item == "A7.5":
+        assert isinstance(model, EncDecLM) and model.cfg.n_encoder_layers == 4
+    else:
+        assert isinstance(model, DecoderLM) and model.cfg.n_patches == 576
+        assert not model.supports_paged_cache()
 
 
 def test_expert_parallel_mesh_is_refused(reduced):

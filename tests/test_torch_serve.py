@@ -356,6 +356,12 @@ def test_unported_paths_raise():
         ServeEngine(model, params, n_slots=1, max_len=8, mesh=object())
     with pytest.raises(NotImplementedError, match="A8"):
         ServeEngine(model, params, n_slots=1, max_len=8, plan=object())
+    # the engine drives text decoders, as JAX's (``serve/engine.py``)
     for arch in ("whisper_tiny", "llava_next_34b"):
-        with pytest.raises(NotImplementedError):
-            build_model(get_reduced(arch))
+        model = build_model(get_reduced(arch))
+        with pytest.raises(EngineError, match="modality extras"):
+            ServeEngine(model, load_params(model, device="cpu"), n_slots=1,
+                        max_len=8)
+        with pytest.raises(Exception, match="modality extras"):
+            JaxServeEngine(jax_build_model(jax_get_reduced(arch)), {},
+                           n_slots=1, max_len=8)

@@ -393,8 +393,14 @@ def test_bridge_round_trip_of_an_ssm_tree():
 
 @pytest.mark.parametrize("arch", ["whisper_tiny"])
 def test_build_model_still_refuses_unported_archs(arch):
-    with pytest.raises(NotImplementedError):
-        build_model(get_reduced(arch))
+    """Every arch type of the repo builds now; an arch type the repo does
+    not have is refused, and ``DecoderLM`` refuses the encoder-decoder."""
+    from repro_torch.models.transformer import DecoderLM
+
+    with pytest.raises(NotImplementedError, match="no such model"):
+        build_model(get_reduced(arch).with_(arch_type="retnet"))
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        DecoderLM(get_reduced(arch))
 
 
 def test_bridge_snapshot_does_not_follow_in_place_updates():
