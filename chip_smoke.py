@@ -127,7 +127,25 @@
    margin 0, then positive; (d) pairs sampled twice through the paged
    engine (``==``) and a 2-step on-policy ``dpo`` run; (e) ``sft.yaml`` and
    ``dpo.yaml``.  Each run prints ms/step, ``mfu`` and peak memory.
-9. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+9. The data pipeline and sweeps (``--only sweep``): a seeded JSONL corpus
+   (16,384 documents, ~4.3 MiB) indexed and tokenized with the byte
+   tokenizer by the producer-consumer pipeline (4 spawned workers) and by
+   the serial baseline (the files byte-equal; each one's tok/s, host
+   numbers of the card's machine), a BPE tokenizer of 256 merges trained
+   on 2,048 documents and the corpus tokenized with it by the pipeline;
+   full-width Qwen1.5-0.5B through the flash kernel (batch 8 x 1024,
+   ``remat: full``) trained 3 steps on those BPE tokens
+   (``dataset/packed_chunked``) through the ``train`` kind; then the same
+   document as the base of a sweep (a ``zip`` axis over
+   ``optimizer.config.lr`` x ``seeds: [0, 1]``, 4 trials of 3 steps) run
+   through the CLI with ``--max-trials 2``, again (the 2 missing trials),
+   and a third time (4 resumed, no launch): 4 x 3 x 48 launches, the
+   report's ranking, the trial equal to the train run ``==`` its loss, the
+   card's memory back within 1 GiB after every trial, each trial's ms/step
+   and peak; then ``lr_sweep.yaml`` unchanged but for its directories (6
+   trials, no launch) and an ``sft`` run on a JSONL of pairs through
+   ``tokenizer/byte``.
+10. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine and full-width DeepSeekMoE-16B on the paged engine (pages
@@ -2821,14 +2839,325 @@ ENGINE_SLICES = {
 
 
 def _checkout_files() -> dict:
-    """Every file under the checkout with its size and mtime."""
+    """Every file under the checkout with its size and mtime (not the chip
+    tool's output directory, where a run may write its own log)."""
     out = {}
     for d, dirs, files in os.walk(ROOT):
-        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        dirs[:] = [x for x in dirs if x not in ("__pycache__", "chiprun_out")]
         for f in files:
             st = os.stat(os.path.join(d, f))
             out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
     return out
+
+
+# the sweep phase: a corpus of SWEEP_DOCS seeded documents, the BPE's
+# training sample and merges, the steps of each full-width run
+SWEEP_DOCS, SWEEP_BPE_DOCS, SWEEP_BPE_MERGES = 16384, 2048, 256
+SWEEP_WORKERS, SWEEP_STEPS = 4, 3
+SWEEP_WORDS = (
+    "the of and to in is was for on that with as by at from it an be are "
+    "this which or had not but have his they were their one all been has "
+    "model data token layer train loss step batch sweep tokenizer corpus "
+    "attention gradient optimizer schedule checkpoint ablation research "
+    "pipeline throughput memory").split()
+# the train run and the trial of the same patches and seed: one process,
+# the same inputs and kernels, so the losses are equal
+SWEEP_LR, SWEEP_SEED = 3e-4, 0
+SWEEP_MEM_SLACK = 2**30     # bytes the card may hold after a trial
+
+
+def _sweep_corpus(data_dir: str) -> tuple:
+    """A seeded JSONL corpus of ``SWEEP_DOCS`` documents from
+    ``SWEEP_WORDS``, and a JSONL of 256 prompt/response pairs."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    words = np.array(SWEEP_WORDS)
+    path = os.path.join(data_dir, "corpus.jsonl")
+    docs = []
+    with open(path, "w") as f:
+        for n in rng.integers(20, 76, size=SWEEP_DOCS):
+            doc = " ".join(words[rng.integers(0, len(words), size=int(n))])
+            docs.append(doc)
+            f.write(json.dumps({"text": doc}) + "\n")
+    sft = os.path.join(data_dir, "pairs.jsonl")
+    with open(sft, "w") as f:
+        for _ in range(256):
+            q = " ".join(words[rng.integers(0, len(words), size=8)])
+            a = " ".join(words[rng.integers(0, len(words), size=24)])
+            f.write(json.dumps({"prompt": q, "response": a}) + "\n")
+    return path, sft, docs
+
+
+def _sweep_pipeline(data_dir: str, card: str) -> tuple:
+    """Index and tokenize the corpus (byte: pipeline and serial; BPE:
+    trained on a sample, then the pipeline); (ok, BPE prefix, sft path)."""
+    from repro_torch.data.indexer import index_jsonl
+    from repro_torch.data.packed_dataset import PackedDataset
+    from repro_torch.data.tokenize_pipeline import (tokenize_file,
+                                                    tokenize_file_serial)
+    from repro_torch.data.tokenizer import BpeTokenizer, ByteTokenizer
+
+    path, sft, docs = _sweep_corpus(data_dir)
+    mib = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    index = index_jsonl(path)
+    t_index = time.perf_counter() - t0
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t0
+
+    par, t_par = timed(tokenize_file, path, os.path.join(data_dir, "byte_par"),
+                       ByteTokenizer(), n_workers=SWEEP_WORKERS)
+    ser, t_ser = timed(tokenize_file_serial, path,
+                       os.path.join(data_dir, "byte_ser"), ByteTokenizer())
+    same = all(open(par[k], "rb").read() == open(ser[k], "rb").read()
+               for k in ("tokens_path", "docidx_path"))
+    bpe, t_train = timed(BpeTokenizer.train, docs[:SWEEP_BPE_DOCS],
+                         n_merges=SWEEP_BPE_MERGES)
+    prefix = os.path.join(data_dir, "bpe")
+    bp, t_bpe = timed(tokenize_file, path, prefix, bpe,
+                      n_workers=SWEEP_WORKERS)
+    ds = PackedDataset(prefix)
+    roundtrip = all(bpe.decode(ds.document(i).tolist()[:-1]) == docs[i]
+                    for i in (0, 1, SWEEP_DOCS // 2, SWEEP_DOCS - 1))
+    ok = (len(index) == SWEEP_DOCS and par["n_docs"] == SWEEP_DOCS and same
+          and len(bpe.merges) == SWEEP_BPE_MERGES and roundtrip
+          and bp["n_docs"] == SWEEP_DOCS)
+    print(f"sweep pipeline: corpus {SWEEP_DOCS} documents, {mib:.3f} MiB, "
+          f"indexed in {t_index:.3f}s; os.cpu_count() {os.cpu_count()} "
+          f"(host numbers of the card's machine [{card}])", flush=True)
+    for name, r, t in (("byte, pipeline of "
+                        f"{SWEEP_WORKERS} workers", par, t_par),
+                       ("byte, serial", ser, t_ser),
+                       (f"bpe ({SWEEP_BPE_MERGES} merges), pipeline of "
+                        f"{SWEEP_WORKERS} workers", bp, t_bpe)):
+        print(f"sweep pipeline: {name}: {r['n_docs']} docs, {r['n_tokens']} "
+              f"tokens in {t:.3f}s, {r['n_tokens'] / t:.1f} tok/s",
+              flush=True)
+    print(f"sweep pipeline: bpe trained on {SWEEP_BPE_DOCS} documents in "
+          f"{t_train:.3f}s ({len(bpe.merges)} merges, vocab "
+          f"{bpe.vocab_size}); pipeline files == serial files {same}; bpe "
+          f"documents decode to the corpus {roundtrip}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok, prefix, sft
+
+
+def _sweep_base(data_dir: str, prefix: str) -> dict:
+    """Full-width Qwen through the flash kernel at 8 x 1024 on the BPE
+    tokens, ``SWEEP_STEPS`` steps, lr ``SWEEP_LR``, seed ``SWEEP_SEED``."""
+    doc = train_doc(
+        data_dir, "sweep_unused", "arch.config.reduced=false",
+        f"variables.seq_len={TRAIN_SEQ}",
+        f"loader.config.global_batch={TRAIN_BATCH}",
+        f"run.train.steps={SWEEP_STEPS}", f"optimizer.config.lr={SWEEP_LR}",
+        f"gym.config.seed={SWEEP_SEED}", *TRAIN_SLICES["qwen"]["sets"])
+    doc["dataset"] = {"component_key": "dataset",
+                      "variant_key": "packed_chunked",
+                      "config": {"prefix": prefix, "seq_len": "${seq_len}"}}
+    doc["run"]["name"] = "sweep_qwen_train"
+    doc["run"]["output_dir"] = os.path.join(data_dir, "sweep_qwen_train")
+    return doc
+
+
+def _sweep_cli(args: list) -> tuple:
+    """``python -m repro_torch sweep`` in this process; (exit code, the
+    trials it ran, its flash_fwd launches, each trial's row)."""
+    import gc
+
+    import torch
+
+    from repro_torch.run.cli import main as cli_main
+    from repro_torch.sweep import runner as runner_mod
+
+    flash = _counters()["flash_fwd"]
+    real = runner_mod.SweepRunner._run_one
+    rows = []
+
+    def run_one(self, backend, trial, total):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = flash.launches
+        rec = real(self, backend, trial, total)
+        torch.cuda.synchronize()
+        rows.append(dict(trial=trial.trial_id, record=rec,
+                         launches=flash.launches - before,
+                         peak=torch.cuda.max_memory_allocated(),
+                         after=torch.cuda.memory_allocated()))
+        return rec
+
+    flash.launches = 0
+    with mock.patch.object(runner_mod.SweepRunner, "_run_one", run_one):
+        rc = cli_main(["sweep", *args])
+    return rc, rows, flash.launches
+
+
+def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
+    """The data pipeline, then full-width Qwen trained on its tokens, then
+    an ablation sweep of that run and ``lr_sweep.yaml``, then an ``sft``
+    run on a JSONL of pairs (module docstring, item 9)."""
+    import math
+    import statistics
+
+    import torch
+    import yaml
+
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.run import api
+
+    t_phase = time.perf_counter()
+    tag = f"[{card}]"
+    before = _checkout_files()
+    ok, prefix, sft = _sweep_pipeline(data_dir, card)
+    total = 0
+
+    # the pipeline-fed run, through the train kind
+    _free()
+    base_mem = torch.cuda.memory_allocated()
+    flash = _counters()["flash_fwd"]
+    doc = _sweep_base(data_dir, prefix)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = 0
+    res = api.execute_doc(doc, device="cuda", write_result=True, log=_quiet)
+    torch.cuda.synchronize()
+    launches = flash.launches
+    total += launches
+    losses = [h["loss"] for h in res["history"]]
+    ms = _step_ms(res["history"])
+    run_ok = (len(losses) == SWEEP_STEPS and launches == 48 * SWEEP_STEPS
+              and all(math.isfinite(x) for x in losses))
+    print(f"sweep qwen train: full width on the bpe tokens, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, lr {SWEEP_LR}, seed {SWEEP_SEED}, "
+          f"losses {json.dumps(losses)}, flash_fwd {launches} (want "
+          f"{48 * SWEEP_STEPS}), ms/step {json.dumps([round(x, 3) for x in ms])}, "
+          f"peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"{tag}: {'ok' if run_ok else 'FAILED'}", flush=True)
+    ok &= run_ok
+    del res
+    _free()
+
+    # the ablation: the same document as the base of a sweep
+    sweep_dir = os.path.join(data_dir, "sweep_qwen")
+    spec_path = os.path.join(data_dir, "sweep_qwen.yaml")
+    base = {k: v for k, v in doc.items() if k != "run"}
+    with open(spec_path, "w") as f:
+        yaml.safe_dump({"sweep": {
+            "name": "qwen_lr_ablation", "backend": "gym",
+            "steps": SWEEP_STEPS, "base": base, "output_dir": sweep_dir,
+            "seeds": [0, 1], "seed_path": "gym.config.seed",
+            "axes": [{"type": "zip", "parameters": {
+                "optimizer.config.lr": [1e-4, SWEEP_LR]}}]}}, f)
+    args = ["--config", spec_path, "--device", "cuda"]
+    runs = [_sweep_cli(args + ["--max-trials", "2"]), _sweep_cli(args),
+            _sweep_cli(args)]
+    with open(os.path.join(sweep_dir, "report.json")) as f:
+        report = json.load(f)
+    records = {}
+    with open(os.path.join(sweep_dir, "records.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            records[rec["trial_id"]] = rec
+    mine = f"lr={SWEEP_LR}__seed={SWEEP_SEED}"
+    values = [r["value"] for r in report["ranking"]]
+    trial_launches = [row["launches"] for _, rows, _ in runs for row in rows]
+    sweep_launches = sum(n for _, _, n in runs)
+    total += sweep_launches
+    held = [row["after"] - base_mem for _, rows, _ in runs for row in rows]
+    sweep_ok = ([rc for rc, _, _ in runs] == [0, 0, 0]
+                and [len(rows) for _, rows, _ in runs] == [2, 2, 0]
+                and runs[2][2] == 0
+                and trial_launches == [48 * SWEEP_STEPS] * 4
+                and sweep_launches == 4 * SWEEP_STEPS * 48
+                and report["by_status"] == {"ok": 4}
+                and len(values) == 4 and values == sorted(values)
+                and all(math.isfinite(v) for v in values)
+                and records[mine]["metrics"]["final_loss"] == losses[-1]
+                and all(h < SWEEP_MEM_SLACK for h in held))
+    for _, rows, _ in runs:
+        for row in rows:
+            with open(os.path.join(sweep_dir, row["record"]["run_dir"],
+                                   "result.json")) as f:
+                hist = json.load(f)["history"]
+            ms = _step_ms(hist)
+            print(f"sweep qwen trial {row['trial']}: final_loss "
+                  f"{row['record']['metrics']['final_loss']}, flash_fwd "
+                  f"{row['launches']}, ms/step "
+                  f"{json.dumps([round(x, 3) for x in ms])} (median "
+                  f"{statistics.median(ms):.3f}), peak_mem_gib "
+                  f"{row['peak'] / 2**30:.3f}, held after the trial "
+                  f"{(row['after'] - base_mem) / 2**30:.4f} GiB above the "
+                  f"sweep's start, trial wall {row['record']['wall_s']} s "
+                  f"{tag}", flush=True)
+    print(f"sweep qwen: 3 invocations ran {[len(r) for _, r, _ in runs]} "
+          f"trials (want [2, 2, 0]), exit codes {[rc for rc, _, _ in runs]}, "
+          f"flash_fwd {sweep_launches} (want {4 * SWEEP_STEPS * 48}); report "
+          f"by_status {report['by_status']}, ranking "
+          f"{[(r['trial_id'], r['value']) for r in report['ranking']]}; "
+          f"trial {mine} final_loss "
+          f"{records[mine]['metrics']['final_loss']} == the train run's "
+          f"{losses[-1]}; held after each trial <= "
+          f"{max(held) / 2**30:.4f} GiB (bound 1 GiB): "
+          f"{'ok' if sweep_ok else 'FAILED'}", flush=True)
+    ok &= sweep_ok
+    _free()
+
+    # lr_sweep.yaml, unchanged but for its directories: its base's dataset
+    # moves into the temporary directory with the sweep's output
+    qs = load_yaml(os.path.join(ROOT, "examples", "configs",
+                                "quickstart.yaml"))
+    qs["dataset"]["config"]["prefix"] = os.path.join(data_dir, "lr_sweep_qs")
+    qs_path = os.path.join(data_dir, "quickstart_lr_sweep.yaml")
+    with open(qs_path, "w") as f:
+        yaml.safe_dump(qs, f)
+    lr_dir = os.path.join(data_dir, "lr_sweep")
+    t0 = time.perf_counter()
+    rc, rows, n = _sweep_cli(
+        ["--config", os.path.join(ROOT, "examples", "configs",
+                                  "lr_sweep.yaml"),
+         "--output-dir", lr_dir, "--set", f"sweep.base_config={qs_path}",
+         "--device", "cuda"])
+    with open(os.path.join(lr_dir, "report.json")) as f:
+        lr_report = json.load(f)
+    lr_ok = (rc == 0 and len(rows) == 6 and n == 0
+             and lr_report["by_status"] == {"ok": 6})
+    print(f"sweep lr_sweep.yaml: {len(rows)} trials in "
+          f"{time.perf_counter() - t0:.2f}s, exit {rc}, flash_fwd {n} (want "
+          f"0: use_flash_kernel stays False, as in JAX), best "
+          f"{lr_report['best']['trial_id']} = {lr_report['best']['value']} "
+          f"{tag}: {'ok' if lr_ok else 'FAILED'}", flush=True)
+    ok &= lr_ok
+
+    # sft on a JSONL of pairs through tokenizer/byte
+    sdoc = train_doc(data_dir, "sweep_sft_unused", "variables.seq_len=128")
+    sdoc["tokenizer"] = {"component_key": "tokenizer", "variant_key": "byte"}
+    sdoc["dataset"] = {"component_key": "dataset", "variant_key": "sft_jsonl",
+                       "config": {"path": sft, "seq_len": "${seq_len}",
+                                  "tokenizer": {"instance_key": "tokenizer"}}}
+    sdoc["run"] = {"kind": "sft", "name": "sweep_sft",
+                   "output_dir": os.path.join(data_dir, "sweep_sft"),
+                   "sft": {"steps": 4}}
+    flash.launches = 0
+    sres = api.execute_doc(sdoc, device="cuda", write_result=True,
+                           log=_quiet)
+    total += flash.launches
+    slosses = [h["loss"] for h in sres["history"]]
+    sft_ok = len(slosses) == 4 and all(math.isfinite(x) for x in slosses)
+    print(f"sweep sft_jsonl: reduced Qwen, 256 pairs through tokenizer/byte "
+          f"at seq_len 128, losses {json.dumps(slosses)}: "
+          f"{'ok' if sft_ok else 'FAILED'}", flush=True)
+    ok &= sft_ok
+    add_launches(results, {"flash_fwd": total})
+    written = sorted(p for p, st in _checkout_files().items()
+                     if before.get(p) != st)
+    ok &= not written
+    print(f"sweep: phase wall {time.perf_counter() - t_phase:.1f}s, "
+          f"flash_fwd {total}, files written under the checkout {written} "
+          f"{tag}", flush=True)
+    return bool(ok)
 
 
 def phase_engine_quickstart(out_dir: str) -> bool:
@@ -3643,8 +3972,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, engine (default: all); a partial run "
-                         "prints no result line")
+                         "posttrain, sweep, engine (default: all); a partial "
+                         "run prints no result line")
     args = ap.parse_args()
     only = {p for p in args.only.split(",") if p}
 
@@ -3739,6 +4068,11 @@ def main() -> int:
             print(f"phase posttrain qwen: {'ok' if post_ok else 'FAILED'}",
                   flush=True)
             ok &= post_ok
+        if want("sweep"):
+            sweep_ok = phase_sweep(data_dir, results, card)
+            print(f"phase sweep: {'ok' if sweep_ok else 'FAILED'}",
+                  flush=True)
+            ok &= sweep_ok
         if want("engine"):
             engine_ok = phase_engine_quickstart(data_dir)
             print(f"phase engine quickstart: "

@@ -5,17 +5,18 @@ Registered: ``arch_config/<arch>`` for every arch of the table (with the
 ``reduced`` flag and field overrides), ``arch_config/custom``,
 ``model/auto``, and the training graph: ``optimizer/adamw``,
 ``lr_schedule/*``, ``dataset/synthetic`` and ``dataset/packed_chunked``,
-the post-training datasets ``dataset/sft_synthetic`` and
-``dataset/preference_synthetic``,
-``loader/sharded`` and ``loader/prefetch``, ``remat_policy/*``,
+the post-training datasets ``dataset/sft_synthetic``, ``dataset/sft_jsonl``
+and ``dataset/preference_synthetic``, ``tokenizer/byte`` and
+``tokenizer/bpe``, ``loader/sharded`` and ``loader/prefetch``,
+``remat_policy/*``,
 ``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
 ``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``,
 ``fault_injector/schedule`` and ``gym/standard``.  The names and settings
 match ``repro.core.components``, so a run YAML of the JAX package
-resolves here unchanged; settings of later slices (mesh and sharding plan,
-``dataset/sft_jsonl`` and the tokenizers) raise ``NotImplementedError``
-naming the slice.  Each component key is bound to its interface
-(:mod:`.interfaces`), as in JAX: the registry refuses a built instance
+resolves here unchanged; settings of a later slice (mesh and sharding
+plan) raise ``NotImplementedError`` naming the slice.  Each component key
+is bound to its interface (:mod:`.interfaces`), as in JAX: the registry
+refuses a built instance
 that does not satisfy it, and the port's concrete classes are registered
 into the ABCs they implement.
 """
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from ..config.registry import DEFAULT_REGISTRY as REG
 from ..configs import ARCH_IDS, get_config, get_reduced
@@ -57,12 +58,15 @@ def _register_interfaces() -> None:
     from ..ckpt import AsyncCheckpointer
     from ..data.packed_dataset import ChunkedLMDataset, ShardedLoader
     from ..data.prefetch import PrefetchLoader
+    from ..data.tokenizer import BpeTokenizer, ByteTokenizer
     from ..optim.adamw import AdamW
     from ..posttrain.dpo import PreferencePairDataset
     from ..posttrain.lora import FrozenBaseOptimizer
     from ..posttrain.sft import PackedSFTDataset
 
     IF.register_builtin_interfaces()
+    IF.TokenizerIF.register(ByteTokenizer)
+    IF.TokenizerIF.register(BpeTokenizer)
     IF.OptimizerIF.register(AdamW)
     IF.OptimizerIF.register(FrozenBaseOptimizer)
     IF.DatasetIF.register(ChunkedLMDataset)
@@ -102,19 +106,16 @@ def _register_training() -> None:
                  IF.DatasetIF)
     REG.register("dataset", "synthetic", _synthetic_chunked)
     # post-training datasets (loss-masked SFT rows, DPO preference pairs)
+    from ..data.tokenizer import ByteTokenizer
     from ..posttrain.dpo import preference_synthetic_dataset
-    from ..posttrain.sft import sft_synthetic_dataset
+    from ..posttrain.sft import sft_jsonl_dataset, sft_synthetic_dataset
 
     REG.register("dataset", "sft_synthetic", sft_synthetic_dataset)
+    REG.register("dataset", "sft_jsonl", sft_jsonl_dataset, IF.DatasetIF)
     REG.register("dataset", "preference_synthetic",
                  preference_synthetic_dataset)
-    # a JSONL of text pairs needs a tokenizer component: both come with the
-    # data pipeline
-    a11 = "the data pipeline's tokenizers (ROADMAP A11)"
-    REG.register("dataset", "sft_jsonl", _refusal("dataset/sft_jsonl", a11))
-    for variant in ("byte", "bpe"):
-        REG.register("tokenizer", variant,
-                     _refusal(f"tokenizer/{variant}", a11), IF.TokenizerIF)
+    REG.register("tokenizer", "byte", ByteTokenizer, IF.TokenizerIF)
+    REG.register("tokenizer", "bpe", _bpe_tokenizer, IF.TokenizerIF)
     REG.register("loader", "sharded",
                  lambda dataset, global_batch, dp_rank=0, dp_size=1:
                  ShardedLoader(dataset, global_batch, dp_rank, dp_size),
@@ -200,6 +201,32 @@ def _custom_cfg(**kw) -> ArchConfig:
         if isinstance(kw.get(key), dict):
             kw[key] = cls(**kw[key])
     return ArchConfig(**kw)
+
+
+def _bpe_tokenizer(path: str = "", corpus: str = "",
+                   n_merges: Optional[int] = None):
+    """Load from ``path``, or train ``n_merges`` merges on a ``corpus`` text
+    file (one text per line); JAX's ``tokenizer/bpe``, its errors word for
+    word."""
+    from ..data.tokenizer import BpeTokenizer
+
+    if path:
+        if n_merges is not None:
+            raise ValueError(
+                "tokenizer/bpe: n_merges applies when training from 'corpus'; "
+                "a tokenizer loaded from 'path' has its merges baked in"
+            )
+        return BpeTokenizer.load(path)
+    if corpus:
+        with open(corpus) as f:
+            texts = f.read().splitlines()
+        return BpeTokenizer.train(texts, n_merges=256 if n_merges is None
+                                  else int(n_merges))
+    if n_merges is not None:
+        raise ValueError(
+            "tokenizer/bpe: n_merges needs a 'corpus' text file to train on"
+        )
+    return BpeTokenizer()
 
 
 def _refusal(name: str, slice_: str):

@@ -1,5 +1,5 @@
 """The port's run API: one document grammar; the train, warmstart, serve,
-sft, dpo and bench kinds, each a registry component
+sft, dpo, bench and sweep kinds, each a registry component
 (:mod:`repro_torch.run.kinds`); run artifacts and replay."""
 from .config import (KINDS, SETTINGS_SCHEMAS, BenchSettings,  # noqa: F401
                      RunConfig, RunError, ServeSettings, TelemetrySettings,

@@ -6,6 +6,9 @@
   python -m repro_torch sft       --config run.yaml [--set ...] [--device ...]
   python -m repro_torch dpo       --config run.yaml [--set ...] [--device ...]
   python -m repro_torch bench     --config run.yaml [--set ...] [--device ...]
+  python -m repro_torch sweep     --config sweep.yaml [--list|--report-only|--redo|
+                                  --max-trials N|--retry-failed|--output-dir D]
+                                  [--set ...] [--device ...]
   python -m repro_torch replay    <run_dir> [--device ...]
   python -m repro_torch validate  <yaml-or-dir> [...]
 
@@ -15,7 +18,10 @@ no ``--device cpu`` it stops with an error.  Every run writes
 directory; ``replay`` re-executes such a directory (of either package).
 ``bench`` times the resolved gym's hot path and writes
 ``BENCH_<name>.json`` into the run's output directory (never the JAX
-package's tracked files at the repo root).
+package's tracked files at the repo root).  ``sweep`` runs (or resumes) a
+declarative ablation, every trial on the sweep's device, and ranks the
+trials in ``report.txt``; ``--list`` only expands the trials (a ``dryrun``
+sweep too, whose backend the port refuses when it runs).
 ``validate`` checks documents without building anything: ``ok`` for a
 document the port runs, ``skip`` (naming the ROADMAP item) for one of a
 later slice, ``FAIL`` for a broken one (exit 1).  A train run stopped by
@@ -27,6 +33,7 @@ continues it.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
 import sys
@@ -61,6 +68,21 @@ def build_parser() -> argparse.ArgumentParser:
                      "continuous-batching engine / static-batch shim")
     _add_kind_parser(sub, "bench",
                      "hot-path timing: first step, steady ms/step, tok/s")
+    s = _add_kind_parser(sub, "sweep", "run a declarative ablation sweep")
+    s.add_argument("--output-dir", default="",
+                   help="override the spec's sweep directory")
+    s.add_argument("--list", action="store_true",
+                   help="print the expanded trials and exit (no execution)")
+    s.add_argument("--report-only", action="store_true",
+                   help="regenerate report from existing records and exit")
+    s.add_argument("--redo", action="store_true",
+                   help="ignore existing records, rerun every trial")
+    s.add_argument("--max-trials", type=int, default=0,
+                   help="cap how many new trials run this invocation")
+    s.add_argument("--retry-failed", action="store_true",
+                   help="on resume, re-run only transiently-failed trials "
+                        "(IO/timeout); deterministic failures keep their "
+                        "records")
     r = sub.add_parser("replay",
                        help="re-execute a run from its resolved.yaml artifact")
     r.add_argument("run_dir", help="directory holding resolved.yaml + "
@@ -102,6 +124,79 @@ def _print_result(kind: str, result) -> None:
               f"{result['decode_tok_s']} tok/s", flush=True)
 
 
+def _sweep_config(args):
+    """The sweep's run config: ``--set`` patches the normalized document
+    (JAX's), ``--output-dir`` moves the sweep and its run artifact."""
+    from ..config.resolver import load_yaml
+    from .config import parse_run_doc
+    from .overrides import apply_overrides, parse_overrides
+
+    stem = os.path.splitext(os.path.basename(args.config))[0]
+    config_dir = os.path.dirname(os.path.abspath(args.config))
+    cfg = parse_run_doc(load_yaml(args.config) or {}, kind="sweep",
+                        default_name=stem, config_dir=config_dir)
+    sets = parse_overrides(args.overrides)
+    if sets:
+        cfg = parse_run_doc(apply_overrides(cfg.doc, sets), kind="sweep",
+                            default_name=stem, config_dir=config_dir)
+    if args.output_dir:
+        cfg.output_dir = args.output_dir
+        cfg.doc["run"]["output_dir"] = args.output_dir
+    return cfg
+
+
+def _cmd_sweep(args) -> int:
+    from .kinds import build_sweep_spec
+
+    cfg = _sweep_config(args)
+    if args.list:
+        spec = build_sweep_spec(cfg, args.output_dir)
+        trials = spec.trials()
+        print(f"sweep {spec.name!r}: backend={spec.backend} "
+              f"trials={len(trials)}")
+        for t in trials:
+            patches = dict(t.patches)
+            if t.seed is not None:
+                patches["<seed>"] = t.seed
+            print(f"  [{t.index}] {t.trial_id}: {json.dumps(patches)}")
+        return 0
+    if args.report_only:
+        from ..sweep.report import write_report
+
+        spec = build_sweep_spec(cfg, args.output_dir)
+        summary = write_report(spec)  # SweepError without records: exit 2
+        _print_report(spec.output_dir, summary.get("best"),
+                      spec.objective_mode, spec.objective_metric)
+        return 0
+
+    from ..sweep.runner import SweepRunner
+    from . import api
+
+    # a refused backend (dryrun) or a missing card stops here, before the
+    # run writes its artifacts
+    SweepRunner(build_sweep_spec(cfg, args.output_dir),
+                device=args.device).backend()
+    options = {"redo": args.redo, "max_trials": args.max_trials,
+               "retry_failed": args.retry_failed}
+    if args.output_dir:
+        options["output_dir"] = args.output_dir
+    result = api.execute(cfg, device=args.device, write_result=True,
+                         options=options,
+                         log=lambda msg: print(msg, flush=True))
+    _print_report(result["sweep_output_dir"], result.get("best"),
+                  result["objective_mode"], result["objective_metric"])
+    return 1 if result.get("n_failed") else 0
+
+
+def _print_report(output_dir, best, mode, metric) -> None:
+    with open(os.path.join(output_dir, "report.txt")) as f:
+        print(f.read())
+    if best:
+        print(f"best trial: {best['trial_id']} "
+              f"({mode} {metric} = {best['value']:.6g})")
+    print(f"report: {os.path.join(output_dir, 'report.json')}")
+
+
 def _iter_yaml_paths(paths: List[str]):
     for p in paths:
         if os.path.isdir(p):
@@ -125,6 +220,19 @@ def validate_path(path: str) -> str:
     stem = os.path.splitext(os.path.basename(path))[0]
     cfg = parse_run_doc(doc, default_name=stem,
                         config_dir=os.path.dirname(os.path.abspath(path)))
+    if cfg.kind == "sweep":
+        from ..sweep.runner import DRYRUN_NOT_PORTED
+        from ..sweep.spec import SweepSpec
+
+        spec = SweepSpec.from_dict(cfg.settings, config_dir=cfg.config_dir)
+        n = len(spec.trials())
+        if spec.backend == "dryrun":
+            raise NotImplementedError(DRYRUN_NOT_PORTED)
+        if isinstance(spec.base, dict) \
+                and ("gym" in spec.base or "run" in spec.base):
+            validate_config({k: v for k, v in spec.base.items()
+                             if k != "run"})
+        return f"kind=sweep backend={spec.backend} trials={n}"
     counts = validate_config(cfg.graph)
     materialize(cfg.doc)  # defaults must be expressible / variants known
     return (f"kind={cfg.kind} components={counts['components']} "
@@ -137,7 +245,8 @@ def _cmd_validate(paths: List[str]) -> int:
         try:
             info = validate_path(path)
         except NotImplementedError as e:
-            item = re.search(r"ROADMAP (A[\d.]*\d)", str(e))
+            item = re.search(r"ROADMAP (A\d[\w.]*(?:'s dryrun half)?)",
+                             str(e))
             print(f"skip {path} (not ported: ROADMAP "
                   f"{item.group(1) if item else '?'})")
             continue
@@ -155,6 +264,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "validate":
         return _cmd_validate(args.paths)
+
+    if args.command == "sweep":
+        from ..config.resolver import ConfigError
+        from ..sweep.spec import SweepError
+        from .config import RunError
+
+        try:
+            return _cmd_sweep(args)
+        except (RunError, ConfigError, SweepError, FileNotFoundError,
+                NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
 
     from . import api
 

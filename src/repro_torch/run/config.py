@@ -1,5 +1,5 @@
 """Run documents of the port (the ``train``, ``warmstart``, ``serve``,
-``sft``, ``dpo`` and ``bench`` kinds of ``repro.run.config``).
+``sft``, ``dpo``, ``bench`` and ``sweep`` kinds of ``repro.run.config``).
 
 A run document is a YAML mapping with a ``run:`` header naming the kind and
 a per-kind settings section; everything else is the component graph the
@@ -13,7 +13,8 @@ continuous-batching engine over a seeded ``workload`` with per-request
 resolved gym like ``train``, optionally through LoRA adapters (``lora``),
 DPO against a frozen reference and with pairs sampled ``onpolicy``;
 ``bench`` times the resolved gym's hot path (``steps`` after ``warmup``,
-in ``windows``).  The
+in ``windows``); ``sweep`` carries a sweep spec (``repro_torch.sweep``),
+free-form as in JAX.  The
 ``resilience`` block of the train-shaped kinds (sentinel, rollback,
 preemption, checkpoint retries, faults) and ``telemetry.profile`` (the
 profiler window) are JAX's grammar, with JAX's error messages.  A
@@ -33,12 +34,12 @@ from typing import Any, Dict, Optional, Type
 
 
 #: the JAX package's other run kinds, and the slice of the port that brings
-#: each
-OTHER_KINDS = {
-    "dryrun": "dryrun, trace and sweeps come with ROADMAP A9",
-    "trace": "dryrun, trace and sweeps come with ROADMAP A9",
-    "sweep": "dryrun, trace and sweeps come with ROADMAP A9",
-}
+#: each: they compile on a mesh of placeholder devices under a sharding
+#: plan, so they come after the parallelism slice
+DRYRUN_HALF = ("dryrun and trace come with ROADMAP A9b's dryrun half, after "
+               "the parallelism slice (ROADMAP A8): their documents name "
+               "meshes and sharding plans")
+OTHER_KINDS = {"dryrun": DRYRUN_HALF, "trace": DRYRUN_HALF}
 
 
 class RunError(Exception):
@@ -621,7 +622,7 @@ class RunConfig:
 SETTINGS_SCHEMAS: Dict[str, Optional[Type]] = {
     "train": TrainSettings, "warmstart": WarmstartKindSettings,
     "serve": ServeSettings, "sft": SFTSettings, "dpo": DPOSettings,
-    "bench": BenchSettings}
+    "bench": BenchSettings, "sweep": None}
 
 KINDS = tuple(SETTINGS_SCHEMAS)
 
@@ -651,6 +652,10 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
         raise RunError("run document must be a mapping")
     doc = dict(doc)
     run_sec = dict(doc.pop("run", None) or {})
+    if not run_sec and _infer_kind(doc) == "sweep" \
+            and kind not in (None, "sweep"):
+        raise RunError(f"document is a sweep spec but was launched as "
+                       f"{kind!r}")
     doc_kind = run_sec.get("kind") or kind or _infer_kind(doc)
     if kind is not None and doc_kind != kind:
         raise RunError(f"document declares kind {doc_kind!r} but was "
@@ -667,6 +672,8 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
     section = dict(run_sec.get(doc_kind) or {})
     cls = SETTINGS_SCHEMAS[doc_kind]
     name = str(run_sec.get("name") or default_name)
+    if doc_kind == "sweep":
+        return _parse_sweep(run_sec, doc, name, config_dir)
     output_dir = str(run_sec.get("output_dir")
                      or os.path.join("results", "runs", name))
     normalized_run = {"kind": doc_kind, "name": name, "output_dir": output_dir}
@@ -685,4 +692,30 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
     return RunConfig(kind=doc_kind, name=name, output_dir=output_dir,
                      settings=settings, graph=doc,
                      doc={"run": normalized_run, **doc},
+                     config_dir=config_dir)
+
+
+def _parse_sweep(run_sec: Dict[str, Any], graph: Dict[str, Any], name: str,
+                 config_dir: str) -> RunConfig:
+    """A sweep document (JAX's): the spec lives in ``run.sweep`` or is the
+    document body (a top-level ``sweep:`` mapping, or its keys), and the
+    sweep writes to ``results/sweeps/<name>`` unless it names a
+    directory."""
+    sweep_doc = run_sec.get("sweep") or graph
+    if not sweep_doc:
+        raise RunError("sweep run has no sweep spec (run.sweep section "
+                       "or document body)")
+    settings = dict(sweep_doc)
+    output_dir = run_sec.get("output_dir")
+    if not output_dir:
+        body = settings.get("sweep", settings)
+        output_dir = body.get("output_dir") or os.path.join(
+            "results", "sweeps", str(body.get("name") or name))
+    normalized_run: Dict[str, Any] = {"kind": "sweep", "name": name,
+                                      "output_dir": output_dir}
+    if run_sec.get("sweep"):
+        normalized_run["sweep"] = dict(run_sec["sweep"])
+    return RunConfig(kind="sweep", name=name, output_dir=str(output_dir),
+                     settings=settings, graph=graph,
+                     doc={"run": normalized_run, **graph},
                      config_dir=config_dir)

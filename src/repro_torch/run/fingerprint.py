@@ -83,10 +83,13 @@ def _fill_defaults(node: Dict[str, Any], registry: Registry,
 def materialize(doc: Dict[str, Any],
                 registry: Optional[Registry] = None) -> Dict[str, Any]:
     """Fully-resolved form of a normalized run document: the ``run`` section
-    passes through untouched; the component graph is interpolated and
-    default-filled."""
+    and any ``sweep`` spec body pass through untouched (a sweep
+    materializes per *trial*, through the backends); the component graph
+    is interpolated and default-filled."""
     registry = registry or DEFAULT_REGISTRY
     doc = dict(doc)
+    run_sec = doc.get("run")
+    is_sweep = isinstance(run_sec, dict) and run_sec.get("kind") == "sweep"
     variables = dict(doc.pop("variables", {}) or {})
 
     def walk(node: Any, path: str) -> Any:
@@ -109,7 +112,7 @@ def materialize(doc: Dict[str, Any],
             return filled
         return {k: walk(v, f"{path}.{k}") for k, v in node.items()}
 
-    return {key: value if key == "run" else walk(value, key)
+    return {key: value if key == "run" or is_sweep else walk(value, key)
             for key, value in doc.items()}
 
 

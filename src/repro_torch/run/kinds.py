@@ -1,6 +1,6 @@
 """The port's run kinds, registered as components (``run_kind`` key), as
 JAX's ``repro.run.kinds``: ``train``, ``warmstart``, ``sft``, ``dpo``,
-``bench`` and ``serve``.
+``bench``, ``serve`` and ``sweep``.
 
 Each kind is a :class:`RunKind`: a settings schema plus an executor taking
 a :class:`repro_torch.run.api.RunContext` (JAX's, plus the ``device`` the
@@ -778,6 +778,77 @@ def execute_bench(ctx) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# sweep
+# ---------------------------------------------------------------------------
+def build_sweep_spec(cfg, output_dir_override: str = ""):
+    """The one place a run config becomes a SweepSpec (CLI + executor)."""
+    from ..sweep.spec import SweepSpec
+
+    spec = SweepSpec.from_dict(cfg.settings, config_dir=cfg.config_dir)
+    if spec.name == "sweep" and cfg.name != "run":
+        spec.name = cfg.name
+    if output_dir_override:
+        spec.output_dir = output_dir_override
+    elif not spec.output_dir:
+        spec.output_dir = cfg.output_dir
+    return spec
+
+
+def execute_sweep(ctx) -> Dict[str, Any]:
+    """Run (or resume) every trial of the sweep on the run's device, then
+    write ``report.json`` / ``report.txt`` (JAX's ``execute_sweep``; the
+    options ``redo``, ``max_trials``, ``retry_failed`` and ``output_dir``
+    are the CLI's flags)."""
+    from ..sweep.report import load_records, write_report
+    from ..sweep.runner import SweepRunner
+    from ..telemetry import build_recorder
+    from .config import _coerce_telemetry
+
+    spec = build_sweep_spec(ctx.cfg, ctx.options.get("output_dir", ""))
+    trials = spec.trials()
+    ctx.log(f"sweep {spec.name!r}: {len(trials)} trials -> {spec.output_dir}")
+    rec = build_recorder(
+        _coerce_telemetry("sweep", spec.telemetry),
+        output_dir=spec.output_dir or "", run=ctx.cfg.name, kind="sweep",
+        fingerprint=ctx.fingerprint, write=_writes(ctx), log=ctx.log)
+    if rec is not None:
+        rec.event("run_start", n_trials=len(trials), backend=spec.backend)
+    runner = SweepRunner(spec, log=ctx.log, telemetry=rec, device=ctx.device)
+    try:
+        records = runner.run(resume=not ctx.options.get("redo", False),
+                             max_trials=int(ctx.options.get("max_trials", 0)),
+                             retry_failed=bool(
+                                 ctx.options.get("retry_failed", False)))
+    except BaseException:
+        if rec is not None:
+            rec.close()
+        raise
+    n_resumed = sum(1 for r in records if r.get("resumed"))
+    n_failed = sum(1 for r in records if r.get("status") == "failed")
+    ctx.log(f"done: {len(records)} records ({n_resumed} resumed, "
+            f"{n_failed} failed)")
+    summary = write_report(spec, load_records(spec.output_dir))
+    result = {
+        "sweep": spec.name,
+        "backend": spec.backend,
+        "objective_metric": spec.objective_metric,
+        "objective_mode": spec.objective_mode,
+        "n_trials": len(trials),
+        "n_records": len(records),
+        "n_resumed": n_resumed,
+        "n_failed": n_failed,
+        "best": summary.get("best"),
+        "report": f"{spec.output_dir}/report.json",
+        "sweep_output_dir": spec.output_dir,
+    }
+    if rec is not None:
+        rec.event("run_end", n_records=len(records), n_failed=n_failed)
+        result["telemetry"] = rec.summary()
+        rec.close()
+    return result
+
+
+# ---------------------------------------------------------------------------
 _REGISTERED = False
 
 
@@ -793,3 +864,4 @@ def register_builtin_kinds() -> None:
     register_run_kind("dpo", DPOSettings, execute_dpo)
     register_run_kind("bench", BenchSettings, execute_bench)
     register_run_kind("serve", ServeSettings, execute_serve)
+    register_run_kind("sweep", None, execute_sweep)

@@ -882,3 +882,51 @@ def test_bench_kind_on_the_card_goes_through_the_kernel(cuda, tmp_path,
     assert res["steady_step_ms"] > 0 and len(res["windows"]) == 3
     assert res["bench_file"] == str(tmp_path / "run" / "BENCH_quickstart.json")
     assert os.listdir(cwd) == []
+
+
+def test_pipeline_tokens_train_one_step_through_the_kernel(cuda, tmp_path):
+    """A JSONL corpus through the tokenizer pipeline (2 spawned workers, a
+    parent holding a live CUDA context: ``spawn``, never ``fork``), the
+    parallel files byte-equal to the serial baseline's, then one train
+    step of reduced Qwen with ``use_flash_kernel`` on the written tokens
+    (``dataset/packed_chunked``): the loss finite, ``flash_fwd`` launched
+    in each attention layer's forward and remat recompute."""
+    import json
+    import math
+    import os
+
+    import numpy as np
+
+    from repro_torch.config.resolver import load_yaml
+    from repro_torch.data.tokenize_pipeline import (tokenize_file,
+                                                    tokenize_file_serial)
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.run import api
+    from repro_torch.run.overrides import apply_overrides, parse_overrides
+
+    torch.zeros(1, device=cuda)  # the CUDA context is live
+    rng = np.random.default_rng(0)
+    words = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog"]
+    corpus = tmp_path / "corpus.jsonl"
+    with open(corpus, "w") as f:
+        for _ in range(400):
+            f.write(json.dumps({"text": " ".join(
+                rng.choice(words, int(rng.integers(10, 60))))}) + "\n")
+    par = tokenize_file(str(corpus), str(tmp_path / "par"), ByteTokenizer(),
+                        n_workers=2, batch_docs=32)
+    ser = tokenize_file_serial(str(corpus), str(tmp_path / "ser"),
+                               ByteTokenizer())
+    for key in ("tokens_path", "docidx_path"):
+        with open(par[key], "rb") as a, open(ser[key], "rb") as b:
+            assert a.read() == b.read()
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "configs", "quickstart.yaml")
+    doc = apply_overrides(load_yaml(path), parse_overrides(
+        ["dataset.variant_key=packed_chunked",
+         f"dataset.config={{prefix: {tmp_path / 'par'}, seq_len: 64}}",
+         "run.train.steps=1", "run.train.telemetry=false",
+         "arch.config.use_flash_kernel=true"]))
+    before = ops.launches
+    res = api.execute_doc(doc, device=cuda, log=lambda m: None)
+    assert math.isfinite(res["final_loss"])
+    assert ops.launches - before == 2 * 2  # 2 layers x (fwd + remat)

@@ -237,7 +237,9 @@ REFUSED = [
     ("run={kind: dryrun}", "A9"),
     ("run.kind=dryrun", "A9"),
     ("run.kind=trace", "A9"),
-    ("run.kind=sweep", "A9"),
+    # sweeps are ported: this document now parses as a sweep, whose body
+    # (a train graph) is no sweep spec (see the test)
+    ("run.kind=sweep", "^sweep$"),
     ("gym.config.sharding_plan={component_key: sharding_plan, "
      "variant_key: fsdp}", "A8"),
     ("gym.config.mesh_provider={component_key: mesh_provider, "
@@ -252,9 +254,17 @@ REFUSED = [
                          ids=[s.split("=")[0] + "=" + s.split("=")[1][:12]
                               for s, _ in REFUSED])
 def test_settings_of_later_slices_are_refused(tmp_path, setting, slice_):
-    from repro_torch.run.config import RunError
+    from repro_torch.run.config import RunError, parse_run_doc
+    from repro_torch.sweep.spec import SweepError
 
     doc = _doc(tmp_path, "run.train.steps=1", setting)
+    if slice_ == "^sweep$":
+        # (without the train settings, which a sweep refuses as JAX's does)
+        doc["run"].pop("train")
+        assert parse_run_doc(doc).kind == "sweep"
+        with pytest.raises(SweepError, match="unknown sweep keys"):
+            api.execute_doc(doc, device="cpu", log=_quiet)
+        return
     err = RunError if slice_.startswith("^") else NotImplementedError
     with pytest.raises(err, match=slice_):
         api.execute_doc(doc, device="cpu", log=_quiet)

@@ -459,15 +459,23 @@ def test_sft_synthetic_component_equals_jax():
 
 
 def test_sft_jsonl_is_refused_naming_a11(tmp_path):
+    """The data pipeline (A11) is ported: ``dataset/sft_jsonl`` over
+    ``tokenizer/byte`` builds, its rows ``==`` JAX's."""
+    from repro.config.registry import DEFAULT_REGISTRY as JREG
     from repro_torch.config.registry import DEFAULT_REGISTRY as REG
     from repro_torch.core.components import register_all
 
     register_all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        REG.build("dataset", "sft_jsonl", path=str(tmp_path / "x.jsonl"),
-                  seq_len=8, tokenizer=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        REG.build("tokenizer", "byte")
+    (tmp_path / "x.jsonl").write_text(
+        '{"prompt": "say hi", "response": "hi"}\n'
+        '{"prompt": "count", "response": "one two three"}\n')
+    kw = dict(path=str(tmp_path / "x.jsonl"), seq_len=8)
+    ours = REG.build("dataset", "sft_jsonl",
+                     tokenizer=REG.build("tokenizer", "byte"), **kw)
+    theirs = JREG.build("dataset", "sft_jsonl",
+                        tokenizer=JREG.build("tokenizer", "byte"), **kw)
+    assert np.array_equal(ours.rows, theirs.rows)
+    assert np.array_equal(ours.row_mask, theirs.row_mask)
 
 
 # ---------------------------------------------------------------------------

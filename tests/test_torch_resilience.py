@@ -4,7 +4,7 @@ anomaly sentinel, fault injection, the preemption guard, the checkpoint
 writer's error latch and retry, the ``resilience:`` settings, the gym's
 rollback and preemption through the run API, and the engine's deadlines
 and stall watchdog — each case of ``tests/test_resilience.py`` but its four
-sweep cases (sweeps come with ROADMAP A9) — plus parity: retry delays,
+sweep cases (in ``tests/test_torch_sweep.py``) — plus parity: retry delays,
 sentinel events and fault firings ``==`` JAX's on the same seeded inputs,
 and one chaos document run by both packages from JAX's initial params.
 

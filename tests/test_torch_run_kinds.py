@@ -35,6 +35,7 @@ from repro_torch.config.resolver import ConfigError, resolve_config, validate_co
 from repro_torch.configs import get_reduced
 from repro_torch.core import interfaces as IF
 from repro_torch.core.gym import Gym
+from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.data.packed_dataset import (ChunkedLMDataset, PackedDataset,
                                              ShardedLoader, synthetic_dataset)
 from repro_torch.models.base import ArchConfig, Model
@@ -172,6 +173,9 @@ def _component_kwargs(tmp_path):
     ds = ChunkedLMDataset(PackedDataset(prefix), 16)
     loader = ShardedLoader(ds, 2)
     reduced = get_reduced("qwen1p5_0p5b")
+    sft_path = str(tmp_path / "sft.jsonl")
+    with open(sft_path, "w") as f:
+        f.write('{"prompt": "a b", "response": "c d e"}\n')
     return {
         ("arch_config", "custom"): dict(
             name="tiny", arch_type="dense", n_layers=1, d_model=16,
@@ -189,6 +193,8 @@ def _component_kwargs(tmp_path):
                                            n_examples=8),
         ("dataset", "preference_synthetic"): dict(seq_len=32, vocab=64,
                                                   n_pairs=8),
+        ("dataset", "sft_jsonl"): dict(path=sft_path, seq_len=4,
+                                       tokenizer=ByteTokenizer()),
         ("loader", "sharded"): dict(dataset=ds, global_batch=2),
         ("loader", "prefetch"): dict(loader=loader),
         ("evaluator", "perplexity"): dict(dataset=ds),
