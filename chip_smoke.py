@@ -145,7 +145,20 @@
    and peak; then ``lr_sweep.yaml`` unchanged but for its directories (6
    trials, no launch) and an ``sft`` run on a JSONL of pairs through
    ``tokenizer/byte``.
-10. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+10. Training under sharding plans (``--only mesh``, ROADMAP A8a): a
+   one-rank NCCL group over a ``(1, 1)`` ``data x model`` mesh; full-width
+   Qwen1.5-0.5B through the flash kernel (8 x 1024, ``remat: full``) 3
+   steps with no mesh and under ``ddp``, ``fsdp`` and ``fsdp_tp``, and
+   full-width Mamba2-780M through the SSD kernel 2 steps with no mesh and
+   under ``fsdp_tp``, each run through the gym its document resolves to
+   (``mesh_provider/local``, ``sharding_plan/<plan>``): the param and
+   moment leaves DTensors with the plan's placements, the kernel's
+   launches a step, losses and final params against the no-mesh run (bit
+   equality required), ms/step and peak memory beside the no-mesh run's;
+   then a checkpoint of the ``fsdp_tp`` Qwen state restored under ``ddp``
+   and with no mesh, equal to the saved state, its manifest's specs the
+   plan's.  The group is destroyed at the end of the phase.
+11. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine and full-width DeepSeekMoE-16B on the paged engine (pages
@@ -2995,6 +3008,237 @@ def _sweep_cli(args: list) -> tuple:
     return rc, rows, flash.launches
 
 
+# the mesh phase (ROADMAP A8a): full-width runs under sharding plans on a
+# one-rank NCCL group, each beside the same run with no mesh
+MESH_SLICES = {
+    "qwen": {"steps": 3, "plans": ("ddp", "fsdp", "fsdp_tp"),
+             "kernel": "flash_fwd",
+             "sets": ["arch.config.use_flash_kernel=true"]},
+    "mamba2": {"steps": 2, "plans": ("fsdp_tp",), "kernel": "ssd_scan",
+               "sets": ["arch.variant_key=mamba2_780m"]},
+}
+MESH_TOL = (
+    0, "bit equality of every step's loss and every final param: on one "
+    "rank every redistribute is a no-op and DTensor runs the same aten ops "
+    "on the same blocks, so any difference is a fault of the plan's step "
+    "(a lost gradient, a leaf not updated); the largest differences are "
+    "printed beside it")
+
+
+def _mesh_doc(data_dir, key, spec, plan):
+    sets = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
+            f"loader.config.global_batch={TRAIN_BATCH}",
+            f"dataset.config.n_tokens="
+            f"{(spec['steps'] + 2) * TRAIN_BATCH * (TRAIN_SEQ + 1)}",
+            # batches drawn on the step's thread: ms/step times the step
+            "gym.config.prefetch=0", *spec["sets"]]
+    if plan:
+        sets += ["mesh={component_key: mesh_provider, variant_key: local, "
+                 "config: {dp: 1, tp: 1}}",
+                 "gym.config.mesh_provider={instance_key: mesh}",
+                 f"gym.config.sharding_plan={{component_key: sharding_plan, "
+                 f"variant_key: {plan}}}"]
+    return train_doc(data_dir, f"mesh_{key}", *sets)
+
+
+def _mesh_run(data_dir, key, spec, plan):
+    """One full-width run of ``spec['steps']`` on the card through the gym
+    the document resolves to, with the launch counters set to 0 just before
+    it; returns (gym, run output, launches, peak GiB, median ms/step,
+    ms/step)."""
+    import statistics
+
+    import torch
+
+    graph = _train_graph(_mesh_doc(data_dir, key, spec, plan))
+    gym = graph["gym"]
+    gym.device = "cuda"
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    out = gym.run(spec["steps"])
+    torch.cuda.synchronize()
+    counts = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls = [h["wall_s"] for h in out["history"]]
+    ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    return gym, out, counts, peak, statistics.median(ms), ms
+
+
+def _mesh_shape(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flat(tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def _meta_like(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    return torch.empty(tuple(tree.shape), dtype=tree.dtype, device="meta")
+
+
+def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
+    """Training under sharding plans on the card (ROADMAP A8a).  A one-rank
+    NCCL group (``launch.mesh`` starts it on a ``FileStore``) carries a
+    ``(1, 1)`` ``data x model`` mesh: full-width Qwen1.5-0.5B through
+    ``flash_fwd`` (8 x 1024, ``remat: full``) 3 steps under ``ddp``,
+    ``fsdp`` and ``fsdp_tp``, and full-width Mamba2-780M through
+    ``ssd_scan`` 2 steps under ``fsdp_tp``, each beside the same run with
+    no mesh: every param and moment leaf a DTensor with the plan's
+    placements, the kernel's launches a step, losses and final params
+    against the no-mesh run (bit equality required, ``MESH_TOL``; the
+    largest differences printed), ms/step and peak memory.
+    Then a checkpoint of the ``fsdp_tp`` Qwen state restores under ``ddp``
+    and with no mesh, equal to the saved params, its manifest's specs the
+    plan's (JAX's ``spec_to_json`` strings).  The group is destroyed at
+    the end of the phase."""
+    import math
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.sharding import plans as PL
+
+    ok = True
+    try:
+        for key, spec in MESH_SLICES.items():
+            steps, kernel = spec["steps"], spec["kernel"]
+            gym, out, counts, base_peak, med, _ = _mesh_run(
+                data_dir, key, spec, None)
+            cfg = gym.model.cfg
+            want = {name: n * 2 * steps
+                    for name, n in kernel_layers(cfg).items()}
+            base_losses = [h["loss"] for h in out["history"]]
+            base = {k: v.detach().cpu()
+                    for k, v in _flat(out["state"]["params"])}
+            run_ok = counts == want and all(map(math.isfinite, base_losses))
+            print(f"mesh {key}: {cfg.name} full width ({cfg.n_layers} "
+                  f"layers), batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+                  f"{cfg.remat}, {steps} steps, no mesh: losses "
+                  f"{json.dumps([round(x, 5) for x in base_losses])}, "
+                  f"{counts[kernel] // steps} {kernel} a step, "
+                  f"{med:.3f} ms/step (median of steps 2-{steps}), peak "
+                  f"{base_peak:.3f} GiB [{card}]", flush=True)
+            add_launches(results, counts)
+            del gym, out
+            _free()
+            for plan in spec["plans"]:
+                gym, out, counts, peak, pmed, ms = _mesh_run(
+                    data_dir, key, spec, plan)
+                state = out["state"]
+                losses = [h["loss"] for h in out["history"]]
+                # every param and moment leaf laid out as the plan says
+                sh = dict(_flat(gym._state_sh))
+                layout_ok = all(
+                    isinstance(v, DTensor)
+                    and list(v.placements) == list(sh[k].placements)
+                    for k, v in _flat(state)
+                    if k.startswith(("params/", "opt/m/", "opt/v/")))
+                n_leaves = sum(1 for k, _ in _flat(state)
+                               if k.startswith(("params/", "opt/m/",
+                                                "opt/v/")))
+                dloss = max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, base_losses))
+                bit_loss = losses == base_losses
+                dparam, bit_param = 0.0, True
+                for k, v in _flat(state["params"]):
+                    full = v.full_tensor().detach().cpu()
+                    bit_param &= torch.equal(full, base[k])
+                    dparam = max(dparam, float(
+                        (full.float() - base[k].float()).abs().max()))
+                plan_ok = (layout_ok and counts == want
+                           and bit_loss and bit_param)
+                print(f"mesh {key} {plan}: {PL.make_plan(plan).describe()} "
+                      f"on mesh {_mesh_shape(gym._mesh)} "
+                      f"({torch.distributed.get_backend()}, "
+                      f"{torch.distributed.get_world_size()} rank); "
+                      f"{n_leaves} param and moment leaves "
+                      f"DTensors with the plan's placements {layout_ok}; "
+                      f"{counts[kernel] // steps} {kernel} a step ({counts}, "
+                      f"want {want}); losses "
+                      f"{json.dumps([round(x, 5) for x in losses])}, vs no "
+                      f"mesh max rel {dloss:.3e}, bit-equal {bit_loss}; "
+                      f"final params max |d| {dparam:.3e}, bit-equal "
+                      f"{bit_param} (tol {MESH_TOL[0]}: bit equality); "
+                      f"ms/step {json.dumps([round(x, 3) for x in ms])}, "
+                      f"median {pmed:.3f} (no mesh {med:.3f}, x"
+                      f"{pmed / med:.3f}); peak {peak:.3f} GiB (no mesh "
+                      f"{base_peak:.3f}); shard warnings "
+                      f"{len(gym.shard_warnings)} [{card}]: "
+                      f"{'ok' if plan_ok else 'FAILED'}", flush=True)
+                add_launches(results, counts)
+                run_ok &= plan_ok
+                if key == "qwen" and plan == "fsdp_tp":
+                    run_ok &= _mesh_elastic(data_dir, gym, state)
+                del gym, out, state
+                _free()
+            ok &= run_ok
+    finally:
+        MESH.shutdown()
+    return bool(ok)
+
+
+def _mesh_elastic(data_dir: str, gym, state) -> bool:
+    """A checkpoint saved under the gym's plan (``fsdp_tp``) restores under
+    ``ddp`` on the same mesh and with no mesh, each leaf ``==`` the saved
+    one; the manifest's specs are the plan's (JAX's strings)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt import AsyncCheckpointer, read_manifest
+    from repro_torch.ckpt import elastic as EL
+    from repro_torch.sharding import plans as PL
+
+    ck_dir = os.path.join(data_dir, "mesh_ckpt")
+    step = int(state["step"])
+    t0 = time.perf_counter()
+    ck = AsyncCheckpointer(ck_dir)
+    ck.save(state, step)
+    ck.wait()
+    ck.close()
+    save_s = time.perf_counter() - t0
+    path = ck.latest()[1]
+    manifest = read_manifest(path)["leaves"]
+    specs = {k: PL.spec_to_json(v.spec) for k, v in _flat(gym._state_sh)}
+    spec_ok = all(manifest[k]["spec"] == specs[k] for k in specs)
+    sharded = sum(1 for v in manifest.values()
+                  if v["spec"] and any(e for e in v["spec"]))
+    saved = {k: v.full_tensor().detach() for k, v in _flat(state)}
+    like = _meta_like(state)
+    ddp = EL.restore_train_state(like, path, plan=PL.make_plan("ddp"),
+                                 mesh=gym._mesh, model=gym.model,
+                                 optimizer=gym.optimizer)
+    ddp_ok = all(isinstance(v, DTensor)
+                 and all(p.is_replicate() for p in v.placements)
+                 and torch.equal(v.full_tensor(), saved[k])
+                 for k, v in _flat(ddp))
+    del ddp
+    plain = EL.restore(like, path, device="cuda")
+    plain_ok = all(type(v) is torch.Tensor and torch.equal(v, saved[k])
+                   for k, v in _flat(plain))
+    ok = spec_ok and ddp_ok and plain_ok and sharded > 0
+    print(f"mesh elastic: step-{step} checkpoint of the fsdp_tp state "
+          f"({len(saved)} leaves, {sharded} with a sharded spec, saved and "
+          f"committed in {save_s:.2f}s): manifest specs == the plan's "
+          f"spec_to_json {spec_ok} (e.g. blocks/attn/wq "
+          f"{manifest['params/blocks/attn/wq']['spec']}); restored under "
+          f"ddp (replicated DTensors) == saved {ddp_ok}; restored with no "
+          f"mesh (plain tensors) == saved {plain_ok}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    del plain, saved
+    return ok
+
+
 def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
     """The data pipeline, then full-width Qwen trained on its tokens, then
     an ablation sweep of that run and ``lr_sweep.yaml``, then an ``sft``
@@ -3972,8 +4216,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, sweep, engine (default: all); a partial "
-                         "run prints no result line")
+                         "posttrain, mesh, sweep, engine (default: all); a "
+                         "partial run prints no result line")
     args = ap.parse_args()
     only = {p for p in args.only.split(",") if p}
 
@@ -4068,6 +4312,12 @@ def main() -> int:
             print(f"phase posttrain qwen: {'ok' if post_ok else 'FAILED'}",
                   flush=True)
             ok &= post_ok
+        if want("mesh"):
+            t0 = time.perf_counter()
+            mesh_ok = phase_mesh(data_dir, results, card)
+            print(f"phase mesh: {'ok' if mesh_ok else 'FAILED'} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            ok &= mesh_ok
         if want("sweep"):
             sweep_ok = phase_sweep(data_dir, results, card)
             print(f"phase sweep: {'ok' if sweep_ok else 'FAILED'}",

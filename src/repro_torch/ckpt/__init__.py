@@ -5,8 +5,8 @@ format on disk, so each package reads the other's checkpoints.
   manifest (step, shapes, dtypes, spec), atomic commits.
 - :mod:`.engine` — :class:`AsyncCheckpointer`: device-to-host snapshot on
   the hot path, background serialization, retention policies.
-- :mod:`.elastic` — restore into a train state, with dtype-cast rules and
-  lossy-cast warnings (one device; meshes come with ROADMAP A8).
+- :mod:`.elastic` — restore into a train state under any plan and mesh
+  (or onto one device), with dtype-cast rules and lossy-cast warnings.
 - :mod:`.export` — HF-style flat export (unstacked layer dims).
 
 Registry components: ``checkpointer/async``, ``checkpointer/sync``.

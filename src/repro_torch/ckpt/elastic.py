@@ -1,10 +1,14 @@
 """Restore a checkpoint into a train state (port of ``repro.ckpt.elastic``).
 
-JAX lays each restored leaf out under a target sharding, which may differ
-from the one it was saved under.  The port trains on one device: a
-restored leaf goes to the device of its ``state_like`` leaf (or to
-``device``), and the sharding arguments (``shardings``, ``plan``/``mesh``)
-raise until meshes come with ROADMAP A8.
+Each restored leaf is laid out under a target sharding, which may differ
+from the one it was saved under (the elastic part): a
+``plans.NamedSharding`` from ``shardings`` (or derived from a
+``plan``/``mesh``) makes it a DTensor on that mesh, every rank keeping its
+block of the full tensor it read; a DTensor ``state_like`` leaf gives its
+own layout; otherwise the leaf goes to the device of its ``state_like``
+leaf (or to ``device``).  Checkpoints store full tensors in the
+plan-independent ``[L, ...]`` shapes, so any layout restores any
+checkpoint.
 
 Dtype rules, as in JAX: a checkpointed leaf is cast to the target leaf's
 dtype.  A *lossy* cast (fewer mantissa bits, less range, float -> int)
@@ -29,12 +33,6 @@ class LossyCastWarning(UserWarning):
 
 class RestoreError(Exception):
     """Checkpoint does not match the requested state structure."""
-
-
-def _no_mesh(what: str):
-    raise NotImplementedError(
-        f"{what}: the port restores onto one device; meshes and sharding "
-        f"plans come with the parallelism slice (ROADMAP A8)")
 
 
 # ---------------------------------------------------------------------------
@@ -123,20 +121,29 @@ def restore(state_like, path: str, shardings: Any = None, *,
 
     ``state_like`` supplies structure, shapes, and target dtypes (shapes
     must match the manifest; dtypes may differ — see the casting rules);
-    its leaves may live on the ``meta`` device.  Each restored leaf goes to
-    ``device``, or when that is None to its ``state_like`` leaf's device.
-    ``prefix`` selects a subtree of the checkpoint (e.g. ``params`` for a
-    params-only warmstart).  ``strict=False`` keeps ``state_like``'s value
-    for keys the checkpoint does not have (partial warmstart).
-    ``shardings`` (JAX's target layout) raises: ROADMAP A8.
+    its leaves may live on the ``meta`` device.  ``shardings`` (optional) is
+    a matching tree of ``plans.NamedSharding`` (or None leaves): each leaf is
+    laid out under ITS target sharding, however different from the saved
+    layout.  A leaf with no target sharding keeps a DTensor ``state_like``
+    leaf's layout, or goes to ``device`` (when None, to its ``state_like``
+    leaf's device).  ``prefix`` selects a subtree of the checkpoint (e.g.
+    ``params`` for a params-only warmstart).  ``strict=False`` keeps
+    ``state_like``'s value for keys the checkpoint does not have (partial
+    warmstart).
     """
-    if shardings is not None:
-        _no_mesh("restore(shardings=...)")
     step_dir = _resolve_step_dir(path)
     manifest = F.read_manifest(step_dir)
     entries: Dict[str, Any] = manifest["leaves"]
 
     flat_like = F.flatten_with_paths(state_like)
+    sh_by_key: Dict[str, Any] = {}
+    if shardings is not None:
+        flat_sh = F.flatten_with_paths(shardings)
+        if len(flat_sh) != len(flat_like):
+            raise RestoreError(
+                f"shardings tree has {len(flat_sh)} leaves, state has "
+                f"{len(flat_like)}")
+        sh_by_key = dict(flat_sh)
     target_keys = {f"{prefix}/{k}" if prefix else k for k, _ in flat_like}
     masters = _master_keys(entries, target_keys)
     restored: Dict[str, Any] = {}
@@ -168,7 +175,7 @@ def restore(state_like, path: str, shardings: Any = None, *,
             continue
         arr = cast_leaf(arr, like.dtype, key=ck_key, warn=warn_lossy,
                         master_restored=ck_key in masters)
-        restored[key] = arr.to(device if device is not None else like.device)
+        restored[key] = _place(arr, like, sh_by_key.get(key), device)
     if missing:
         raise RestoreError(
             f"checkpoint {step_dir} is missing {len(missing)} leaves "
@@ -178,14 +185,47 @@ def restore(state_like, path: str, shardings: Any = None, *,
     return F.unflatten_paths(state_like, restored)
 
 
+def _place(arr, like, sharding, device):
+    """A restored full tensor on its target: a DTensor under ``sharding``
+    or under a DTensor ``like``'s layout (each rank cuts its block from the
+    host tensor and moves only that; no data moves between ranks), else a
+    tensor on ``device`` or ``like``'s."""
+    from torch.distributed.tensor import DTensor
+
+    from ..sharding.plans import local_block
+
+    if sharding is None and isinstance(like, DTensor):
+        mesh, placements = like.device_mesh, like.placements
+    elif sharding is not None:
+        mesh, placements = sharding.mesh, sharding.placements
+    else:
+        return arr.to(device if device is not None else like.device)
+    if device is None:
+        device = (like.device if like.device.type != "meta" else
+                  torch.device(mesh.device_type, torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else mesh.device_type)
+    block = local_block(arr, mesh, placements).contiguous().to(device)
+    return DTensor.from_local(block, mesh, placements, run_check=False,
+                              shape=arr.shape, stride=arr.stride())
+
+
 def restore_train_state(state_like, path: str, *, plan=None, mesh=None,
                         model=None, optimizer=None, shardings=None,
                         seed: int = 0, warn_lossy: bool = True, device=None):
-    """Restore a full ``{"params", "opt", "step"}`` train state.  JAX
-    re-lays it out under ``plan``/``mesh`` or ``shardings``; those raise
-    here (ROADMAP A8)."""
-    if plan is not None or mesh is not None:
-        _no_mesh("restore_train_state(plan=..., mesh=...)")
+    """Restore a full ``{"params", "opt", "step"}`` train state, re-laid-out
+    under ``plan``/``mesh`` (derived via
+    :func:`repro_torch.sharding.plans.train_state_shardings`) or an explicit
+    ``shardings`` tree."""
+    if shardings is None and plan is not None and mesh is not None:
+        from ..sharding import plans as PL
+
+        if model is None or optimizer is None:
+            raise RestoreError(
+                "restore_train_state under a plan/mesh needs model and "
+                "optimizer to derive the target layout"
+            )
+        shardings, _ = PL.train_state_shardings(plan, mesh, model, optimizer,
+                                                seed=seed)
     return restore(state_like, path, shardings, warn_lossy=warn_lossy,
                    device=device)
 

@@ -22,6 +22,14 @@ never refilled while the writer still reads them: a ``save`` first waits
 for the previous write to commit.  So at most one save is in flight, and
 the set costs one train state of host memory.
 
+Under a mesh (DTensor leaves) ``save`` gathers one leaf at a time to its
+full tensor (a collective: every rank calls ``save`` at the same step),
+copies it into rank 0's host buffer and frees it before the next, so a
+card holds one unsharded leaf at most; it records each leaf's spec
+(``format.spec_text``).  Only rank 0 keeps host buffers: it alone writes
+and prunes, and ``wait`` holds every rank until rank 0's writes are
+committed.
+
 Writer failures are re-raised on the next ``save``/``check``/``wait``/
 ``close`` call — a checkpoint that silently failed to commit must not look
 like progress — and raising *clears* the latched errors, so the
@@ -47,6 +55,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..launch.mesh import process_rank
 from . import elastic as E
 from . import format as F
 
@@ -96,6 +105,7 @@ class AsyncCheckpointer:
         self._host: Dict[str, torch.Tensor] = {}
         self._alloc_s = 0.0
         self._retries = 0
+        self.specs: Dict[str, Any] = {}
         self.saves: List[Dict[str, Any]] = []
 
     @property
@@ -131,11 +141,22 @@ class AsyncCheckpointer:
                                        Optional[torch.cuda.Event]]:
         """Device tree -> (host buffers by tree key, in JAX's flatten order;
         the CUDA event the copies complete at, None when no leaf is on a
-        CUDA device).  Issues every copy before waiting on any."""
+        CUDA device).  Issues every copy before waiting on any.  A DTensor
+        leaf is gathered to its full tensor just before its copy, and the
+        gathered tensor is dropped before the next gather (the allocator
+        reuses its memory in stream order, after the copy).  Ranks other
+        than 0 join the gathers and keep nothing: their buffers are ``{}``.
+        The specs are kept in ``self.specs`` for the manifest."""
         flat = [(k, v.detach()) for k, v in F.flatten_with_paths(state)]
-        host = self._buffers(flat)
+        self.specs = {k: F.spec_text(v) for k, v in flat}
+        writer = process_rank() == 0
+        host = self._buffers(flat) if writer else {}
         on_cuda = False
         for key, leaf in flat:
+            if self.specs[key] is not None:
+                leaf = leaf.full_tensor()
+            if not writer:
+                continue
             cuda = leaf.device.type == "cuda"
             host[key].copy_(leaf, non_blocking=cuda)
             on_cuda |= cuda
@@ -155,11 +176,14 @@ class AsyncCheckpointer:
         arrays, ready = self.snapshot(state)
         timing = {"stall_s": time.perf_counter() - t0,
                   "alloc_s": self._alloc_s}
+        if process_rank() != 0:
+            return   # this rank took part in the gathers; rank 0 writes
+        specs = dict(self.specs)
         if not self.background:
-            self._write(int(step), arrays, ready, extra, timing)
+            self._write(int(step), arrays, ready, extra, timing, specs)
             return
         self._ensure_worker()
-        self._q.put((int(step), arrays, ready, extra, timing))
+        self._q.put((int(step), arrays, ready, extra, timing, specs))
 
     def _ensure_worker(self):
         with self._lock:
@@ -181,7 +205,7 @@ class AsyncCheckpointer:
             finally:
                 self._q.task_done()
 
-    def _write(self, step: int, arrays, ready, extra, timing):
+    def _write(self, step: int, arrays, ready, extra, timing, specs=None):
         t0 = time.perf_counter()
         if ready is not None:
             ready.synchronize()
@@ -192,7 +216,7 @@ class AsyncCheckpointer:
                 if spec is not None:
                     raise OSError(f"injected ckpt_io fault "
                                   f"(step {step}, firing {spec._fired})")
-            F.write_checkpoint(self.ckpt_dir, step, arrays, None, extra)
+            F.write_checkpoint(self.ckpt_dir, step, arrays, specs, extra)
 
         if self.retry is None:
             attempt()
@@ -216,9 +240,11 @@ class AsyncCheckpointer:
             self._q.join()
 
     def wait(self) -> None:
-        """Block until every queued save is committed; re-raise failures."""
+        """Block until every queued save is committed; re-raise failures.
+        Every rank of a multi-rank group waits for rank 0's commits."""
         self._drain()
         self.check()
+        _barrier()
 
     def check(self) -> None:
         """Surface any background write failure on the caller's thread.
@@ -270,3 +296,12 @@ class AsyncCheckpointer:
         self.wait()
         return E.restore(state_like, path or self.ckpt_dir, shardings,
                          device=dev, **kw)
+
+
+def _barrier() -> None:
+    """All ranks of a multi-rank default group meet here (no-op alone)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.barrier()

@@ -14,10 +14,11 @@ Layout of one committed checkpoint::
 Each tree leaf is one ``.npy`` file keyed by its path.  Keys join dict keys
 with ``/`` and leaves are listed in JAX's flatten order (dict keys sorted),
 so a manifest the port writes lists its leaves as JAX's does and
-``leaf_filename`` collisions resolve the same way.  The port trains on one
-device and writes ``"spec": null`` for every leaf, as JAX does for a leaf
-with no ``PartitionSpec``; a JAX checkpoint saved with specs reads back here
-with the layout ignored.
+``leaf_filename`` collisions resolve the same way.  Each leaf's ``spec`` is
+the layout it was saved under (:func:`spec_text`): JAX's
+``spec_to_json`` of a DTensor leaf's plan spec, ``null`` for a leaf on one
+device, as JAX writes for a leaf with no ``PartitionSpec``.  The files hold
+full tensors whatever the layout, so any plan restores them.
 
 bf16 and float8 leaves are stored as a ``uint`` view of their bits with the
 dtype name in the manifest, as JAX stores its ``ml_dtypes`` leaves.  The
@@ -144,6 +145,20 @@ def from_stored(raw: np.ndarray, name: str) -> torch.Tensor:
         bits = raw.view(np.dtype(f"i{want.itemsize}"))
         return torch.from_numpy(bits).view(want)
     return torch.from_numpy(raw)
+
+
+def spec_text(leaf) -> Optional[List[Any]]:
+    """The JSON form of a DTensor leaf's spec (JAX's ``spec_to_json`` of its
+    ``PartitionSpec``), None for a tensor that is not laid out on a
+    mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(leaf, DTensor):
+        return None
+    from ..sharding.plans import placements_spec, spec_to_json
+
+    return spec_to_json(placements_spec(leaf.device_mesh, leaf.placements,
+                                        leaf.ndim))
 
 
 # ---------------------------------------------------------------------------

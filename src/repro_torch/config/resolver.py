@@ -135,8 +135,9 @@ def validate_config(raw: Dict[str, Any],
     acyclic), component/variant pairs must be registered, and each component
     node's config keys are checked against the factory signature (unknown and
     missing-required keys).  A component of a later slice of the port (a
-    factory with a ``not_ported`` message) raises ``NotImplementedError``
-    with that message.  Returns ``{"components": n, "top_level": m}``.
+    factory with a ``not_ported`` message, or a ``not_ported_for(config)``
+    callable that gives one for the settings it refuses) raises
+    ``NotImplementedError`` with that message.  Returns ``{"components": n, "top_level": m}``.
     """
     reg = registry or DEFAULT_REGISTRY
     if not isinstance(raw, dict):
@@ -201,6 +202,9 @@ def validate_config(raw: Dict[str, Any],
             except RegistryError as e:
                 raise ConfigError(f"{path}: {e}") from e
             not_ported = getattr(entry.factory, "not_ported", None)
+            refuses = getattr(entry.factory, "not_ported_for", None)
+            if refuses is not None:
+                not_ported = refuses(cfg)
             if not_ported:
                 raise NotImplementedError(f"{path}: {not_ported}")
             counts["components"] += 1

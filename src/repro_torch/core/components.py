@@ -11,10 +11,12 @@ and ``dataset/preference_synthetic``, ``tokenizer/byte`` and
 ``remat_policy/*``,
 ``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
 ``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``,
-``fault_injector/schedule`` and ``gym/standard``.  The names and settings
+``fault_injector/schedule``, ``gym/standard``, the mesh providers
+``mesh_provider/{single_device,local,production,split}`` and every catalog
+``sharding_plan`` plus ``sharding_plan/custom``.  The names and settings
 match ``repro.core.components``, so a run YAML of the JAX package
-resolves here unchanged; settings of a later slice (mesh and sharding
-plan) raise ``NotImplementedError`` naming the slice.  Each component key
+resolves here unchanged; a local mesh with a pipe axis (``pp > 1``) is
+ROADMAP A8b and fails ``validate`` naming it.  Each component key
 is bound to its interface (:mod:`.interfaces`), as in JAX: the registry
 refuses a built instance
 that does not satisfy it, and the port's concrete classes are registered
@@ -59,6 +61,7 @@ def _register_interfaces() -> None:
     from ..data.packed_dataset import ChunkedLMDataset, ShardedLoader
     from ..data.prefetch import PrefetchLoader
     from ..data.tokenizer import BpeTokenizer, ByteTokenizer
+    from ..launch.mesh import MeshProvider
     from ..optim.adamw import AdamW
     from ..posttrain.dpo import PreferencePairDataset
     from ..posttrain.lora import FrozenBaseOptimizer
@@ -75,6 +78,7 @@ def _register_interfaces() -> None:
     IF.LoaderIF.register(ShardedLoader)
     IF.LoaderIF.register(PrefetchLoader)
     IF.CheckpointerIF.register(AsyncCheckpointer)
+    IF.MeshProviderIF.register(MeshProvider)
 
 
 def _register_training() -> None:
@@ -145,12 +149,10 @@ def _register_training() -> None:
     def gym(model, optimizer, loader, mesh_provider=None, sharding_plan=None,
             seed=0, grad_accum=1, log_every=10, eval_every=0, ckpt_every=0,
             ckpt_dir="", checkpointer=None, prefetch=2, tracker=None):
-        if mesh_provider is not None or sharding_plan is not None:
-            raise NotImplementedError(
-                "gym mesh_provider/sharding_plan: the port trains on one "
-                "device; meshes and sharding plans come with the "
-                "parallelism slice (ROADMAP A8)")
-        return Gym(model=model, optimizer=optimizer, loader=loader, seed=seed,
+        # the provider stays lazy: the gym builds its mesh at setup, on the
+        # type of the device the run is on
+        return Gym(model=model, optimizer=optimizer, loader=loader,
+                   mesh=mesh_provider, plan=sharding_plan, seed=seed,
                    grad_accum=grad_accum, log_every=log_every,
                    eval_every=eval_every, ckpt_every=ckpt_every,
                    ckpt_dir=ckpt_dir or getattr(checkpointer, "ckpt_dir", ""),
@@ -175,20 +177,46 @@ def _register_training() -> None:
                  lambda faults=(): FaultInjector.from_config(faults),
                  FaultInjector)
 
-    # components of later slices: a JAX document naming one resolves to a
-    # refusal that names the slice (``sharding_plan`` has no IF until then)
-    for key, variants, iface in (
-            ("mesh_provider", ("single_device", "local", "production",
-                               "split"), IF.MeshProviderIF),
-            ("sharding_plan", ("ddp", "fsdp", "hsdp", "fsdp_tp", "hsdp_tp",
-                               "fsdp_tp_ep", "hsdp_tp_ep", "serve_ep",
-                               "pp2_fsdp", "pp2_fsdp_tp", "pp2_fsdp_tp_ep",
-                               "custom"), None)):
-        for variant in variants:
-            REG.register(key, variant,
-                         _refusal(f"{key}/{variant}",
-                                  "the parallelism slice (ROADMAP A8)"),
-                         iface)
+    _register_parallelism()
+
+
+def _register_parallelism() -> None:
+    """Sharding plans and mesh providers (JAX's ``:84-90``, ``:191-196``):
+    every catalog plan, the declarative ``custom`` plan, and the four mesh
+    providers, each a ``MeshProvider`` whose ``build()`` makes the mesh
+    lazily."""
+    from ..launch import mesh as MESH
+    from ..sharding.plans import CATALOG, ShardingPlan, custom_plan, make_plan
+
+    for name in CATALOG:
+        REG.register("sharding_plan", name,
+                     (lambda n: (lambda multi_pod=False:
+                                 make_plan(n, multi_pod)))(name),
+                     ShardingPlan)
+    REG.register("sharding_plan", "custom", lambda **kw: custom_plan(kw),
+                 ShardingPlan)
+    REG.register("mesh_provider", "single_device", MESH.SingleDeviceMesh,
+                 IF.MeshProviderIF)
+
+    def local(dp: int = 1, tp: int = 1, pp: int = 1):
+        return MESH.LocalMesh(dp, tp, pp)
+
+    local.not_ported_for = _pipe_axis_refusal
+    REG.register("mesh_provider", "local", local)
+    REG.register("mesh_provider", "production", MESH.ProductionMesh)
+    REG.register("mesh_provider", "split", MESH.SplitMesh)
+
+
+def _pipe_axis_refusal(config: Dict[str, Any]) -> str:
+    """``validate``'s word on a local mesh: a pipe axis (``pp > 1``) is the
+    GPipe schedule, ROADMAP A8b."""
+    from ..sharding.plans import A8B
+
+    pp = config.get("pp", 1)
+    if isinstance(pp, int) and pp > 1:
+        return (f"a pipe axis (pp={pp}): the GPipe schedule comes with "
+                f"{A8B}")
+    return ""
 
 
 def _cfg(arch: str, reduced: bool, overrides: Dict[str, Any]) -> ArchConfig:
@@ -227,16 +255,6 @@ def _bpe_tokenizer(path: str = "", corpus: str = "",
             "tokenizer/bpe: n_merges needs a 'corpus' text file to train on"
         )
     return BpeTokenizer()
-
-
-def _refusal(name: str, slice_: str):
-    message = f"{name}: comes with {slice_} of the port"
-
-    def refuse(**_config):
-        raise NotImplementedError(message)
-
-    refuse.not_ported = message   # read by config.resolver.validate_config
-    return refuse
 
 
 def _synthetic_chunked(n_tokens: int, vocab: int, prefix: str, seq_len: int,

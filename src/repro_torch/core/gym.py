@@ -21,8 +21,14 @@ schedules deterministic failures through the same paths the real ones
 take.  A ``profiler`` (:class:`repro_torch.telemetry.ProfilerHook`) traces
 a window of steps.
 
-This slice trains on one device: the mesh and sharding plan (ROADMAP A8)
-are refused where they are configured (``core/components.py``).
+With a ``mesh`` (a ``DeviceMesh``, or a mesh provider the gym builds on its
+device's type) and a sharding ``plan``, the train state is laid out by
+``plans.train_state_shardings`` (params, moments and the counters as
+DTensors; ``shard_warnings`` records the divisibility fallbacks), every
+rank draws the loader's global batch and keeps its block
+(``plans.batch_shardings``), and the step runs on DTensors.  Rank 0 alone
+logs and writes checkpoints (``ckpt.engine``), as its processes' ``RANK``
+says.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ import torch
 
 from ..data.prefetch import PrefetchLoader, place_batch
 from ..device import resolve_device
+from ..launch.mesh import process_rank
+from ..sharding import plans as PL
 from ..train import checkpoint as CK
 from ..train import steps as ST
 
@@ -46,6 +54,8 @@ class Gym:
     model: Any
     optimizer: Any
     loader: Any
+    mesh: Any = None                      # None => single device
+    plan: Any = None
     seed: int = 0
     grad_accum: int = 1
     log_every: int = 10
@@ -69,31 +79,75 @@ class Gym:
     profiler: Any = None                  # ProfilerHook (torch.profiler window)
     #: where the run trains: None is the card (``device.resolve_device``)
     device: Any = None
+    #: set by ``setup``: the built mesh and the train state's layout
+    _mesh = None
+    _state_sh = None
 
     def setup(self):
         self._device = resolve_device(self.device)
-        step_fn = self._build_step()
-        self._step = lambda s, b: step_fn(s, b, *self._step_extra_args())
+        mesh = self.mesh
+        if hasattr(mesh, "build"):
+            mesh = mesh.build(self._device.type)
+        self._mesh = mesh
+        if mesh is not None and self.plan is None:
+            raise ValueError("gym: a mesh needs a sharding plan to lay the "
+                             "train state out")
+        if mesh is not None:
+            if self._device.type == "cuda":
+                self._device = torch.device("cuda",
+                                            torch.cuda.current_device())
+            mesh_ctx = PL.mesh_context(self.plan, mesh)
+            storage_axes = self.plan.ep_storage_axes if self.plan.ep else ()
+            self._state_sh, self.shard_warnings = PL.train_state_shardings(
+                self.plan, mesh, self.model, self.optimizer, seed=self.seed)
+        else:
+            mesh_ctx, storage_axes = None, ()
+            self._state_sh, self.shard_warnings = None, []
+        self.mesh_ctx = mesh_ctx
+        self._batch_sh = None
+        step_fn = self._build_step(mesh_ctx, storage_axes)
+        self._step = lambda s, b: step_fn(s, self._lay_out(b),
+                                          *self._step_extra_args())
         return self._init_state()
 
     def _init_state(self):
         """A fresh train state, seeded from ``seed`` on the gym's device —
         also the rollback fallback when no usable checkpoint predates an
-        anomaly (the same generator, so the same init bit for bit)."""
+        anomaly (the same generator, so the same init bit for bit).  Under
+        a mesh every rank makes the same state and keeps its blocks."""
         gen = torch.Generator(device=self._device).manual_seed(self.seed)
-        return ST.init_train_state(self.model, self.optimizer, gen)
+        state = ST.init_train_state(self.model, self.optimizer, gen)
+        if self._state_sh is not None:
+            state = PL.distribute(state, self._state_sh)
+        return state
+
+    def _lay_out(self, batch):
+        """A batch on the gym's device, laid out by the plan's batch
+        shardings under a mesh (each rank keeps its rows of the global
+        batch every rank drew)."""
+        batch = place_batch(batch, self._device)
+        if self._state_sh is None:
+            return batch
+        if self._batch_sh is None:
+            self._batch_sh = PL.batch_shardings(self.plan, self._mesh, batch)
+        return PL.distribute(batch, self._batch_sh)
 
     # -- subclass hooks ----------------------------------------------------
     # A Gym variant (e.g. a DPO gym) changes WHAT a step computes by
     # overriding these two; the loop, prefetch and metrics stay shared.
-    def _build_step(self):
+    def _build_step(self, mesh_ctx=None, storage_axes=()):
         """The (state, batch, *extras) -> (state, metrics) step function."""
-        return ST.make_train_step(self.model, self.optimizer,
-                                  grad_accum=self.grad_accum)
+        return ST.make_train_step(self.model, self.optimizer, mesh_ctx,
+                                  storage_axes, grad_accum=self.grad_accum)
 
     def _step_extra_args(self) -> tuple:
         """Extra positional arguments appended to every step call."""
         return ()
+
+    @property
+    def n_dev(self) -> int:
+        """The devices the step runs on: the mesh's size, else 1."""
+        return 1 if self._mesh is None else self._mesh.size()
 
     # -- checkpointing -----------------------------------------------------
     def _ckpt(self):
@@ -157,9 +211,11 @@ class Gym:
                     f"{saved_fp[:22]}… into a run fingerprinted "
                     f"{self.run_fingerprint[:22]}… — the resolved configs "
                     f"differ", UserWarning, stacklevel=2)
-            state = EL.restore(state_like, path)
+            state = EL.restore(state_like, path, self._state_sh)
         else:
             state = CK.restore_checkpoint(state_like, path)
+            if self._state_sh is not None:
+                state = PL.distribute(state, self._state_sh)
         return state, int(state["step"])
 
     def _ckpt_extra(self) -> Optional[Dict[str, Any]]:
@@ -214,6 +270,7 @@ class Gym:
             guard = PreemptionGuard()
 
         ckpt = self._ckpt()
+        rank0 = process_rank() == 0
         try:
             while True:
                 current = int(state["step"])
@@ -251,7 +308,7 @@ class Gym:
                             if anomaly is not None:
                                 raise _Rollback(anomaly)
                         history.append(m)
-                        if self.logger:
+                        if self.logger and rank0:
                             self.logger(m)
                     if do_spans:
                         tel.span_row("gym/flush", t_f0, time.perf_counter(),
@@ -279,8 +336,7 @@ class Gym:
                                 inj.fire("nan_params", step) is not None:
                             state = inj.corrupt_params(state)
                         # a loader that does not prefetch yields host numpy
-                        state, metrics = self._step(
-                            state, place_batch(batch, self._device))
+                        state, metrics = self._step(state, batch)
                         dispatched += 1
                         if do_spans:
                             t_disp = time.perf_counter()
@@ -305,7 +361,7 @@ class Gym:
                             if tel is not None:
                                 tel.metric(step, {k: v for k, v in row.items()
                                                   if k != "step"})
-                            if self.logger:
+                            if self.logger and rank0:
                                 self.logger(row)
                         if ckpt is not None and self.save_policy(step):
                             # the copies are queued on the stream before the
@@ -347,7 +403,7 @@ class Gym:
                     events.append(guard.event(stop_step))
                     if tel is not None:
                         tel.event("preempt", step=stop_step)
-                    if self.logger:
+                    if self.logger and rank0:
                         self.logger({"step": stop_step, "event": "preempt"})
                     preempted = True
                     guard.clear()
@@ -404,7 +460,7 @@ class Gym:
                 torch.cuda.synchronize(dev)
 
         def step(state):
-            return self._step(state, place_batch(next(it), dev))
+            return self._step(state, next(it))
 
         batches = self._wrapped_loader().batches(1 + warmup + steps,
                                                  start_step=start)
@@ -464,7 +520,7 @@ class Gym:
                                          self.grad_accum)
         if flops:
             result["model_flops_per_step"] = flops
-            result["mfu"] = ACC.mfu(flops, steady_ms / 1000.0)
+            result["mfu"] = ACC.mfu(flops, steady_ms / 1000.0, self.n_dev)
         gb = getattr(self.loader, "global_batch", None)
         seq = getattr(getattr(self.loader, "dataset", None), "seq_len", None)
         if gb and seq:
@@ -472,6 +528,11 @@ class Gym:
             result["seq_len"] = int(seq)
             result["tokens_per_s"] = int(gb * seq / (steady_ms / 1000.0)) \
                 if steady_ms > 0 else 0
+        if self.plan is not None and hasattr(self.plan, "describe"):
+            result["plan"] = self.plan.describe()
+            result["pipeline"] = PL.pipeline_info(
+                self.plan, self._mesh,
+                int(getattr(self.loader, "global_batch", 0) or 0))
         if tel is not None:
             tel.metric(None, {"steady_step_ms": result["steady_step_ms"],
                               "mfu": result.get("mfu"),
@@ -506,7 +567,8 @@ class Gym:
         candidates = [(s, p) for s, p in ckpts if s < anomaly_step]
         if candidates:
             restored_step, path = max(candidates)
-            state = EL.restore(like, path, device=self._device)
+            state = EL.restore(like, path, self._state_sh,
+                               device=self._device)
         else:
             state = self._init_state()
             restored_step = int(state["step"])
@@ -526,7 +588,7 @@ class Gym:
                                  reason=event.get("reason"),
                                  restored_step=restored_step,
                                  rollbacks=rollbacks)
-        if self.logger:
+        if self.logger and process_rank() == 0:
             self.logger({"step": anomaly_step, "event": "rollback",
                          "reason": event.get("reason"),
                          "restored_step": restored_step})

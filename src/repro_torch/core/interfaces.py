@@ -6,9 +6,7 @@ Most IFs are structural: a lightweight ABC or an existing concrete class.
 A new component only has to satisfy the IF to compose with everything else
 (checkpointing, evaluation, the gym).  The ABCs are copied from the JAX
 package; :func:`register_builtin_interfaces` binds each component key to the
-port's own classes.  ``sharding_plan`` stays unbound: the port has no plan
-class before the parallelism slice (ROADMAP A8), and its variants are
-refusals that raise before any IF check.
+port's own classes, ``sharding_plan`` to the port's ``ShardingPlan``.
 """
 from __future__ import annotations
 
@@ -86,6 +84,7 @@ INTERFACES: Dict[str, type] = {}
 def register_builtin_interfaces() -> Dict[str, type]:
     from ..configs.shapes import InputShape
     from ..models.base import ArchConfig, Model
+    from ..sharding.plans import ShardingPlan
     from .gym import Gym
 
     INTERFACES.update(
@@ -97,6 +96,7 @@ def register_builtin_interfaces() -> Dict[str, type]:
             "tokenizer": TokenizerIF,
             "dataset": DatasetIF,
             "loader": LoaderIF,
+            "sharding_plan": ShardingPlan,
             "mesh_provider": MeshProviderIF,
             "shape": InputShape,
             "precision": object,

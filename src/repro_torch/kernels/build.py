@@ -112,3 +112,15 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+def refuse_dtensor(what, tensors):
+    """Each kernel wrapper's first check.  Under a mesh the model calls a
+    wrapper on each rank's local blocks (``models.base.local_call``), so a
+    DTensor reaches one only by mistake: it raises rather than drop to the
+    plain version."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what}: got a DTensor; call the kernel on each "
+                        f"rank's local tensors (models.base.local_call)")

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import load, refuse_dtensor
 from .ref import attention_ref
 
 #: head dims the kernel is instantiated for
@@ -48,6 +48,7 @@ def _kernel():
 
 
 def _check(q, k, v, causal, window, block_q, block_kv):
+    refuse_dtensor("flash_attention", (q, k, v))
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, S, heads, dh]")
     B, Sq, H, dh = q.shape

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import load, refuse_dtensor
 from .ref import ssd_chunked
 
 #: largest chunk and state size the kernel takes
@@ -60,6 +60,7 @@ def _kernel():
 
 
 def _check(x, dt, A, Bm, Cm, D, chunk):
+    refuse_dtensor("ssd_scan", (x, dt, A, Bm, Cm, D))
     if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Cm.dim() != 4:
         raise ValueError("ssd_scan: x [B,S,H,P], dt [B,S,H], Bm/Cm [B,S,G,N]")
     Bq, S, H, P = x.shape

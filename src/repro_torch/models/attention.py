@@ -152,20 +152,86 @@ def gqa_forward(cfg: B.ArchConfig, p, x, positions, window: Optional[int] = None
     k = apply_rope(k, positions, cfg.rope_theta)
     w = cfg.window if window is None else window
     S = x.shape[1]
-    if cfg.use_flash_kernel:
-        from ..kernels.flash.ops import flash_attention
 
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True, window=w,
-                            block_q=min(128, S), block_kv=min(128, S))
-    elif S > _BLOCKWISE_AT:
-        o = _blockwise_attn(q, k, v, positions, positions, w, causal=True)
-    else:
-        o = _full_attn(q, k, v, positions, positions, w, causal=True)
+    def attend(q, k, v):
+        # contiguous gradients on every path: a DTensor block's must be
+        # (B.local_call), and the run with no mesh then sums them in the
+        # same order as the run under a mesh
+        q, k, v = (B.contiguous_grad(t) for t in (q, k, v))
+        if cfg.use_flash_kernel:
+            from ..kernels.flash.ops import flash_attention
+
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True, window=w,
+                                   block_q=min(128, S), block_kv=min(128, S))
+        if S > _BLOCKWISE_AT:
+            return _blockwise_attn(q, k, v, positions, positions, w,
+                                   causal=True)
+        return _full_attn(q, k, v, positions, positions, w, causal=True)
+
+    o = _local_heads(attend, q, k, v) if B.is_dtensor(q) else attend(q, k, v)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _local_heads(attend, q, k, v):
+    """``attend(q, k, v)`` on each rank's local batch rows and local query
+    heads, under a mesh (``B.local_call``): the kernel sees plain tensors.
+
+    Where the KV heads shard over the same mesh dims as the query heads,
+    the local groups line up.  A KV leaf whose heads do not divide the
+    ``model`` axis stays replicated while the query heads shard (Granite's
+    single KV head, ``leaf_spec``'s warning): each rank then takes the
+    global KV heads of its own query heads' groups, and the KV gradient is
+    a partial sum over those mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    qp, kp, kg, head_dims = [], [], [], []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if isinstance(pq, Shard) and pq.dim == 0:
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+            kg.append(Shard(0))
+        elif isinstance(pq, Shard) and pq.dim == 2:
+            qp.append(Shard(2))
+            if isinstance(pk, Shard) and pk.dim == 2:
+                kp.append(Shard(2))
+                kg.append(Shard(2))
+            else:
+                head_dims.append(i)
+                kp.append(Replicate())
+                kg.append(Partial())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kg.append(Replicate())
+    sel = None
+    if head_dims:
+        # the query heads shard over the TP axis alone; this rank's block
+        coord = mesh.get_coordinate()
+        c, n = 0, 1
+        for i in head_dims:
+            c, n = c * mesh.shape[i] + coord[i], n * mesh.shape[i]
+        h_local = H // n
+        groups = [(c * h_local + j) // G for j in range(h_local)]
+        uniq = sorted(set(groups))
+        # whole groups (or one group's share) keep the kernel's grouping;
+        # otherwise each local head takes its own KV head
+        even = all(groups.count(g) * len(uniq) == h_local for g in uniq)
+        sel = uniq if even else groups
+
+    def local(ql, kl, vl):
+        if sel is not None:
+            idx = torch.tensor(sel, device=kl.device)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return attend(ql, kl, vl)
+
+    return B.local_call(local, (q, k, v), (qp, kp, kp), (qp, kg, kg), qp)
 
 
 def bidir_forward(cfg: B.ArchConfig, p, x):

@@ -10,14 +10,15 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 # ---------------------------------------------------------------------------
-# Logical axis names of param leaves (``Model.param_axes``).  The port trains
-# on one device, so no plan maps them onto a mesh yet (ROADMAP A8); LoRA reads
-# the ``LAYER`` axis to tell stacked leaves from unstacked ones.
+# Logical axis names of param leaves (``Model.param_axes``), which a sharding
+# plan maps onto mesh axes (``repro_torch.sharding.plans``); LoRA reads the
+# ``LAYER`` axis to tell stacked leaves from unstacked ones.
 # ---------------------------------------------------------------------------
 LAYER = "layer"          # stacked-layer dim (never sharded; scan dim)
 VOCAB = "vocab"
@@ -118,6 +119,153 @@ class ArchConfig:
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class MeshContext:
+    """Axis names the model needs when running distributed (None on 1
+    device).  ``mesh`` is a ``torch.distributed.DeviceMesh`` whose dim
+    names are JAX's axis names."""
+    mesh: Any = None
+    dp_axes: Tuple[str, ...] = ()      # batch axes, e.g. ("pod", "data")
+    tp_axis: Optional[str] = None      # "model" (None => no TP / no EP)
+    ep_enabled: bool = False           # route MoE through the EP path
+    ep_axes: Tuple[str, ...] = ("model",)  # mesh axes experts shard over
+    pp: int = 1                        # pipeline stage count (1 => unpipelined)
+    pipe_axis: Optional[str] = None    # mesh axis the stage dim shards over
+    n_micro: int = 0                   # microbatches (0 => 2*pp default)
+
+    def axis_size(self, axes) -> int:
+        """The product of the sizes of ``axes`` (a name or a tuple)."""
+        sizes = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+        if isinstance(axes, str):
+            return sizes[axes]
+        return math.prod(sizes[a] for a in axes)
+
+    @property
+    def dp_size(self) -> int:
+        if self.mesh is None or not self.dp_axes:
+            return 1
+        return self.axis_size(self.dp_axes)
+
+    @property
+    def tp_size(self) -> int:
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return self.axis_size(self.tp_axis)
+
+    @property
+    def ep_size(self) -> int:
+        if self.mesh is None or not self.ep_axes:
+            return 1
+        return self.axis_size(self.ep_axes)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def constrain(x, mesh_ctx: Optional[MeshContext], *rest):
+    """Lay out an activation whose dim 0 is batch (JAX's
+    ``with_sharding_constraint``, here a ``redistribute`` to the same spec).
+
+    ``rest`` entries are mesh-axis names (or None) for the remaining dims;
+    entries are dropped when the dim isn't divisible.  No-op without a
+    mesh.  A partial sum (a contraction over a sharded dim) is reduced
+    here, where JAX's constraint makes XLA reduce it.
+    """
+    if mesh_ctx is None or mesh_ctx.mesh is None:
+        return x
+    from ..sharding.plans import P, spec_placements
+
+    spec = [None] * x.ndim
+    dp = mesh_ctx.dp_axes
+    if dp and x.shape[0] % mesh_ctx.dp_size == 0:
+        spec[0] = dp
+    for i, ax in enumerate(rest[: x.ndim - 1], start=1):
+        if ax is None:
+            continue
+        size = mesh_ctx.axis_size(ax)
+        if x.shape[i] % size == 0 and x.shape[i] >= size:
+            spec[i] = ax
+    return x.redistribute(mesh_ctx.mesh,
+                          spec_placements(mesh_ctx.mesh, P(*spec)))
+
+
+def gather_fsdp(tree, mesh_ctx: Optional[MeshContext]):
+    """The FSDP all-gather of a param tree: every leaf redistributed to
+    ``Replicate`` on all mesh dims but the TP axis, where it keeps its
+    shard.  Its backward reduce-scatters the gradient back to the leaf's
+    layout (ZeRO-3's schedule)."""
+    if mesh_ctx is None or mesh_ctx.mesh is None:
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh_ctx.mesh.mesh_dim_names
+
+    def gather(t):
+        keep = [p if (isinstance(p, Shard) and name == mesh_ctx.tp_axis)
+                else Replicate() for name, p in zip(names, t.placements)]
+        if list(keep) == list(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, keep)
+
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v, mesh_ctx) for k, v in tree.items()}
+    return gather(tree)
+
+
+def replicate_like(t, ref):
+    """A plain tensor ``t`` as a replicated DTensor on ``ref``'s mesh (a
+    constant that meets DTensor activations); ``t`` itself when ``ref`` is
+    a plain tensor."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def contiguous_grad(t):
+    """``t``, whose gradient leaves contiguous: a DTensor takes a local
+    tensor's layout on trust (``local_call``'s ``from_local``), so a later
+    view of a block whose gradient came back permuted fails (attention's
+    backwards return such)."""
+    return _ContiguousGrad.apply(t)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_call(fn, args, in_placements, grad_placements, out_placements):
+    """``fn`` on each rank's local blocks of the DTensors ``args``, through
+    ``torch.distributed.tensor.experimental.local_map``: a hand-written
+    kernel runs on local tensors, never on a DTensor.
+
+    Each argument is redistributed to its ``in_placements`` first.  Its
+    ``grad_placements`` say what its local gradient is: a replicated input
+    that every rank reads for its own rows or heads has a partial-sum
+    gradient (``Partial()``).  ``out_placements`` is one list of
+    placements, or a tuple of them for several outputs.  ``fn``'s local
+    gradients must be contiguous (:func:`contiguous_grad`)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=tuple(grad_placements),
+                     device_mesh=args[0].device_mesh,
+                     redistribute_inputs=True)(*args)
 
 
 class Model(abc.ABC):

@@ -38,10 +38,32 @@ def embed_lookup(table, tokens, dtype):
     whole table, then gathers.  Gathering first gives the same numbers
     without casting the ``[vocab, D]`` table every call, which serving
     does; when the table takes a gradient, it is cast whole as in JAX, so
-    that its gradient is summed in ``dtype`` there too."""
+    that its gradient is summed in ``dtype`` there too.
+
+    Under a mesh (a DTensor table) each rank gathers its own tokens' rows
+    from the whole table (``base.local_call``), the same gather as on one
+    device: the table's gradient is then a partial sum over the mesh dims
+    the tokens are split over."""
+    from .base import is_dtensor
+
+    if is_dtensor(table):
+        return _local_lookup(table, tokens, dtype)
     if table.requires_grad and torch.is_grad_enabled():
         return table.to(dtype)[tokens]
     return table[tokens].to(dtype)
+
+
+def _local_lookup(table, tokens, dtype):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from .base import local_call
+
+    rows = [p if isinstance(p, Shard) else Replicate()
+            for p in tokens.placements]
+    whole = [Replicate()] * len(rows)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+    return local_call(lambda t, i: embed_lookup(t, i, dtype), (table, tokens),
+                      (whole, rows), (grad, rows), rows)
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +124,10 @@ def apply_rope(x, positions, theta: float):
     angles = positions[..., None].float() * freqs            # [..., S, dh/2]
     cos = torch.cos(angles)[..., None, :]                    # [..., S, 1, dh/2]
     sin = torch.sin(angles)[..., None, :]
+    from .base import replicate_like
+
+    # under a mesh (a DTensor ``x``) the tables are replicated constants
+    cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -130,13 +156,41 @@ def sharded_cross_entropy(logits, labels, mask=None):
     """Mean token NLL in f32. logits [B,S,V], labels [B,S], mask [B,S].
 
     JAX takes the gold logit with a one-hot einsum, which stays a partial sum
-    over a vocab-sharded logits tensor under SPMD.  The port runs on one
-    card, where that one-hot would be an f32 ``[B, S, V]`` tensor (5.0 GB
-    for Qwen at batch 8 × 1024); for finite logits a ``gather`` picks out
-    exactly the same f32 value (the one-hot sum adds zeros to it), so it is
-    used here.  The one-hot returns with vocab-sharded SPMD (ROADMAP A8).
+    over a vocab-sharded logits tensor under SPMD.  So does the port where
+    the vocab dim is actually sharded (a DTensor split over a mesh dim of
+    size > 1): the one-hot is the labels compared with a vocab index
+    sharded like the logits, and its sum over the vocab a partial sum per
+    rank.  Elsewhere that one-hot would be an f32 ``[B, S, V]`` tensor of
+    the whole vocab (5.0 GB for Qwen at batch 8 × 1024); for finite logits
+    a ``gather`` picks out exactly the same f32 value (the one-hot sum adds
+    zeros to it), so it is used there.
     """
-    return softmax_cross_entropy(logits, labels, mask)
+    if not _vocab_sharded(logits):
+        return softmax_cross_entropy(logits, labels, mask)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    vocab = [Shard(0) if isinstance(p, Shard) and p.dim % 3 == 2
+             else Replicate() for p in logits.placements]
+    index = distribute_tensor(torch.arange(logits.shape[-1], device=lf.device),
+                              logits.device_mesh, vocab, src_data_rank=None)
+    onehot = (labels.long()[..., None] == index).float()
+    gold = torch.einsum("bsv,bsv->bs", lf, onehot)
+    return _masked_mean(logz - gold, mask)
+
+
+def _vocab_sharded(logits) -> bool:
+    """Is ``logits`` a DTensor whose last dim is split over a mesh dim of
+    size > 1?"""
+    from torch.distributed.tensor import Shard
+
+    from .base import is_dtensor
+
+    return is_dtensor(logits) and any(
+        isinstance(p, Shard) and p.dim % logits.ndim == logits.ndim - 1
+        and size > 1
+        for p, size in zip(logits.placements, logits.device_mesh.shape))
 
 
 def softmax_cross_entropy(logits, labels, mask=None):

@@ -18,7 +18,7 @@ Two compute paths of the routed experts, the same function:
   as JAX's are einsums outside any Pallas kernel.
 
 JAX's expert-parallel path (``moe_ep``, ``shard_map`` over a mesh) comes
-with parallelism (ROADMAP A8).
+with ROADMAP A8b.
 """
 from __future__ import annotations
 
@@ -185,9 +185,10 @@ def moe_forward(cfg: B.ArchConfig, p, x, mesh=None) -> Tuple[torch.Tensor,
                                                              torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D], aux_loss): routed + shared experts."""
     if mesh is not None:
+        from ..sharding.plans import A8B
+
         raise NotImplementedError(
-            "expert parallelism (moe_ep over a mesh) comes with parallelism "
-            "(ROADMAP A8)")
+            f"expert parallelism (moe_ep over a mesh) comes with {A8B}")
     Bq, S, D = x.shape
     x_flat = x.reshape(Bq * S, D)
     idx, gate, aux = route(cfg, p["router"], x_flat)

@@ -102,32 +102,69 @@ def ssm_forward(cfg: B.ArchConfig, p, x, return_state: bool = False):
 
     x [B,S,D] -> y [B,S,D] (+ the decode-ready state when ``return_state``).
     The scan goes through ``ssd_scan`` with ``chunk = min(s.chunk, S)``, so
-    S must be a multiple of that chunk, as in JAX.
+    S must be a multiple of that chunk, as in JAX.  Under a mesh (DTensor
+    activations) the projections run on DTensors and the mixer between
+    them (:func:`_mixer`, the scan included) on each rank's local rows.
     """
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    if B.is_dtensor(zxbcdt):
+        y = _local_mixer(cfg, p, zxbcdt)
+    else:
+        y, xBC_raw, h_final = _mixer(cfg, zxbcdt, p["conv_w"], p["conv_b"],
+                                     p["dt_bias"], p["A_log"], p["D"],
+                                     p["norm"])
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+    if return_state:
+        w = cfg.ssm.d_conv - 1
+        conv_state = xBC_raw[:, -w:, :].float()
+        return out, {"conv": conv_state, "ssm": h_final}
+    return out
+
+
+def _mixer(cfg, zxbcdt, conv_w, conv_b, dt_bias, A_log, D, norm):
+    """Between the projections: split, causal conv, the SSD scan, the gated
+    norm.  Returns (the gated, normed scan output ``[B, S, d_inner]``, the
+    conv's input, the scan's final state)."""
     s = cfg.ssm
     d_inner, H, conv_dim = ssm_dims(cfg)
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
     z, xs, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
     xBC_raw = torch.cat([xs, Bm, Cm], dim=-1)
-    xBC = F.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    xBC = F.silu(_causal_conv(xBC_raw, conv_w, conv_b))
     gn = s.n_groups * s.d_state
     xs, Bm, Cm = torch.split(xBC, [d_inner, gn, gn], dim=-1)
-    dt = _softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    Bq, S, _ = x.shape
+    dt = _softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
+    Bq, S, _ = zxbcdt.shape
     # views of xBC: the kernel reads them through their strides
     xs = xs.reshape(Bq, S, H, s.head_dim)
     Bm = Bm.reshape(Bq, S, s.n_groups, s.d_state)
     Cm = Cm.reshape(Bq, S, s.n_groups, s.d_state)
-    y, h_final = ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=min(s.chunk, S))
+    y, h_final = ssd_scan(xs, dt, A, Bm, Cm, D, chunk=min(s.chunk, S))
     y = y.reshape(Bq, S, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
-    if return_state:
-        w = s.d_conv - 1
-        conv_state = xBC_raw[:, -w:, :].float()
-        return out, {"conv": conv_state, "ssm": h_final}
-    return out
+    return rmsnorm(y * F.silu(z), norm, cfg.norm_eps), xBC_raw, h_final
+
+
+def _local_mixer(cfg, p, zxbcdt):
+    """:func:`_mixer` on each rank's local batch rows (``B.local_call``),
+    the same ops as on one device: the projection's output is gathered over
+    every mesh dim but the batch's (the split's cut points do not fall on
+    its TP shards, so DTensor's split would gather it too), and the mixer's
+    params are replicated.  Each rank reads them for its own rows, so their
+    gradients are partial sums over the batch's mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = [isinstance(q, Shard) and q.dim == 0 for q in zxbcdt.placements]
+    act = [Shard(0) if r else Replicate() for r in rows]
+    rep = [Replicate()] * len(rows)
+    par = [Partial() if r else Replicate() for r in rows]
+    names = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
+
+    def mixer(zx, *params):
+        return _mixer(cfg, zx, *params)[0]
+
+    return B.local_call(mixer, (zxbcdt,) + tuple(p[k] for k in names),
+                        (act,) + (rep,) * len(names),
+                        (act,) + (par,) * len(names), act)
 
 
 # ---------------------------------------------------------------------------

@@ -136,12 +136,17 @@ class Stacked:
     ``fold`` threads the carry through all layers (grouped and remat'd);
     ``tail`` runs after each group (JAX's weight-shared attention hook).
     ``block_size`` becomes the largest divisor of ``n_layers`` that is at
-    most the requested size, as in JAX.
+    most the requested size, as in JAX.  ``gather`` (under a mesh,
+    ``base.gather_fsdp``) turns each layer's stored params into the ones
+    its body reads, inside the remat wrap: the FSDP all-gather runs once
+    per layer in the forward and again in the recompute, and no gathered
+    layer is kept between the passes.
     """
 
     def __init__(self, body: Callable[[Any, Any], Any], n_layers: int,
                  block_size: int = 1, remat="full",
-                 tail: Optional[Callable[[Any], Any]] = None):
+                 tail: Optional[Callable[[Any], Any]] = None,
+                 gather: Optional[Callable[[Any], Any]] = None):
         self.body = body
         self.n_layers = n_layers
         k = max(1, min(int(block_size) or 1, n_layers))
@@ -150,6 +155,7 @@ class Stacked:
         self.block_size = k
         self.remat = resolve_remat(remat)
         self.tail = tail
+        self.gather = gather
 
     def fold(self, stack_params, carry):
         """carry -> carry through all layers (the training hot path)."""
@@ -157,6 +163,8 @@ class Stacked:
 
         def group_body(carry, *group):
             for lp in group:
+                if self.gather is not None:
+                    lp = self.gather(lp)
                 carry = self.body(carry, lp)
             if self.tail is not None:
                 carry = self.tail(carry)

@@ -126,17 +126,20 @@ _AXES_BY_KIND = {"dense_block": dense_block_axes,
                  "moe_block": moe_block_axes, "ssm": ssm_block_axes}
 
 
-def _ffn(cfg, kind, p, h):
+def _ffn(cfg, kind, p, h, mesh_ctx=None):
     """The block's feed-forward half on the normed ``h``: (out, aux), aux
     the MoE layer's router balance loss, None for a dense MLP."""
     if kind == "moe_block":
-        return MOE.moe_forward(cfg, p["moe"], h)
+        return MOE.moe_forward(cfg, p["moe"], h, mesh_ctx)
     return M.mlp_forward(cfg, p["mlp"], h), None
 
 
-def apply_block(cfg, kind, p, x, positions):
+def apply_block(cfg, kind, p, x, positions, mesh_ctx=None):
     """Residual block of the training forward; returns (x, aux).  ``aux``
-    is the router balance loss of MoE blocks, zero for the others."""
+    is the router balance loss of MoE blocks, zero for the others.  Under a
+    mesh the residual stream is laid out by ``constrain`` where JAX
+    constrains it: batch over the dp axes, replicated over ``model``."""
+    x = B.constrain(x, mesh_ctx)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         return x + S.ssm_forward(cfg, p["ssm"],
@@ -144,8 +147,8 @@ def apply_block(cfg, kind, p, x, positions):
     h = apply_norm(cfg, p["attn_norm"], x)
     attn = A.mla_forward if cfg.mla else A.gqa_forward
     x = x + attn(cfg, p["attn"], h, positions)
-    h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
-    return x + h, zero if aux is None else aux
+    h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx)
+    return B.constrain(x + h, mesh_ctx), zero if aux is None else aux
 
 
 def decode_block(cfg, kind, p, cache, x, positions):
@@ -248,6 +251,22 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
     return A.gqa_init_cache(cfg, batch, max_len, dtype, device)
 
 
+def refuse_mesh(cfg: B.ArchConfig) -> None:
+    """The archs a mesh runs in this part of the parallelism item: the
+    dense decoders and Mamba2.  The MoE (expert parallelism), MLA, the
+    hybrid's weight-shared stack, the encoder-decoder and the VLM under a
+    mesh come with ROADMAP A8b."""
+    if cfg.arch_type in ("dense", "ssm") and not cfg.mla:
+        return
+    from ..sharding.plans import A8B
+
+    what = "MLA" if cfg.mla else f"the {cfg.arch_type} arch"
+    raise NotImplementedError(
+        f"{cfg.name}: {what} under a mesh comes with {A8B}; the dense "
+        f"decoders and Mamba2 train under every plan without a pipe axis "
+        f"or expert parallelism")
+
+
 class DecoderLM(B.Model):
     """Decoder-only language model: ``dense``, ``moe``, ``ssm``,
     ``hybrid`` and ``vlm`` archs."""
@@ -338,17 +357,18 @@ class DecoderLM(B.Model):
 
     # -- training forward ------------------------------------------------------
     def _scan_stack(self, stack_params, kind, x, positions, n_layers,
-                    shared_attn=None, force_group=None):
+                    shared_attn=None, force_group=None, mesh_ctx=None):
         """Fold over layer groups of ``cfg.scan_block_size`` (or
         ``force_group``) with the arch's remat policy (JAX's
         ``_scan_stack``).  With ``shared_attn`` the weight-shared dense
         block runs after each group, inside its remat wrap, so the backward
-        recomputes it too."""
+        recomputes it too.  Under a mesh each layer's FSDP shards are
+        gathered in the loop (``B.gather_fsdp``)."""
         cfg = self.cfg
 
         def body(carry, lp):
             x, aux = carry
-            x, a = apply_block(cfg, kind, lp, x, positions)
+            x, a = apply_block(cfg, kind, lp, x, positions, mesh_ctx)
             return x, aux + a
 
         def tail(carry):
@@ -359,15 +379,17 @@ class DecoderLM(B.Model):
         stack = ST.Stacked(body, n_layers,
                            block_size=force_group or cfg.scan_block_size,
                            remat=cfg.remat,
-                           tail=tail if shared_attn is not None else None)
+                           tail=tail if shared_attn is not None else None,
+                           gather=(None if mesh_ctx is None else
+                                   lambda lp: B.gather_fsdp(lp, mesh_ctx)))
         aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
         return stack.fold(stack_params, (x, aux0))
 
-    def backbone(self, params, x, positions):
+    def backbone(self, params, x, positions, mesh_ctx=None):
         """Every stack in layer order; returns (x, summed aux).  The hybrid
         folds its Mamba2 layers in groups of ``attn_every - 1`` with the
         shared block as each group's tail.  The pipelined backbone comes
-        with parallelism (ROADMAP A8)."""
+        with ROADMAP A8b (``plans.mesh_context`` refuses a pipe axis)."""
         if self.cfg.arch_type == "hybrid":
             n_groups, seg = self._hybrid_groups()
             return self._scan_stack(params["ssm_blocks"], "ssm", x, positions,
@@ -377,11 +399,11 @@ class DecoderLM(B.Model):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for name, kind, idxs in self._stacks():
             x, aux = self._scan_stack(params[name], kind, x, positions,
-                                      len(idxs))
+                                      len(idxs), mesh_ctx=mesh_ctx)
             aux_total = aux_total + aux
         return x, aux_total
 
-    def apply(self, params, batch):
+    def apply(self, params, batch, mesh_ctx=None, storage_axes=()):
         """Training forward: (logits [B, S, vocab], {"router_lb": aux}),
         and with an MTP head and ``labels`` in the batch also ``"mtp"``,
         its loss.
@@ -391,15 +413,28 @@ class DecoderLM(B.Model):
         A VLM batch's ``patch_embeds`` go in front of the tokens, so the
         logits cover ``n_patches + S`` rows (``compute_loss`` drops the
         patches' rows).
+
+        Under a mesh (``mesh_ctx``, the params and the batch DTensors laid
+        out by a sharding plan) the dense and ssm archs run the same code
+        on DTensors: the unstacked leaves are gathered here, each layer's
+        in the loop, and the activations constrained where JAX constrains
+        them.  ``storage_axes`` (JAX's expert-weight storage sharding) has
+        no use until expert parallelism (ROADMAP A8b).
         """
+        if mesh_ctx is not None and mesh_ctx.mesh is not None:
+            refuse_mesh(self.cfg)
+            stacks = {name for name, _, _ in self._stacks()}
+            params = {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
+                      for k, v in params.items()}
         x = self._with_patches(batch, self.embed_tokens(
             params, batch["tokens"].long()))
+        x = B.constrain(x, mesh_ctx)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self.backbone(params, x, positions)
+        x, aux = self.backbone(params, x, positions, mesh_ctx)
         aux_d = {"router_lb": aux}
         if self.cfg.mtp and "labels" in batch:
             aux_d["mtp"] = self._mtp_loss(params, x, batch, positions)
-        return self.logits(params, x), aux_d
+        return self.logits(params, x, mesh_ctx), aux_d
 
     def _mtp_loss(self, params, h, batch, positions):
         """DeepSeek-V3's depth-1 MTP head (JAX's ``_mtp_loss``): the
@@ -431,11 +466,14 @@ class DecoderLM(B.Model):
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         return x
 
-    def logits(self, params, x):
+    def logits(self, params, x, mesh_ctx=None):
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        out = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        if mesh_ctx is not None and mesh_ctx.tp_axis is not None:
+            out = B.constrain(out, mesh_ctx, None, mesh_ctx.tp_axis)
+        return out
 
     def embed_tokens(self, params, tokens, dtype=torch.bfloat16):
         """The token embeddings in ``dtype`` (``common.embed_lookup``)."""

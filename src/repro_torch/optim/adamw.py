@@ -3,6 +3,9 @@
 State (m, v) mirrors the param tree in f32; ``update`` writes it and the
 params in place.  ``count`` and the learning rate stay tensors on the
 params' device, so an update issues no host sync.
+On DTensor leaves (a sharding plan's layout) the same in-place update runs
+shard by shard: the moments take the params' placements, ``count`` is
+replicated and the global norm sums over every shard.
 Weight decay follows JAX's rule ``p.ndim >= 2`` on the *stacked* leaves:
 per-layer norm weights ``[L, D]`` and biases ``[L, H, dh]`` are decayed, the
 unstacked ``final_norm [D]`` is not.
@@ -14,6 +17,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 
+from ..models.base import is_dtensor, replicate_like
 from ..tree import tree_leaves, tree_map
 
 
@@ -29,12 +33,14 @@ class AdamW:
     master_weights: bool = False
 
     def init(self, params) -> Dict[str, Any]:
-        zeros = lambda: tree_map(  # noqa: E731
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
-        device = tree_leaves(params)[0].device
+        """Zero moments in f32 (on a DTensor param, a DTensor with its
+        placements) and a zero count (replicated on a DTensor param's
+        mesh)."""
+        zeros = lambda: tree_map(_zeros_f32, params)  # noqa: E731
+        first = tree_leaves(params)[0]
+        count = torch.zeros((), dtype=torch.int32, device=first.device)
         state = {"m": zeros(), "v": zeros(),
-                 "count": torch.zeros((), dtype=torch.int32, device=device)}
+                 "count": replicate_like(count, first)}
         if self.master_weights:
             state["master"] = tree_map(lambda p: p.float().clone(), params)
         return state
@@ -81,6 +87,12 @@ class AdamW:
         if self.master_weights:
             new_state["master"] = state["master"]
         return params, new_state
+
+
+def _zeros_f32(p):
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def _zip_leaves(tree, *rest):

@@ -273,10 +273,16 @@ class DPOGym(Gym):
     beta: float = 0.1
     ref_params: Any = None
 
-    def _build_step(self):
+    def _build_step(self, mesh_ctx=None, storage_axes=()):
         if self.grad_accum > 1:
             raise NotImplementedError(
                 "DPO does not support grad_accum > 1 yet; raise the batch")
+        if mesh_ctx is not None:
+            from ..sharding.plans import A8B
+
+            raise NotImplementedError(
+                f"dpo under a mesh: post-training under a plan comes with "
+                f"{A8B}")
         return make_dpo_step(self.model, self.optimizer, beta=self.beta)
 
     def _step_extra_args(self):

@@ -361,14 +361,17 @@ def load_adapter(params: Dict[str, Any], path: str,
                  ) -> Dict[str, Any]:
     """Restore the adapter subtree from an adapter(-or-full) checkpoint
     into ``params`` (onto its adapters' device), leaving the base
-    untouched.  ``shardings`` raises, as every mesh layout does (ROADMAP
-    A8)."""
+    untouched.  ``shardings`` raises: LoRA under a plan comes with ROADMAP
+    A8b."""
     from ..ckpt import elastic as EL
 
+    if shardings is not None:
+        from ..sharding.plans import A8B
+
+        raise NotImplementedError(
+            f"load_adapter(shardings=...): LoRA under a plan comes with {A8B}")
     like = {ADAPTER_KEY: params[ADAPTER_KEY]}
-    sh = ({ADAPTER_KEY: shardings[ADAPTER_KEY]}
-          if shardings is not None else None)
-    sub = EL.restore(like, path, sh, prefix="params")
+    sub = EL.restore(like, path, prefix="params")
     return dict(params, **{ADAPTER_KEY: sub[ADAPTER_KEY]})
 
 

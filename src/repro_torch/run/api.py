@@ -93,13 +93,18 @@ def execute(cfg: RunConfig, *, device=None, write_result: bool = False,
     ``registry`` (the default one, or the caller's with the built-in kinds
     as the fallback).  With ``write_result`` the run writes its artifacts
     first and ``result.json`` last (not for a resumed run that had nothing
-    left to train).  ``options`` reach the executor as
+    left to train); under ``torchrun`` only rank 0 logs and writes.  ``options`` reach the executor as
     ``RunContext.options``."""
     from ..device import resolve_device
     from .fingerprint import fingerprint as _fingerprint
     from .fingerprint import materialize, write_artifacts
 
+    from ..launch.mesh import process_rank
+
     log = log or (lambda msg: print(msg, flush=True))
+    if process_rank() != 0:
+        # under torchrun rank 0 alone logs and writes the run's files
+        write_result, log = False, (lambda msg: None)
     device = resolve_device(device)
     reg = _registry(registry)
     resolved = materialize(cfg.doc, reg)

@@ -13,7 +13,11 @@
   python -m repro_torch validate  <yaml-or-dir> [...]
 
 A run runs on the card unless ``--device cpu`` is given; with no card and
-no ``--device cpu`` it stops with an error.  Every run writes
+no ``--device cpu`` it stops with an error.  A document whose gym names a
+``mesh_provider`` and a ``sharding_plan`` trains under that plan:
+``torchrun --standalone --nproc-per-node N -m repro_torch train --config
+DOC [--device cpu]`` runs one process per device (NCCL on the card, gloo
+on the CPU), and rank 0 alone prints and writes the run's files.  Every run writes
 ``resolved.yaml``, ``manifest.json`` and ``result.json`` into its output
 directory; ``replay`` re-executes such a directory (of either package).
 ``bench`` times the resolved gym's hot path and writes
@@ -289,7 +293,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     result = api.execute_file(args.config, kind=args.command,
                               overrides=args.overrides, device=args.device,
                               write_result=True)
-    _print_result(args.command, result)
+    from ..launch.mesh import process_rank, shutdown
+
+    shutdown()   # a one-rank group the run's mesh started
+    if process_rank() == 0:
+        _print_result(args.command, result)
     if result.get("status") == "preempted":
         # distinct resumable status (EX_TEMPFAIL): the scheduler should
         # relaunch this exact command with resume intact

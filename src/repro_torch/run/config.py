@@ -633,6 +633,31 @@ def register_run_settings(kind: str, settings_cls: Optional[Type]) -> None:
     SETTINGS_SCHEMAS[kind] = settings_cls
 
 
+_PLAN_KEYS = {"plan", "sharding_plan"}
+_NODE_KEYS = {"component_key", "instance_key", "pass_type"}
+
+
+def _normalize_inline_plans(obj: Any) -> Any:
+    """Declarative custom plans: a ``plan:`` / ``sharding_plan:`` entry whose
+    value is a plain field mapping (``{tp: true, pp: 2, ...}``) becomes a
+    ``sharding_plan/custom`` component node, so run YAML can express novel
+    plan compositions inline — not only catalog names.  Field validation
+    happens in :func:`repro_torch.sharding.plans.custom_plan` at resolve
+    time."""
+    if isinstance(obj, list):
+        return [_normalize_inline_plans(v) for v in obj]
+    if not isinstance(obj, dict):
+        return obj
+    out: Dict[str, Any] = {}
+    for k, v in obj.items():
+        if k in _PLAN_KEYS and isinstance(v, dict) and not (_NODE_KEYS & set(v)):
+            out[k] = {"component_key": "sharding_plan",
+                      "variant_key": "custom", "config": dict(v)}
+        else:
+            out[k] = _normalize_inline_plans(v)
+    return out
+
+
 def _infer_kind(doc: Dict[str, Any]) -> Optional[str]:
     """Classify a legacy document with no ``run:`` section."""
     if "sweep" in doc or "axes" in doc or "base" in doc or "base_config" in doc:
@@ -674,6 +699,7 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
     name = str(run_sec.get("name") or default_name)
     if doc_kind == "sweep":
         return _parse_sweep(run_sec, doc, name, config_dir)
+    doc = _normalize_inline_plans(doc)
     output_dir = str(run_sec.get("output_dir")
                      or os.path.join("results", "runs", name))
     normalized_run = {"kind": doc_kind, "name": name, "output_dir": output_dir}

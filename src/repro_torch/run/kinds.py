@@ -395,7 +395,9 @@ def _drive_gym(ctx, s, gym, before_run=None) -> Dict[str, Any]:
     ``retry_count``, ``graceful_exit``, ``events`` and ``events.jsonl``,
     ``status: preempted`` with ``completed_steps``), ``goodput``,
     ``model_flops_per_step`` and ``mfu`` against the card's peak
-    (:data:`repro_torch.device.PEAK_FLOPS_BF16`), and ``profile_trace``.
+    (:data:`repro_torch.device.PEAK_FLOPS_BF16`) times the mesh's devices,
+    under a sharding plan the ``plan``'s description and its ``pipeline``
+    telemetry, and ``profile_trace``.
     A custom-registry gym needs only ``setup`` and ``run``."""
     from ..telemetry import accounting as ACC
 
@@ -465,7 +467,16 @@ def _drive_gym(ctx, s, gym, before_run=None) -> Dict[str, Any]:
         if flops:
             result["model_flops_per_step"] = flops
             result["mfu"] = ACC.mfu(flops, wall / dispatched
-                                    if dispatched else wall / steps)
+                                    if dispatched else wall / steps,
+                                    getattr(gym, "n_dev", 1))
+    plan = getattr(gym, "plan", None)
+    if plan is not None and hasattr(plan, "describe"):
+        from ..sharding import plans as PL
+
+        result["plan"] = plan.describe()
+        result["pipeline"] = PL.pipeline_info(
+            plan, getattr(gym, "_mesh", None),
+            int(getattr(loader, "global_batch", 0) or 0))
     saves = getattr(checkpointer, "saves", None)
     if saves:
         result["ckpt_saves"] = list(saves)

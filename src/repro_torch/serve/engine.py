@@ -36,7 +36,8 @@ sampling noise is a hash of ``(seed, generation index)``.
 
 A ``fault_injector`` fires ``serve_stall`` inside the tick, before its
 watchdog clock stops (a hung collective, simulated).  Sharded serving
-(``mesh``/``plan``, ROADMAP A8) comes with a later slice and raises here.
+(``mesh``/``plan``, with ``cache_shardings``) comes with ROADMAP A8b and
+raises here.
 """
 from __future__ import annotations
 
@@ -128,9 +129,11 @@ class ServeEngine:
                 f"audio/vlm prompts need modality extras the slot scheduler "
                 f"does not carry")
         if mesh is not None or plan is not None:
+            from ..sharding.plans import A8B
+
             raise NotImplementedError(
-                "sharded serving (mesh/plan) comes with parallelism "
-                "(ROADMAP A8)")
+                f"sharded serving (mesh/plan, cache_shardings) comes with "
+                f"{A8B}")
         if n_slots < 1 or max_len < 2:
             raise EngineError(f"need n_slots >= 1 and max_len >= 2, got "
                               f"{n_slots}/{max_len}")

@@ -11,16 +11,22 @@ from typing import Any, Dict
 
 import torch
 
+from ..models.base import is_dtensor
 from ..models.common import sharded_cross_entropy
 from ..tree import tree_leaves, tree_map, tree_select, tree_unflatten
 
 
-def compute_loss(model, params, batch, mtp_coef: float = 0.3):
+def compute_loss(model, params, batch, mesh_ctx=None, storage_axes=(),
+                 mtp_coef: float = 0.3):
     """(total loss, {"ce", **aux}) of one batch; ``total`` adds the router
     balance loss, which is zero for the dense and ssm archs, and
     ``mtp_coef`` times the MTP head's loss where the model has one.  A VLM
-    arch's first ``n_patches`` logits (the patch prefix) take no loss."""
-    logits, aux = model.apply(params, batch)
+    arch's first ``n_patches`` logits (the patch prefix) take no loss.
+    Under a mesh (``mesh_ctx``) the forward runs on the plan's DTensors."""
+    if mesh_ctx is None:
+        logits, aux = model.apply(params, batch)
+    else:
+        logits, aux = model.apply(params, batch, mesh_ctx, storage_axes)
     if model.cfg.n_patches:
         logits = logits[:, model.cfg.n_patches:]
     loss = sharded_cross_entropy(logits, batch["labels"],
@@ -66,7 +72,8 @@ def value_and_grad(loss_fn, params, *args, trainable=None):
             tree_unflatten(wrt, grads))
 
 
-def make_train_step(model, optimizer, grad_accum: int = 1):
+def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
+                    grad_accum: int = 1):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     Gradients come from :func:`value_and_grad` over the param leaves, or
@@ -84,12 +91,22 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
     optimizer writes the params and its state leaf by leaf (see
     ``AdamW.update``), so the returned state holds the same tensors and the
     caller's ``state["params"]`` and ``state["opt"]`` hold the new values.
+
+    Under a mesh (``mesh_ctx``, with the state and the batch laid out as
+    DTensors by a sharding plan) the same step runs on DTensors, where
+    DTensor's op propagation stands for XLA's GSPMD: each gradient is laid
+    out like its param before the update (the data-parallel all-reduce or
+    the FSDP reduce-scatter), and the metrics come back as plain
+    replicated 0-d tensors.  Pipe axes, expert parallelism and LoRA under a
+    plan are ROADMAP A8b and raise here.
     """
 
     trainable = getattr(optimizer, "trainable", None)
+    if mesh_ctx is not None:
+        _refuse_a8b(model, trainable, mesh_ctx)
 
     def loss_fn(params, batch):
-        return compute_loss(model, params, batch)
+        return compute_loss(model, params, batch, mesh_ctx, storage_axes)
 
     def train_step(state, batch):
         if grad_accum > 1:
@@ -109,6 +126,12 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
         else:
             metrics, grads = value_and_grad(loss_fn, state["params"], batch,
                                             trainable=trainable)
+        if mesh_ctx is not None:
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                         p.placements),
+                             grads, state["params"])
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
         new_params, new_opt = optimizer.update(grads, state["opt"],
                                                state["params"])
         new_state = {"params": new_params, "opt": new_opt,
@@ -120,6 +143,31 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
         return new_state, dict(sorted(metrics.items()))
 
     return train_step
+
+
+def _refuse_a8b(model, trainable, mesh_ctx) -> None:
+    """What a mesh does not train in this part of the parallelism item."""
+    from ..models.transformer import DecoderLM, refuse_mesh
+    from ..sharding.plans import A8B
+
+    if mesh_ctx.ep_enabled:
+        raise NotImplementedError(
+            f"expert parallelism (an ep plan) comes with {A8B}")
+    if trainable is not None:
+        raise NotImplementedError(f"LoRA under a plan comes with {A8B}")
+    if not isinstance(model, DecoderLM):
+        raise NotImplementedError(
+            f"{type(model).__name__} under a mesh comes with {A8B}")
+    refuse_mesh(model.cfg)
+
+
+def opt_state_shardings(opt_shapes, pspecs, rep):
+    """Shardings for the optimizer state: moment/master trees mirror the
+    param tree; scalars replicated."""
+    out = {}
+    for k, v in opt_shapes.items():
+        out[k] = pspecs if isinstance(v, dict) or k in ("m", "v", "master") else rep
+    return out
 
 
 def init_train_state(model, optimizer, gen: torch.Generator, param_dtype=None):

@@ -208,12 +208,22 @@ def test_checkpointer_registry_components(tmp_path):
 
 
 def test_later_slices_are_refused(tmp_path):
-    path = write_checkpoint(str(tmp_path), 1, {"w": torch.zeros(2)})
+    """Since A8a the layout arguments behave as JAX's (the name is the
+    case's from before): a ``None`` target sharding is the default
+    placement, and a plan/mesh restore without the model and optimizer to
+    derive the layout from raises JAX's ``RestoreError``."""
+    w = np.arange(2, dtype=np.float32)
+    path = write_checkpoint(str(tmp_path), 1, {"w": torch.tensor(w)})
     like = {"w": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="A8"):
-        restore(like, path, shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="A8"):
+    got = restore(like, path, shardings={"w": None})
+    want = JEL.restore({"w": jnp.zeros(2)}, path, {"w": None})
+    assert np.array_equal(got["w"].numpy(), np.asarray(want["w"]))
+    with pytest.raises(EL.RestoreError) as a:
         restore_train_state(like, path, plan=object(), mesh=object())
+    with pytest.raises(JEL.RestoreError) as b:
+        JEL.restore_train_state({"w": jnp.zeros(2)}, path, plan=object(),
+                                mesh=object())
+    assert str(a.value) == str(b.value)
 
 
 def test_restore_entry_point_needs_a_card_or_the_cpu(tmp_path):

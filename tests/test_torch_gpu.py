@@ -930,3 +930,48 @@ def test_pipeline_tokens_train_one_step_through_the_kernel(cuda, tmp_path):
     res = api.execute_doc(doc, device=cuda, log=lambda m: None)
     assert math.isfinite(res["final_loss"])
     assert ops.launches - before == 2 * 2  # 2 layers x (fwd + remat)
+
+
+# ---------------------------------------------------------------------------
+# a sharding plan on the card (one-rank NCCL group)
+# ---------------------------------------------------------------------------
+def test_fsdp_tp_step_through_flash_equals_the_no_mesh_step(cuda):
+    """One ``fsdp_tp`` train step of reduced Qwen through ``flash_fwd`` on a
+    ``(1, 1)`` mesh over a one-rank NCCL group: the kernel runs on the
+    local blocks (2 layers x (forward + remat recompute) launches), the
+    params and moments are DTensors, and the loss and every updated param
+    ``==`` the step with no mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.sharding import plans as PL
+    from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model, opt, state = _card_train_state(cuda)
+    model = type(model)(model.cfg.with_(use_flash_kernel=True))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(3, model.cfg.vocab, (4, 128), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    plain = tree_map(torch.clone, state)
+    _, want = ST.make_train_step(model, opt)(plain, batch)
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        plan = PL.make_plan("fsdp_tp")
+        sh, _ = PL.train_state_shardings(plan, mesh, model, opt)
+        sharded = PL.distribute(state, sh)
+        step = ST.make_train_step(model, opt, PL.mesh_context(plan, mesh))
+        before = ops.launches
+        _, got = step(sharded, PL.distribute(
+            batch, PL.batch_shardings(plan, mesh, batch)))
+        assert ops.launches - before == 2 * 2
+        assert torch.equal(got["loss"], want["loss"])
+        leaves = tree_leaves(sharded["params"]) + tree_leaves(
+            sharded["opt"]["m"])
+        assert all(isinstance(t, DTensor) for t in leaves)
+        for a, b in zip(tree_leaves(sharded["params"]),
+                        tree_leaves(plain["params"])):
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        MESH.shutdown()

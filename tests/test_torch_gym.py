@@ -240,10 +240,8 @@ REFUSED = [
     # sweeps are ported: this document now parses as a sweep, whose body
     # (a train graph) is no sweep spec (see the test)
     ("run.kind=sweep", "^sweep$"),
-    ("gym.config.sharding_plan={component_key: sharding_plan, "
-     "variant_key: fsdp}", "A8"),
-    ("gym.config.mesh_provider={component_key: mesh_provider, "
-     "variant_key: single_device}", "A8"),
+    # a plan with no mesh, or a single_device mesh, trains unsharded as in
+    # JAX since A8a: those cases are in tests/test_torch_mesh_train.py
     # the encoder-decoder is ported, but the loader yields no frames: the
     # train kind refuses it before its first step
     ("arch.variant_key=whisper_tiny", "^train: .*'frames'"),

@@ -36,7 +36,7 @@ PORTED = ["quickstart", "serve", "serve_engine", "warmstart", "sft", "dpo",
           "bench", "lr_sweep"]
 NOT_PORTED = {"ablation_dryrun": "A9b's dryrun half",
               "dryrun": "A9b's dryrun half", "trace": "A9b's dryrun half",
-              "train_pp": "A8"}
+              "train_pp": "A8b"}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -153,16 +153,20 @@ def test_execute_with_custom_registry_falls_back_for_run_kinds(tmp_path):
 # ---------------------------------------------------------------------------
 def test_interfaces_bind_jax_keys_but_the_sharding_plan():
     """The port binds every component key JAX binds, to an IF of the same
-    name, except ``sharding_plan``: no plan class before A8."""
+    name, ``sharding_plan`` too since A8a (the name is the case's from
+    before, when the plan was the one key left unbound)."""
+    from repro_torch.sharding.plans import ShardingPlan
+
     jax_ifs = JIF.register_builtin_interfaces()
     port_ifs = IF.register_builtin_interfaces()
-    assert set(jax_ifs) - set(port_ifs) == {"sharding_plan"}
-    assert set(port_ifs) <= set(jax_ifs)
+    assert set(jax_ifs) == set(port_ifs)
     for key, iface in port_ifs.items():
         assert iface.__name__ == jax_ifs[key].__name__, key
-    assert DEFAULT_REGISTRY._interfaces.get("sharding_plan") is None
+    assert DEFAULT_REGISTRY._interfaces["sharding_plan"] is ShardingPlan
+    assert port_ifs["sharding_plan"] is ShardingPlan
     for key in ("optimizer", "dataset", "loader", "tokenizer", "tracker",
-                "checkpointer", "mesh_provider", "model", "gym"):
+                "checkpointer", "mesh_provider", "model", "gym",
+                "sharding_plan"):
         assert DEFAULT_REGISTRY._interfaces[key] is port_ifs[key], key
 
 
@@ -208,6 +212,7 @@ def _component_kwargs(tmp_path):
             optimizer=AdamW(), loader=loader),
         ("checkpointer", "async"): dict(ckpt_dir=str(tmp_path / "ck")),
         ("checkpointer", "sync"): dict(ckpt_dir=str(tmp_path / "ck")),
+        ("mesh_provider", "split"): dict(dp=1, tp=1),
     }
 
 
@@ -511,11 +516,16 @@ def test_validate_checks_nested_component_configs():
 
 
 def test_validate_of_a_later_slice_names_its_item():
-    """Where JAX validates a plan, the port's refusal names the item."""
+    """A plan validates as in JAX (A8a); a local mesh with a pipe axis,
+    which JAX validates, is refused naming its item (A8b)."""
     raw = {"plan": {"component_key": "sharding_plan", "variant_key": "fsdp"}}
-    assert _outcome(lambda: jax_validate_config(raw))[0] == "ok"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        validate_config(raw)
+    assert _outcome(lambda: jax_validate_config(raw)) == \
+        _outcome(lambda: validate_config(raw))
+    pipe = {"mesh": {"component_key": "mesh_provider", "variant_key": "local",
+                     "config": {"dp": 4, "pp": 2}}}
+    assert _outcome(lambda: jax_validate_config(pipe))[0] == "ok"
+    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+        validate_config(pipe)
 
 
 def test_port_never_imports_jax_or_repro():
