@@ -158,7 +158,23 @@
    then a checkpoint of the ``fsdp_tp`` Qwen state restored under ``ddp``
    and with no mesh, equal to the saved state, its manifest's specs the
    plan's.  The group is destroyed at the end of the phase.
-11. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
+11. The dryrun, trace and dryrun sweep (``--only dryrun``, ROADMAP A9b's
+   dryrun half): (a) ``dryrun.yaml`` and ``trace.yaml`` unchanged through
+   the port's CLI, each in a child process on the host from a temporary
+   working directory, and ``ablation_dryrun.yaml`` with its sweep
+   directory moved there (12 trials ``ok``, then a second call that
+   resumes all 12): each result's terms, dominant term, FLOPs and
+   collective bytes per device and trace seconds, ``model_flops_global``
+   against 6·N·D, and each child's word that it never initialised CUDA;
+   (b) meanwhile, on the card, one full-width step of Qwen1.5-0.5B through
+   ``flash_fwd`` and of Mamba2-780M through ``ssd_scan`` (8 x 1024, a
+   ``(1, 1)`` mesh under ``ddp``) under the dryrun's counter beside the
+   dryrun of the same step on a fake world: FLOPs per device, collective
+   kinds and argument bytes equal (those also equal to what
+   ``memory_allocated`` gives back when a freshly built state and batch
+   are dropped), 48 / 96 launches, the measured ms/step beside
+   ``max(terms)`` and the traced peak beside ``max_memory_allocated``.
+12. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
    its output directory; full-width Qwen on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine and full-width DeepSeekMoE-16B on the paged engine (pages
@@ -180,6 +196,7 @@ result object.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import subprocess
@@ -3404,6 +3421,314 @@ def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
     return bool(ok)
 
 
+# ---------------------------------------------------------------------------
+# the dryrun, trace and the dryrun sweep (ROADMAP A9b's dryrun half)
+# ---------------------------------------------------------------------------
+#: (a): the two documents run unchanged through the port's CLI, each from a
+#: temporary working directory (their relative ``output_dir`` lands there)
+DRYRUN_DOCS = ("dryrun", "trace")
+DRYRUN_SWEEP = "ablation_dryrun"
+DRYRUN_SWEEP_TRIALS = 12
+#: (b): a full-width step on the card held against its dryrun, on a
+#: ``(1, 1)`` ``local`` mesh under ``ddp``, at the train phases' 8 x 1024
+DRYRUN_CARD = {
+    "qwen": ("qwen1p5_0p5b", {"use_flash_kernel": True}, "flash_fwd", 48),
+    "mamba2": ("mamba2_780m", {}, "ssd_scan", 96),
+}
+DRYRUN_TIMED_STEPS = 3
+#: the CUDA caching allocator's sizes (``CUDACachingAllocator.cpp``):
+#: its smallest block, the request from which a segment is sized to fit,
+#: that segment's rounding, and the remainder below which a block is not
+#: split (``kMinBlockSize``, ``kMinLargeAlloc``, ``kRoundLarge``,
+#: ``kSmallSize``)
+ALLOC_BLOCK, ALLOC_LARGE = 512, 10 << 20
+ALLOC_SEGMENT, ALLOC_SPLIT = 2 << 20, 1 << 20
+
+# runs ``python -m repro_torch <argv>``'s main in a child and reports
+# whether the child ever initialised CUDA (a dryrun must not)
+_CLI_CHILD = (
+    "import sys, torch\n"
+    "from repro_torch.run.cli import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(f'cuda_initialized={torch.cuda.is_initialized()}', flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def _dryrun_cli(argv: list, cwd: str) -> subprocess.Popen:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return subprocess.Popen([sys.executable, "-c", _CLI_CHILD, *argv],
+                            cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _terms(res: dict) -> str:
+    return (f"compute {res['compute_term_s']:.6g} s, memory "
+            f"{res['memory_term_s']:.6g} s, collective "
+            f"{res['collective_term_s']:.6g} s, dominant "
+            f"{res['dominant_term']}, {res['hlo_flops_per_dev']:.6g} "
+            f"flops/device, {res['collective_bytes_per_dev']:.6g} collective "
+            f"bytes/device, traced in {res['compile_s']} s (state "
+            f"{res['lower_s']} s)")
+
+
+def _dryrun_documents(out_dir: str) -> dict:
+    """(a) ``dryrun.yaml`` and ``trace.yaml`` through the CLI (each its
+    own process, on the host's CPU, while (b) holds the card), and
+    ``ablation_dryrun.yaml`` with its sweep directory moved under
+    ``out_dir``, started here and read by :func:`_dryrun_documents_check`;
+    {name: (start time, process, working directory)}."""
+    cfgs = os.path.join(ROOT, "examples", "configs")
+    sweep_dir = os.path.join(out_dir, "sweep")
+    procs = {}
+    for name in DRYRUN_DOCS:
+        cwd = os.path.join(out_dir, name)
+        os.makedirs(cwd)
+        argv = [name, "--config", os.path.join(cfgs, name + ".yaml")]
+        if name == "dryrun":
+            argv += ["--json", os.path.join(cwd, "result.json")]
+        procs[name] = (time.perf_counter(), _dryrun_cli(argv, cwd), cwd)
+    sweep_argv = ["sweep", "--config",
+                  os.path.join(cfgs, DRYRUN_SWEEP + ".yaml"),
+                  "--output-dir", sweep_dir]
+    procs["sweep"] = (time.perf_counter(), _dryrun_cli(sweep_argv, out_dir),
+                      out_dir)
+    return procs
+
+
+def _dryrun_documents_check(procs: dict, out_dir: str, card: str) -> bool:
+    """(a)'s checks, once its processes end: each document's result, the
+    card untouched, ``model_flops_global`` == 6·N·D, the schedule; the
+    sweep's 12 trials ``ok`` and a second call that resumes all 12."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.telemetry.accounting import model_flops
+
+    ok = True
+    outs = {}
+    for name, (t0, proc, cwd) in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        outs[name] = (proc.returncode, text, time.perf_counter() - t0, cwd)
+    for name in DRYRUN_DOCS:
+        rc, text, wall, cwd = outs[name]
+        run = glob.glob(os.path.join(cwd, "results", "runs", "*",
+                                     "result.json"))
+        res = {}
+        if run:
+            with open(run[0]) as f:
+                res = json.load(f)
+        clean = "cuda_initialized=False" in text
+        doc_ok = rc == 0 and bool(res.get("chips")) and clean
+        line = (f"dryrun (a) {name}.yaml: exit {rc}, {wall:.1f} s wall; "
+                f"card untouched {clean}")
+        if res.get("chips"):
+            line += (f"; {res['arch']} x {res['shape']} on {res['mesh']} "
+                     f"({res['plan']}): {_terms(res)}; temp "
+                     f"{res['mem_temp_size_in_bytes']} B/device, arguments "
+                     f"{res['mem_argument_size_in_bytes']} B/device")
+        if name == "dryrun" and res:
+            with open(os.path.join(cwd, "result.json")) as f:
+                doc_ok &= json.load(f) == res
+            cfg = get_config("stablelm_1p6b").with_(scan_block_size=4)
+            want = model_flops(cfg, SHAPES["train_4k"])[0]
+            line += (f"; model_flops_global {res['model_flops_global']} "
+                     f"== 6·N·D {want}: {res['model_flops_global'] == want}")
+            doc_ok &= res["model_flops_global"] == want
+        if name == "trace":
+            doc_ok &= "# collective schedule:" in text
+            sched = [ln for ln in text.splitlines()
+                     if ln.startswith(("all-", "reduce-", "collective-"))]
+            line += f"; schedule rows {len(sched)}: {sched[:4]}"
+        print(f"{line} [{card}]: {'ok' if doc_ok else 'FAILED'}", flush=True)
+        if not doc_ok:
+            print(text[-4000:], flush=True)
+        ok &= doc_ok
+
+    # the sweep: 12 trials ok, then a second call that runs none
+    rc, text, wall, _ = outs["sweep"]
+    records = _sweep_records(os.path.join(out_dir, "sweep"))
+    n_ok = sum(r.get("status") == "ok" for r in records)
+    sweep_ok = (rc == 0 and n_ok == DRYRUN_SWEEP_TRIALS
+                and "cuda_initialized=False" in text)
+    t0 = time.perf_counter()
+    again = _dryrun_cli(["sweep", "--config", os.path.join(
+        ROOT, "examples", "configs", DRYRUN_SWEEP + ".yaml"),
+        "--output-dir", os.path.join(out_dir, "sweep")], out_dir)
+    text2, _ = again.communicate(timeout=600)
+    wall2 = time.perf_counter() - t0
+    resumed = (f"done: {DRYRUN_SWEEP_TRIALS} records "
+               f"({DRYRUN_SWEEP_TRIALS} resumed, 0 failed)") in text2
+    sweep_ok &= again.returncode == 0 and resumed
+    best = [ln for ln in text.splitlines() if ln.startswith("best trial")]
+    print(f"dryrun (a) {DRYRUN_SWEEP}.yaml: exit {rc}, {wall:.1f} s wall, "
+          f"{n_ok}/{DRYRUN_SWEEP_TRIALS} trials ok; second call exit "
+          f"{again.returncode}, {wall2:.1f} s, all resumed {resumed}; "
+          f"{best[0] if best else 'no best trial'} [{card}]: "
+          f"{'ok' if sweep_ok else 'FAILED'}", flush=True)
+    for r in records:
+        m = r.get("metrics", {})
+        print(f"dryrun (a) trial {r.get('trial_id')}: {r.get('status')}, "
+              f"roofline_step_s {m.get('roofline_step_s')}, dominant "
+              f"{m.get('dominant_term')}, compute {m.get('compute_term_s')}, "
+              f"memory {m.get('memory_term_s')}, collective "
+              f"{m.get('collective_term_s')}, traced in "
+              f"{m.get('compile_s')} s", flush=True)
+    if not sweep_ok:
+        print(text[-4000:], text2[-2000:], flush=True)
+    return bool(ok and sweep_ok)
+
+
+def _sweep_records(sweep_dir: str) -> list:
+    path = os.path.join(sweep_dir, "records.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _alloc_bytes(tree) -> int:
+    """The bytes ``memory_allocated`` counts for ``tree``'s distinct
+    storages, each allocated on its own from an emptied cache: the CUDA
+    caching allocator rounds a request up to ``ALLOC_BLOCK``, gives a
+    request of ``ALLOC_LARGE`` or more a segment rounded up to
+    ``ALLOC_SEGMENT``, and hands out the whole segment (and counts it)
+    where less than ``ALLOC_SPLIT`` of it would remain."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves
+
+    seen, total = set(), 0
+    for t in tree_leaves(tree):
+        st = (t.to_local() if isinstance(t, DTensor) else t).untyped_storage()
+        if st._cdata in seen:
+            continue
+        seen.add(st._cdata)
+        n = max(ALLOC_BLOCK, -(-st.nbytes() // ALLOC_BLOCK) * ALLOC_BLOCK)
+        if n >= ALLOC_LARGE:
+            seg = -(-n // ALLOC_SEGMENT) * ALLOC_SEGMENT
+            if seg - n <= ALLOC_SPLIT:
+                n = seg
+        total += n
+    return total
+
+
+def _dryrun_vs_card(key: str, results: dict, card: str) -> bool:
+    """(b) One full-width step on the card under the dryrun's counter
+    beside the dryrun of the same step: per-device FLOPs and the collective
+    kinds equal, the argument bytes equal (and equal to what
+    ``memory_allocated`` counts), the kernel's launches in the step, the
+    measured ms/step beside ``max(terms)`` and the traced peak beside
+    ``max_memory_allocated``."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.models import build_model
+    from repro_torch.sharding import plans as PL
+
+    arch, overrides, kernel, want_launches = DRYRUN_CARD[key]
+    cfg = get_config(arch).with_(**overrides)
+    shape = InputShape("card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = PL.make_plan("ddp")
+    dry = DR.compile_run(cfg, shape, MESH.LocalMesh(1, 1), plan)
+    roofline = max(dry["compute_term_s"], dry["memory_term_s"],
+                   dry["collective_term_s"])
+    counters = _counters()
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        model = build_model(cfg)
+        # what memory_allocated counts for the state and the batch: the
+        # bytes it gives back when a freshly built pair is dropped (what
+        # else building allocates and keeps is not theirs)
+        _free()
+        setup = DR.build_step(model, shape, mesh, plan, device="cuda")
+        alloc = _alloc_bytes({"state": setup.args[0], "batch": setup.args[1]})
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        del setup
+        _free()
+        held -= torch.cuda.memory_allocated()
+        setup = DR.build_step(model, shape, mesh, plan, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        with CostCounter(arguments=setup.args) as counter:
+            state, metrics = setup.fn(*setup.args)
+            torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() - before
+        ana = counter.analyze()
+        mem = counter.memory(setup.args, (state, metrics))
+        loss = float(metrics["loss"])
+        ms = []
+        for _ in range(DRYRUN_TIMED_STEPS):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            state, metrics = setup.fn(state, setup.args[1])
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        add_launches(results, launches)
+        flops_ok = ana["flops"] == dry["hlo_flops_per_dev"]
+        coll_ok = ana["collective_counts"] == dry["collective_counts"]
+        args_ok = (mem["mem_argument_size_in_bytes"]
+                   == dry["mem_argument_size_in_bytes"] and alloc == held)
+        launch_ok = launches[kernel] == want_launches and all(
+            n == 0 for name, n in launches.items() if name != kernel)
+        run_ok = (flops_ok and coll_ok and args_ok and launch_ok
+                  and math.isfinite(loss))
+        med = sorted(ms)[len(ms) // 2]
+        print(f"dryrun (b) {key}: {cfg.name} full width ({cfg.n_layers} "
+              f"layers, remat {cfg.remat}), {TRAIN_BATCH} x {TRAIN_SEQ} on a "
+              f"(1, 1) mesh under ddp; flops/device card {ana['flops']!r} vs "
+              f"dryrun {dry['hlo_flops_per_dev']!r} (equal {flops_ok}); "
+              f"bytes/device card {ana['bytes']!r} vs dryrun "
+              f"{dry['hlo_bytes_per_dev']!r}; collectives card "
+              f"{ana['collective_counts']} vs dryrun "
+              f"{dry['collective_counts']} (equal {coll_ok}); arguments "
+              f"card {mem['mem_argument_size_in_bytes']} B vs dryrun "
+              f"{dry['mem_argument_size_in_bytes']} B, {alloc} B as the "
+              f"allocator counts them vs memory_allocated {held} B (equal "
+              f"{args_ok}); {kernel} launches {launches[kernel]} (want "
+              f"{want_launches}) {launches}; loss {loss:.5f}; ms/step "
+              f"{json.dumps([round(x, 3) for x in ms])}, median {med:.3f} vs "
+              f"max(terms) {roofline * 1e3:.3f} ms (x{med / (roofline * 1e3):.2f}"
+              f", dominant {dry['dominant_term']}); traced peak card "
+              f"{mem['mem_temp_size_in_bytes']} B, dryrun "
+              f"{dry['mem_temp_size_in_bytes']} B vs max_memory_allocated "
+              f"{peak} B above the arguments; dryrun traced in "
+              f"{dry['compile_s']} s [{card}]: "
+              f"{'ok' if run_ok else 'FAILED'}", flush=True)
+        del setup, state, metrics
+    finally:
+        MESH.shutdown()
+        _free()
+    return bool(run_ok)
+
+
+def phase_dryrun(data_dir: str, results: dict, card: str) -> bool:
+    """The dryrun, trace and dryrun sweep (``--only dryrun``): (a) the
+    three documents in child processes on the host, (b) the dryrun held
+    against the card meanwhile."""
+    out_dir = os.path.join(data_dir, "dryrun")
+    os.makedirs(out_dir)
+    procs = _dryrun_documents(out_dir)
+    ok = True
+    try:
+        for key in DRYRUN_CARD:
+            ok &= _dryrun_vs_card(key, results, card)
+    finally:
+        ok &= _dryrun_documents_check(procs, out_dir, card)
+    return bool(ok)
+
+
 def phase_engine_quickstart(out_dir: str) -> bool:
     """``examples/configs/serve_engine.yaml`` through the run API, unchanged
     but for ``run.output_dir`` (and so the bench file's directory): reduced
@@ -4216,8 +4541,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, mesh, sweep, engine (default: all); a "
-                         "partial run prints no result line")
+                         "posttrain, mesh, sweep, dryrun, engine (default: "
+                         "all); a partial run prints no result line")
     args = ap.parse_args()
     only = {p for p in args.only.split(",") if p}
 
@@ -4323,6 +4648,12 @@ def main() -> int:
             print(f"phase sweep: {'ok' if sweep_ok else 'FAILED'}",
                   flush=True)
             ok &= sweep_ok
+        if want("dryrun"):
+            t0 = time.perf_counter()
+            dry_ok = phase_dryrun(data_dir, results, card)
+            print(f"phase dryrun: {'ok' if dry_ok else 'FAILED'} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            ok &= dry_ok
         if want("engine"):
             engine_ok = phase_engine_quickstart(data_dir)
             print(f"phase engine quickstart: "

@@ -12,8 +12,10 @@ and ``dataset/preference_synthetic``, ``tokenizer/byte`` and
 ``evaluator/perplexity``, ``tracker/stdout`` and ``tracker/jsonl``,
 ``sink/*``, ``checkpointer/async`` and ``checkpointer/sync``,
 ``fault_injector/schedule``, ``gym/standard``, the mesh providers
-``mesh_provider/{single_device,local,production,split}`` and every catalog
-``sharding_plan`` plus ``sharding_plan/custom``.  The names and settings
+``mesh_provider/{single_device,local,production,split}``, every catalog
+``sharding_plan`` plus ``sharding_plan/custom``, and the dryrun's
+``shape/<name>`` for every input shape plus ``shape/custom`` and
+``precision/policy``.  The names and settings
 match ``repro.core.components``, so a run YAML of the JAX package
 resolves here unchanged; a local mesh with a pipe axis (``pp > 1``) is
 ROADMAP A8b and fails ``validate`` naming it.  Each component key
@@ -205,6 +207,33 @@ def _register_parallelism() -> None:
     REG.register("mesh_provider", "local", local)
     REG.register("mesh_provider", "production", MESH.ProductionMesh)
     REG.register("mesh_provider", "split", MESH.SplitMesh)
+    _register_dryrun()
+
+
+def _register_dryrun() -> None:
+    """The dryrun's input shapes and precision policy (JAX's
+    ``:103-110``)."""
+    from ..configs.shapes import SHAPES, InputShape
+    from ..launch.specs import PrecisionPolicy
+
+    for name in SHAPES:
+        REG.register("shape", name, (lambda n: (lambda: SHAPES[n]))(name),
+                     InputShape)
+    REG.register("shape", "custom", _custom_shape, InputShape)
+    REG.register("precision", "policy",
+                 lambda bf16_params=False, serve_bf16=False:
+                 PrecisionPolicy(bf16_params=bf16_params,
+                                 serve_bf16=serve_bf16),
+                 PrecisionPolicy)
+
+
+def _custom_shape(seq_len: int, global_batch: int, kind: str,
+                  name: str = "custom"):
+    from ..configs.shapes import InputShape
+
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"shape kind must be train|prefill|decode, got {kind!r}")
+    return InputShape(name, int(seq_len), int(global_batch), kind)
 
 
 def _pipe_axis_refusal(config: Dict[str, Any]) -> str:

@@ -18,6 +18,12 @@ import torch
 PEAK_FLOPS_BF16 = 989.4e12
 #: the same card's HBM3 bandwidth in bytes/s (data sheet)
 HBM_BYTES_S = 3.35e12
+#: the same card's NVLink 4 bandwidth in bytes/s, one direction (the data
+#: sheet's 900 GB/s counts both).  The dryrun's collective term divides
+#: every collective's bytes by it, as if every collective crossed NVLink:
+#: optimistic for a mesh axis wider than a node's 8 cards (the production
+#: mesh's 16-wide ``model`` axis), whose hops cross the network
+NVLINK_BYTES_S = 450e9
 
 
 class NoDeviceError(RuntimeError):

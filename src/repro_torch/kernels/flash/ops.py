@@ -15,12 +15,21 @@ Differentiable on every device: ``flash_attention`` always goes through
 through ``ref.attention_ref``, as JAX's ``custom_vjp`` does
 (``repro.kernels.flash.ops._bwd``): no score tensor is kept between the
 passes, and the CPU tests run the same backward as the card.
+
+The forward is the custom op ``repro_torch::flash_fwd``: the kernel for
+CUDA tensors, the plain version for CPU tensors, and for ``meta`` (and
+fake) tensors its fake implementation, which makes the output's shape,
+dtype and device and launches nothing — how a dryrun traces a step with no
+card.  Its FLOP formula (:func:`flash_fwd_flops`) is what the dryrun's
+counter (``repro_torch.launch.hlo_analysis``) charges a call, on ``meta``
+and on the card alike.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..build import load, refuse_dtensor
 from .ref import attention_ref
@@ -91,6 +100,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _FlashAttention.apply(q, k, v, bool(causal), int(window))
 
 
+def flash_fwd_flops(q_shape, k_shape, causal: bool = True,
+                    window: int = 0) -> int:
+    """The FLOPs of one forward at these shapes: the matmuls of the plain
+    version, ``attention_ref`` (q·kᵀ and p·v over every (query, key) pair,
+    2·B·H·Sq·Skv·dh each).  The kernel skips the key tiles that the causal
+    or window mask empties entirely; that saving is not modelled, as JAX's
+    dryrun counts its plain path's dots (``causal`` and ``window`` are
+    taken for the signature)."""
+    B, Sq, H, dh = q_shape
+    Skv = k_shape[1]
+    return 4 * B * H * Sq * Skv * dh
+
+
 class _FlashAttention(torch.autograd.Function):
     """Kernel forward; backward = vjp of ``attention_ref`` (recomputed)."""
 
@@ -98,7 +120,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _forward(q, k, v, causal, window)
+        return torch.ops.repro_torch.flash_fwd(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, g):
@@ -113,7 +135,9 @@ class _FlashAttention(torch.autograd.Function):
                      for t in ins) + (None, None)
 
 
-def _forward(q, k, v, causal, window):
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: int) -> torch.Tensor:
     """The forward on checked inputs: the kernel for CUDA tensors, the plain
     version for tensors on the CPU."""
     if q.device.type == "cpu":
@@ -138,3 +162,14 @@ def _forward(q, k, v, causal, window):
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+@_forward.register_fake
+def _forward_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_flop_formula(q_shape, k_shape, v_shape, causal, window, *args,
+                        **kwargs) -> int:
+    return flash_fwd_flops(q_shape, k_shape, causal, window)

@@ -21,12 +21,22 @@ plain version on the CPU) and whose backward recomputes the gradients of x,
 dt, A, Bm, Cm and D through ``ssd_chunked``, as JAX's ``custom_vjp`` does
 (``repro.kernels.ssd.ops._bwd``).  ``h_final`` is marked
 non-differentiable: JAX's ``ssd`` returns y only.
+
+The forward is the custom op ``repro_torch::ssd_scan``: the kernel for CUDA
+tensors, ``ssd_chunked`` for CPU tensors, and for ``meta`` (and fake)
+tensors its fake implementation, which makes ``(y, h_final)``'s shapes,
+dtypes and device and launches nothing — how a dryrun traces a step with
+no card.  Its FLOP formula (:func:`ssd_scan_flops`) is what the dryrun's
+counter (``repro_torch.launch.hlo_analysis``) charges a call, on ``meta``
+and on the card alike.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..build import load, refuse_dtensor
 from .ref import ssd_chunked
@@ -102,6 +112,18 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     return _SSDScan.apply(x, dt, A, Bm, Cm, D, int(chunk))
 
 
+def ssd_scan_flops(x_shape, b_shape, chunk: int) -> int:
+    """The FLOPs of one forward at these shapes: the four contractions of
+    the plain version, ``ssd_chunked``, in each of its ``S / chunk``
+    chunks (C·Bᵀ, the intra-chunk product, the inter-chunk read of the
+    carried state and the state update), 2·M·N·K each."""
+    Bq, S, H, P = x_shape
+    G, N = b_shape[2], b_shape[3]
+    Q = chunk
+    per_chunk = G * Q * Q * N + H * Q * Q * P + 2 * H * Q * P * N
+    return 2 * Bq * (S // Q) * per_chunk
+
+
 class _SSDScan(torch.autograd.Function):
     """Kernel forward; backward = vjp of ``ssd_chunked``'s y (recomputed)."""
 
@@ -109,7 +131,8 @@ class _SSDScan(torch.autograd.Function):
     def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
         ctx.save_for_backward(x, dt, A, Bm, Cm, D)
         ctx.chunk = chunk
-        y, h_final = _forward(x, dt, A, Bm, Cm, D, chunk)
+        y, h_final = torch.ops.repro_torch.ssd_scan(x, dt, A, Bm, Cm, D,
+                                                    chunk)
         ctx.mark_non_differentiable(h_final)
         return y, h_final
 
@@ -125,7 +148,10 @@ class _SSDScan(torch.autograd.Function):
                      for t in ins) + (None,)
 
 
-def _forward(x, dt, A, Bm, Cm, D, chunk):
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward on checked inputs: the kernel for CUDA tensors, the plain
     version for tensors on the CPU."""
     if x.device.type == "cpu":
@@ -166,3 +192,17 @@ def _forward(x, dt, A, Bm, Cm, D, chunk):
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     launches += 1
     return y, h_final
+
+
+@_forward.register_fake
+def _forward_fake(x, dt, A, Bm, Cm, D, chunk):
+    Bq, S, H, P = x.shape
+    N = Bm.shape[3]
+    return (x.new_empty((Bq, S, H, P)),
+            x.new_empty((Bq, H, P, N), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_flop_formula(x_shape, dt_shape, a_shape, b_shape, c_shape, d_shape,
+                      chunk, *args, **kwargs) -> int:
+    return ssd_scan_flops(x_shape, b_shape, chunk)

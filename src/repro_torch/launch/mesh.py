@@ -12,7 +12,9 @@ group when none exists.  Under ``torchrun`` (``WORLD_SIZE`` set) it comes
 from the environment, NCCL on ``cuda`` and gloo on ``cpu``; a one-device
 mesh with no ``WORLD_SIZE`` starts a one-rank group itself, on a
 ``FileStore`` in a temporary directory (how one card runs a plan).
-:func:`shutdown` destroys a group this module started.
+:func:`shutdown` destroys a group this module started.  A dryrun builds
+its mesh inside :func:`fake_world`: a one-process group of the mesh's size
+that moves no data, where JAX forces 512 host devices.
 
 Functions, not module-level constants: importing this module touches no
 device and no process group.  The card's constants are in
@@ -20,6 +22,7 @@ device and no process group.  The card's constants are in
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
@@ -94,6 +97,41 @@ def shutdown() -> None:
     _OWN_GROUP = None
 
 
+#: the device type of a fake world's meshes: the card's, so that DTensor
+#: picks the collectives it picks over NCCL (over a ``cpu`` mesh it trades
+#: each all-to-all for an all-gather, gloo having none)
+FAKE_DEVICE_TYPE = "cuda"
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """The default process group as ``n`` ranks in this one process, over
+    the ``fake`` backend, which moves no data: meshes of ``n`` devices
+    build on it, and DTensor ops on ``meta`` blocks run as rank 0 runs
+    them (JAX's ``--xla_force_host_platform_device_count``).  A one-rank
+    group this module started is destroyed first; any other group (a
+    launcher's) refuses.  The group is destroyed on exit.
+
+    The store is ``FakeStore`` from ``torch.testing._internal``, a private
+    PyTorch API (the test suite's own fake process group), which may move
+    between PyTorch versions."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if _OWN_GROUP is None:
+            raise RuntimeError(
+                f"a fake world of {n} ranks needs this process to itself, "
+                f"but a process group of {dist.get_world_size()} ranks is "
+                f"up (a launcher's); run the dryrun in a single process")
+        shutdown()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type,
           what: str):
     from torch.distributed.device_mesh import init_device_mesh
@@ -143,9 +181,11 @@ def make_split_mesh(dp: int, tp: int, device_type=None):
 class MeshProvider:
     """Base provider: lazy, cached mesh construction.  ``build`` takes the
     device type the run is on (the gym passes its device's); None is the
-    card."""
+    card.  ``n_devices`` is the size of the mesh it builds (0: none), the
+    world a dryrun fakes for it."""
 
     _UNSET = object()
+    n_devices = 0
 
     def __init__(self) -> None:
         self._mesh = self._UNSET
@@ -170,6 +210,7 @@ class LocalMesh(MeshProvider):
     def __init__(self, dp: int = 1, tp: int = 1, pp: int = 1) -> None:
         super().__init__()
         self.dp, self.tp, self.pp = int(dp), int(tp), int(pp)
+        self.n_devices = self.dp * self.tp * self.pp
 
     def _make(self, device_type):
         return make_local_mesh(self.dp, self.tp, self.pp,
@@ -180,6 +221,7 @@ class ProductionMesh(MeshProvider):
     def __init__(self, multi_pod: bool = False) -> None:
         super().__init__()
         self.multi_pod = bool(multi_pod)
+        self.n_devices = 512 if self.multi_pod else 256
 
     def _make(self, device_type):
         return make_production_mesh(multi_pod=self.multi_pod,
@@ -190,6 +232,7 @@ class SplitMesh(MeshProvider):
     def __init__(self, dp: int, tp: int) -> None:
         super().__init__()
         self.dp, self.tp = int(dp), int(tp)
+        self.n_devices = self.dp * self.tp
 
     def _make(self, device_type):
         return make_split_mesh(self.dp, self.tp, device_type=device_type)

@@ -174,7 +174,10 @@ def constrain(x, mesh_ctx: Optional[MeshContext], *rest):
     ``rest`` entries are mesh-axis names (or None) for the remaining dims;
     entries are dropped when the dim isn't divisible.  No-op without a
     mesh.  A partial sum (a contraction over a sharded dim) is reduced
-    here, where JAX's constraint makes XLA reduce it.
+    here, where JAX's constraint makes XLA reduce it.  The gradient is laid
+    out the same way in the backward, as JAX's constraint constrains the
+    cotangent: DTensor alone would carry a partial-sum gradient on into
+    the layer below, which then gathers its weights rather than reduce it.
     """
     if mesh_ctx is None or mesh_ctx.mesh is None:
         return x
@@ -190,8 +193,25 @@ def constrain(x, mesh_ctx: Optional[MeshContext], *rest):
         size = mesh_ctx.axis_size(ax)
         if x.shape[i] % size == 0 and x.shape[i] >= size:
             spec[i] = ax
-    return x.redistribute(mesh_ctx.mesh,
-                          spec_placements(mesh_ctx.mesh, P(*spec)))
+    placements = spec_placements(mesh_ctx.mesh, P(*spec))
+    return _ConstrainGrad.apply(x.redistribute(mesh_ctx.mesh, placements),
+                                tuple(placements))
+
+
+class _ConstrainGrad(torch.autograd.Function):
+    """Identity forward; the backward lays the gradient out like the
+    forward's output (``constrain``)."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.mesh, ctx.placements = t.device_mesh, placements
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None
 
 
 def gather_fsdp(tree, mesh_ctx: Optional[MeshContext]):

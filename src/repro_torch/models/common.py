@@ -156,8 +156,9 @@ def sharded_cross_entropy(logits, labels, mask=None):
     """Mean token NLL in f32. logits [B,S,V], labels [B,S], mask [B,S].
 
     JAX takes the gold logit with a one-hot einsum, which stays a partial sum
-    over a vocab-sharded logits tensor under SPMD.  So does the port where
-    the vocab dim is actually sharded (a DTensor split over a mesh dim of
+    over a vocab-sharded logits tensor under SPMD, and XLA reduces the
+    log-sum-exp over the shards.  So does the port where the vocab dim is
+    actually sharded (a DTensor split over a mesh dim of
     size > 1): the one-hot is the labels compared with a vocab index
     sharded like the logits, and its sum over the vocab a partial sum per
     rank.  Elsewhere that one-hot would be an f32 ``[B, S, V]`` tensor of
@@ -170,7 +171,12 @@ def sharded_cross_entropy(logits, labels, mask=None):
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
+    # logsumexp as max + log-sum-exp of the shifted logits: DTensor reduces
+    # the max and the sum over the vocab shards as partials (one small
+    # all-reduce each), where ``torch.logsumexp`` would gather the whole
+    # vocab onto every rank
+    m = lf.detach().amax(dim=-1)
+    logz = m + torch.log(torch.exp(lf - m[..., None]).sum(dim=-1))
     vocab = [Shard(0) if isinstance(p, Shard) and p.dim % 3 == 2
              else Replicate() for p in logits.placements]
     index = distribute_tensor(torch.arange(logits.shape[-1], device=lf.device),

@@ -108,16 +108,15 @@ def ssm_forward(cfg: B.ArchConfig, p, x, return_state: bool = False):
     """
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
     if B.is_dtensor(zxbcdt):
-        y = _local_mixer(cfg, p, zxbcdt)
+        y, conv_raw, h_final = _local_mixer(cfg, p, zxbcdt, return_state)
     else:
         y, xBC_raw, h_final = _mixer(cfg, zxbcdt, p["conv_w"], p["conv_b"],
                                      p["dt_bias"], p["A_log"], p["D"],
                                      p["norm"])
+        conv_raw = xBC_raw[:, -(cfg.ssm.d_conv - 1):, :]
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
     if return_state:
-        w = cfg.ssm.d_conv - 1
-        conv_state = xBC_raw[:, -w:, :].float()
-        return out, {"conv": conv_state, "ssm": h_final}
+        return out, {"conv": conv_raw.float(), "ssm": h_final}
     return out
 
 
@@ -144,13 +143,15 @@ def _mixer(cfg, zxbcdt, conv_w, conv_b, dt_bias, A_log, D, norm):
     return rmsnorm(y * F.silu(z), norm, cfg.norm_eps), xBC_raw, h_final
 
 
-def _local_mixer(cfg, p, zxbcdt):
+def _local_mixer(cfg, p, zxbcdt, return_state: bool = False):
     """:func:`_mixer` on each rank's local batch rows (``B.local_call``),
     the same ops as on one device: the projection's output is gathered over
     every mesh dim but the batch's (the split's cut points do not fall on
     its TP shards, so DTensor's split would gather it too), and the mixer's
     params are replicated.  Each rank reads them for its own rows, so their
-    gradients are partial sums over the batch's mesh dims."""
+    gradients are partial sums over the batch's mesh dims.  Returns (the
+    mixer's output, then with ``return_state`` the conv's last ``d_conv -
+    1`` inputs and the scan's final state, else None twice)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     rows = [isinstance(q, Shard) and q.dim == 0 for q in zxbcdt.placements]
@@ -159,12 +160,17 @@ def _local_mixer(cfg, p, zxbcdt):
     par = [Partial() if r else Replicate() for r in rows]
     names = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
 
-    def mixer(zx, *params):
-        return _mixer(cfg, zx, *params)[0]
+    w = cfg.ssm.d_conv - 1
 
-    return B.local_call(mixer, (zxbcdt,) + tuple(p[k] for k in names),
-                        (act,) + (rep,) * len(names),
-                        (act,) + (par,) * len(names), act)
+    def mixer(zx, *params):
+        y, xbc, h_final = _mixer(cfg, zx, *params)
+        return (y, xbc[:, -w:, :], h_final) if return_state else y
+
+    out = B.local_call(mixer, (zxbcdt,) + tuple(p[k] for k in names),
+                       (act,) + (rep,) * len(names),
+                       (act,) + (par,) * len(names),
+                       (act, act, act) if return_state else act)
+    return out if return_state else (out, None, None)
 
 
 # ---------------------------------------------------------------------------

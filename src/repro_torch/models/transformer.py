@@ -146,9 +146,23 @@ def apply_block(cfg, kind, p, x, positions, mesh_ctx=None):
                                  apply_norm(cfg, p["norm"], x)), zero
     h = apply_norm(cfg, p["attn_norm"], x)
     attn = A.mla_forward if cfg.mla else A.gqa_forward
-    x = x + attn(cfg, p["attn"], h, positions)
+    x = _residual(x, attn(cfg, p["attn"], h, positions), mesh_ctx)
     h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx)
     return B.constrain(x + h, mesh_ctx), zero if aux is None else aux
+
+
+def _residual(x, h, mesh_ctx):
+    """``x + h`` after attention.  Under tensor parallelism ``h`` is a
+    partial sum over the ``model`` axis (the output projection contracts
+    the sharded heads), and DTensor would carry the sum as ``Partial``
+    through the norm's linear steps into the MLP, where it then gathers
+    the MLP's weights over ``model`` rather than reduce the activations:
+    every rank would run the whole MLP.  So the sum is reduced here, as
+    XLA reduces it before the norm (JAX constrains only the block's
+    ends)."""
+    if mesh_ctx is None or mesh_ctx.tp_axis is None:
+        return x + h
+    return B.constrain(x + h, mesh_ctx)
 
 
 def decode_block(cfg, kind, p, cache, x, positions):
@@ -217,8 +231,11 @@ def _pad_cache_seq(k, max_len, window):
     return out
 
 
-def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype):
-    """One layer of prefill; also returns its decode-ready cache."""
+def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype,
+                  mesh_ctx=None):
+    """One layer of prefill; also returns its decode-ready cache.  Under a
+    mesh the residual stream is laid out as in ``apply_block``."""
+    x = B.constrain(x, mesh_ctx)
     if kind == "ssm":
         h, st = S.ssm_forward(cfg, p["ssm"], apply_norm(cfg, p["norm"], x),
                               return_state=True)
@@ -238,9 +255,9 @@ def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype):
             "k": _pad_cache_seq(k.to(cache_dtype), max_len, cfg.window),
             "v": _pad_cache_seq(v.to(cache_dtype), max_len, cfg.window),
         }
-    x = x + h
-    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
-    return x + h, cache
+    x = _residual(x, h, mesh_ctx)
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx)
+    return B.constrain(x + h, mesh_ctx), cache
 
 
 def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
@@ -481,13 +498,28 @@ class DecoderLM(B.Model):
 
     # -- serving -------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16):
+    def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16,
+                mesh_ctx=None, storage_axes=()):
         """Run the full prompt, returning (last-token logits, decode cache).
         A VLM batch's patches come first: the cache then holds ``n_patches
-        + S`` rows, and decoding goes on at position ``n_patches + S``."""
+        + S`` rows, and decoding goes on at position ``n_patches + S``.
+
+        Under a mesh (``mesh_ctx``, the params and the batch DTensors laid
+        out by a sharding plan) the dense and ssm archs run as in
+        ``apply``: unstacked leaves gathered here, each layer's in the
+        loop.  ``storage_axes`` waits for expert parallelism (ROADMAP
+        A8b), as in ``apply``."""
         cfg = self.cfg
+        gather = None
+        if mesh_ctx is not None and mesh_ctx.mesh is not None:
+            refuse_mesh(cfg)
+            stacks = {name for name, _, _ in self._stacks()}
+            params = {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
+                      for k, v in params.items()}
+            gather = lambda lp: B.gather_fsdp(lp, mesh_ctx)  # noqa: E731
         x = self._with_patches(batch, self.embed_tokens(params,
                                                         batch["tokens"]))
+        x = B.constrain(x, mesh_ctx)
         S = x.shape[1]
         max_len = max_len or S
         positions = torch.arange(S, device=x.device)
@@ -499,11 +531,13 @@ class DecoderLM(B.Model):
         for name, kind, idxs in self._stacks():
 
             def body(x, lp, kind=kind):
+                if gather is not None:
+                    lp = gather(lp)
                 return prefill_block(cfg, kind, lp, x, positions, max_len,
-                                     cache_dtype)
+                                     cache_dtype, mesh_ctx)
 
             x, cache[name] = ST.layer_loop(body, params[name], x, len(idxs))
-        logits = self.logits(params, x[:, -1:])[:, 0]
+        logits = self.logits(params, x[:, -1:], mesh_ctx)[:, 0]
         return logits, cache
 
     def _prefill_hybrid(self, params, x, positions, max_len, cache_dtype):

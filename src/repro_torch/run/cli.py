@@ -6,6 +6,8 @@
   python -m repro_torch sft       --config run.yaml [--set ...] [--device ...]
   python -m repro_torch dpo       --config run.yaml [--set ...] [--device ...]
   python -m repro_torch bench     --config run.yaml [--set ...] [--device ...]
+  python -m repro_torch dryrun    --config run.yaml [--set ...] [--json out.json] [--device ...]
+  python -m repro_torch trace     --config run.yaml [--set ...] [--device ...]
   python -m repro_torch sweep     --config sweep.yaml [--list|--report-only|--redo|
                                   --max-trials N|--retry-failed|--output-dir D]
                                   [--set ...] [--device ...]
@@ -22,10 +24,13 @@ on the CPU), and rank 0 alone prints and writes the run's files.  Every run writ
 directory; ``replay`` re-executes such a directory (of either package).
 ``bench`` times the resolved gym's hot path and writes
 ``BENCH_<name>.json`` into the run's output directory (never the JAX
-package's tracked files at the repo root).  ``sweep`` runs (or resumes) a
-declarative ablation, every trial on the sweep's device, and ranks the
-trials in ``report.txt``; ``--list`` only expands the trials (a ``dryrun``
-sweep too, whose backend the port refuses when it runs).
+package's tracked files at the repo root).  ``dryrun`` traces one step of
+the document's arch, shape, mesh and plan on a fake world of the mesh's
+size (no card is touched) and prints JAX's result keys (``--json`` also
+writes them); ``trace`` prints its collective schedule.  ``sweep`` runs
+(or resumes) a declarative ablation, every trial on the sweep's device (a
+``dryrun`` sweep's trials each on a fake world), and ranks the trials in
+``report.txt``; ``--list`` only expands the trials.
 ``validate`` checks documents without building anything: ``ok`` for a
 document the port runs, ``skip`` (naming the ROADMAP item) for one of a
 later slice, ``FAIL`` for a broken one (exit 1).  A train run stopped by
@@ -72,6 +77,13 @@ def build_parser() -> argparse.ArgumentParser:
                      "continuous-batching engine / static-batch shim")
     _add_kind_parser(sub, "bench",
                      "hot-path timing: first step, steady ms/step, tok/s")
+    d = _add_kind_parser(sub, "dryrun",
+                         "per-device cost of one step traced on a fake "
+                         "world (the roofline terms)")
+    d.add_argument("--json", default="",
+                   help="also write the result JSON here")
+    _add_kind_parser(sub, "trace",
+                     "the collective schedule of one traced step")
     s = _add_kind_parser(sub, "sweep", "run a declarative ablation sweep")
     s.add_argument("--output-dir", default="",
                    help="override the spec's sweep directory")
@@ -116,6 +128,16 @@ def _print_result(kind: str, result) -> None:
     elif kind == "bench":
         print(f"bench artifact: {result.get('bench_file', '(disabled)')}",
               flush=True)
+    elif kind in ("dryrun", "trace"):
+        if "skipped" in result:
+            print(f"skipped: {result['arch']} x {result['shape']}: "
+                  f"{result['skipped']}", flush=True)
+        else:
+            print(f"done: {result['arch']} x {result['shape']} on "
+                  f"{result['mesh']} ({result['plan']}): "
+                  f"{result['hlo_flops_per_dev']:.4e} flops/device, "
+                  f"dominant {result['dominant_term']}, traced in "
+                  f"{result['compile_s']}s", flush=True)
     elif "bench_file" in result:
         print(f"done: {result['completed']}/{result['n_requests']} requests, "
               f"{result['tok_s']} tok/s, decode {result['decode_tok_s']} "
@@ -176,8 +198,7 @@ def _cmd_sweep(args) -> int:
     from ..sweep.runner import SweepRunner
     from . import api
 
-    # a refused backend (dryrun) or a missing card stops here, before the
-    # run writes its artifacts
+    # a missing card stops here, before the run writes its artifacts
     SweepRunner(build_sweep_spec(cfg, args.output_dir),
                 device=args.device).backend()
     options = {"redo": args.redo, "max_trials": args.max_trials,
@@ -225,13 +246,10 @@ def validate_path(path: str) -> str:
     cfg = parse_run_doc(doc, default_name=stem,
                         config_dir=os.path.dirname(os.path.abspath(path)))
     if cfg.kind == "sweep":
-        from ..sweep.runner import DRYRUN_NOT_PORTED
         from ..sweep.spec import SweepSpec
 
         spec = SweepSpec.from_dict(cfg.settings, config_dir=cfg.config_dir)
         n = len(spec.trials())
-        if spec.backend == "dryrun":
-            raise NotImplementedError(DRYRUN_NOT_PORTED)
         if isinstance(spec.base, dict) \
                 and ("gym" in spec.base or "run" in spec.base):
             validate_config({k: v for k, v in spec.base.items()
@@ -249,8 +267,7 @@ def _cmd_validate(paths: List[str]) -> int:
         try:
             info = validate_path(path)
         except NotImplementedError as e:
-            item = re.search(r"ROADMAP (A\d[\w.]*(?:'s dryrun half)?)",
-                             str(e))
+            item = re.search(r"ROADMAP (A\d[\w.]*)", str(e))
             print(f"skip {path} (not ported: ROADMAP "
                   f"{item.group(1) if item else '?'})")
             continue
@@ -292,7 +309,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.overrides.append(f"run.warmstart.source={args.source}")
     result = api.execute_file(args.config, kind=args.command,
                               overrides=args.overrides, device=args.device,
-                              write_result=True)
+                              write_result=True,
+                              options={"verbose": args.command == "dryrun"})
+    if args.command == "dryrun" and args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f, indent=2, default=str)
     from ..launch.mesh import process_rank, shutdown
 
     shutdown()   # a one-rank group the run's mesh started

@@ -1,5 +1,6 @@
 """Run documents of the port (the ``train``, ``warmstart``, ``serve``,
-``sft``, ``dpo``, ``bench`` and ``sweep`` kinds of ``repro.run.config``).
+``sft``, ``dpo``, ``bench``, ``dryrun``, ``trace`` and ``sweep`` kinds of
+``repro.run.config``).
 
 A run document is a YAML mapping with a ``run:`` header naming the kind and
 a per-kind settings section; everything else is the component graph the
@@ -13,16 +14,17 @@ continuous-batching engine over a seeded ``workload`` with per-request
 resolved gym like ``train``, optionally through LoRA adapters (``lora``),
 DPO against a frozen reference and with pairs sampled ``onpolicy``;
 ``bench`` times the resolved gym's hot path (``steps`` after ``warmup``,
-in ``windows``); ``sweep`` carries a sweep spec (``repro_torch.sweep``),
-free-form as in JAX.  The
+in ``windows``); ``dryrun`` and ``trace`` trace one step of the resolved
+``arch``, ``shape``, ``mesh``, ``plan`` and ``precision`` on a fake world
+(``grad_accum``; ``top`` rows of the schedule); ``sweep`` carries a
+sweep spec (``repro_torch.sweep``), free-form as in JAX.  The
 ``resilience`` block of the train-shaped kinds (sentinel, rollback,
 preemption, checkpoint retries, faults) and ``telemetry.profile`` (the
 profiler window) are JAX's grammar, with JAX's error messages.  A
 document without a ``run:`` section is a ``train`` run when it has a
-``gym`` and a sweep when it has a sweep spec, as in JAX.  The
-JAX package's other kinds and settings are recognised and refused with the
-slice that will bring them, so a document never runs with settings
-ignored.  A new kind is a settings schema (:func:`register_run_settings`)
+``gym`` and a sweep when it has a sweep spec, as in JAX.  Settings of
+a later slice are recognised and refused naming it, so a document never
+runs with settings ignored.  A new kind is a settings schema (:func:`register_run_settings`)
 plus an executor, registered together by
 :func:`repro_torch.run.kinds.register_run_kind`.
 """
@@ -31,15 +33,6 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any, Dict, Optional, Type
-
-
-#: the JAX package's other run kinds, and the slice of the port that brings
-#: each: they compile on a mesh of placeholder devices under a sharding
-#: plan, so they come after the parallelism slice
-DRYRUN_HALF = ("dryrun and trace come with ROADMAP A9b's dryrun half, after "
-               "the parallelism slice (ROADMAP A8): their documents name "
-               "meshes and sharding plans")
-OTHER_KINDS = {"dryrun": DRYRUN_HALF, "trace": DRYRUN_HALF}
 
 
 class RunError(Exception):
@@ -618,11 +611,36 @@ class RunConfig:
                                   # source, replay)
 
 
+@dataclasses.dataclass
+class DryrunSettings:
+    """``run.dryrun``: the per-device cost of one traced step of the
+    resolved components, on a fake world of the mesh's size.
+
+    Graph entries: ``arch`` (arch_config, required), ``shape`` (required),
+    ``mesh`` (mesh_provider, default production), ``plan`` (sharding_plan,
+    default per-arch), ``precision`` (precision policy, optional).
+    """
+
+    grad_accum: int = 1
+
+
+@dataclasses.dataclass
+class TraceSettings:
+    """``run.trace``: the collective schedule of one traced step.
+
+    Graph entries: same as ``dryrun``.
+    """
+
+    top: int = 20
+    grad_accum: int = 1
+
+
 #: kind -> settings dataclass (None => a free-form mapping)
 SETTINGS_SCHEMAS: Dict[str, Optional[Type]] = {
     "train": TrainSettings, "warmstart": WarmstartKindSettings,
     "serve": ServeSettings, "sft": SFTSettings, "dpo": DPOSettings,
-    "bench": BenchSettings, "sweep": None}
+    "bench": BenchSettings, "dryrun": DryrunSettings, "trace": TraceSettings,
+    "sweep": None}
 
 KINDS = tuple(SETTINGS_SCHEMAS)
 
@@ -685,9 +703,6 @@ def parse_run_doc(doc: Dict[str, Any], *, kind: Optional[str] = None,
     if kind is not None and doc_kind != kind:
         raise RunError(f"document declares kind {doc_kind!r} but was "
                        f"launched as {kind!r}")
-    if doc_kind in OTHER_KINDS and doc_kind not in SETTINGS_SCHEMAS:
-        raise NotImplementedError(f"run kind {doc_kind!r}: "
-                                  f"{OTHER_KINDS[doc_kind]}")
     if doc_kind not in SETTINGS_SCHEMAS:
         raise RunError(f"unknown run kind {doc_kind!r}; the port runs "
                        f"{sorted(SETTINGS_SCHEMAS)}")

@@ -1,6 +1,6 @@
 """The port's run kinds, registered as components (``run_kind`` key), as
 JAX's ``repro.run.kinds``: ``train``, ``warmstart``, ``sft``, ``dpo``,
-``bench``, ``serve`` and ``sweep``.
+``bench``, ``dryrun``, ``trace``, ``serve`` and ``sweep``.
 
 Each kind is a :class:`RunKind`: a settings schema plus an executor taking
 a :class:`repro_torch.run.api.RunContext` (JAX's, plus the ``device`` the
@@ -18,9 +18,10 @@ import time
 from typing import Any, Callable, Dict, Optional, Type
 
 from ..config.registry import DEFAULT_REGISTRY as REG
-from .config import (BenchSettings, DPOSettings, RunError, ServeSettings,
-                     SFTSettings, TrainSettings, WarmstartKindSettings,
-                     WarmstartSettings, register_run_settings)
+from .config import (BenchSettings, DPOSettings, DryrunSettings, RunError,
+                     ServeSettings, SFTSettings, TraceSettings, TrainSettings,
+                     WarmstartKindSettings, WarmstartSettings,
+                     register_run_settings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -789,6 +790,59 @@ def execute_bench(ctx) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# dryrun / trace
+# ---------------------------------------------------------------------------
+def _compile_components(ctx, grad_accum: int, keep_messages: bool,
+                        verbose: bool) -> Dict[str, Any]:
+    graph = _resolve_graph(ctx)
+    cfg = _graph_get(graph, "arch", ctx.cfg.kind)
+    shape = _graph_get(graph, "shape", ctx.cfg.kind)
+    provider = graph.get("mesh")
+    if provider is None:
+        provider = ctx.registry.build("mesh_provider", "production")
+    plan = graph.get("plan")
+    precision = graph.get("precision")
+    from ..launch.dryrun import compile_run
+
+    # the provider passes through un-built: compile_run builds the mesh,
+    # inside a fake world of its size, only once the skip check has passed
+    # (skipped combos start no process group)
+    return compile_run(
+        cfg, shape, provider, plan,
+        grad_accum=grad_accum,
+        bf16_params=bool(getattr(precision, "bf16_params", False)),
+        serve_bf16=bool(getattr(precision, "serve_bf16", False)),
+        keep_messages=keep_messages,
+        verbose=verbose,
+    )
+
+
+def execute_dryrun(ctx) -> Dict[str, Any]:
+    """One step of the resolved components traced on a fake world, with no
+    card (``repro_torch.launch.dryrun.compile_run``)."""
+    s: DryrunSettings = ctx.cfg.settings
+    return _compile_components(ctx, s.grad_accum, keep_messages=False,
+                               verbose=bool(ctx.options.get("verbose")))
+
+
+def execute_trace(ctx) -> Dict[str, Any]:
+    """The dryrun's collective schedule as a table (``schedule``)."""
+    s: TraceSettings = ctx.cfg.settings
+    res = _compile_components(ctx, s.grad_accum, keep_messages=True,
+                              verbose=False)
+    if "skipped" in res:
+        ctx.log(f"skipped: {res['skipped']}")
+        return res
+    from ..launch.trace import format_schedule
+
+    text = format_schedule(res, top=s.top)
+    ctx.log(text)
+    res.pop("messages", None)
+    res["schedule"] = text
+    return res
+
+
+# ---------------------------------------------------------------------------
 # sweep
 # ---------------------------------------------------------------------------
 def build_sweep_spec(cfg, output_dir_override: str = ""):
@@ -874,5 +928,7 @@ def register_builtin_kinds() -> None:
     register_run_kind("sft", SFTSettings, execute_sft)
     register_run_kind("dpo", DPOSettings, execute_dpo)
     register_run_kind("bench", BenchSettings, execute_bench)
+    register_run_kind("dryrun", DryrunSettings, execute_dryrun)
+    register_run_kind("trace", TraceSettings, execute_trace)
     register_run_kind("serve", ServeSettings, execute_serve)
     register_run_kind("sweep", None, execute_sweep)

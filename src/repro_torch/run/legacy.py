@@ -5,8 +5,6 @@ Used by the ``repro_torch.launch.*`` deprecation shims and by the sweep
 backends so that pre-Run-API sweep specs (flat ``{arch, shape, plan_name,
 ...}`` dryrun bases, bare gym graphs) keep working — every path still
 resolves through the config graph and materializes a replayable artifact.
-The dryrun converters only build the document: the port runs no ``dryrun``
-kind before ROADMAP A9b's dryrun half.
 """
 from __future__ import annotations
 
@@ -127,10 +125,9 @@ def legacy_train_doc(raw_graph: Dict[str, Any], *,
         settings["resume"] = resume if isinstance(resume, str) else bool(resume)
     run_sec["kind"] = kind
     run_sec[kind] = settings
-    from .config import OTHER_KINDS, SETTINGS_SCHEMAS
+    from .config import SETTINGS_SCHEMAS
 
-    # drop foreign sections (JAX's kinds the port does not run yet too)
-    for other in (set(SETTINGS_SCHEMAS) | set(OTHER_KINDS)) - {kind}:
+    for other in set(SETTINGS_SCHEMAS) - {kind}:  # drop foreign sections
         run_sec.pop(other, None)
     if name:
         run_sec["name"] = name

@@ -5,8 +5,8 @@ A sweep is itself a declarative YAML document: a *base* config plus a set of
 *axes* (``grid`` / ``zip`` / ``list``) whose expansion deep-patches the base
 into concrete trial configs, optionally replicated across seeds.  The runner
 executes trials in one process through a pluggable backend (``gym`` trains
-on the device the sweep runs on; ``dryrun`` comes with ROADMAP A9b's dryrun
-half), persists one JSONL record per trial, and resumes by skipping trials
+on the device the sweep runs on; ``dryrun`` traces each trial's step on a
+fake world of its mesh's size), persists one JSONL record per trial, and resumes by skipping trials
 whose records already exist.  The report layer ranks completed trials by
 the sweep objective.  Trial ids, records and reports are the JAX package's.
 """

@@ -9,9 +9,8 @@ never goes on quietly on the CPU).  Every finished trial appends one JSON
 line to ``<output_dir>/records.jsonl``; a rerun of the same sweep loads
 that file first and skips every trial whose record already exists (failed
 trials are retried), so an interrupted campaign resumes where it stopped.
-The ``dryrun`` backend compiles on placeholder devices and comes with
-ROADMAP A9b's dryrun half, after A8: a sweep naming it stops before any
-record is written.
+The ``dryrun`` backend traces each trial's step on a fake world of its
+mesh's size (``repro_torch.launch.dryrun``), with no card.
 
 Failure records carry the exception class in a structured ``error_type``
 field plus a ``failure_kind`` transient/deterministic classification
@@ -119,17 +118,65 @@ def _gym_backend(spec: SweepSpec, device: Any = None
     return run
 
 
-#: the dryrun backend's refusal (its trials compile on a mesh of placeholder
-#: devices under a sharding plan)
-DRYRUN_NOT_PORTED = (
-    "sweep backend 'dryrun': compiling trials on placeholder devices comes "
-    "with ROADMAP A9b's dryrun half, after the parallelism slice (ROADMAP "
-    "A8): its documents name meshes and sharding plans")
+_DRYRUN_KEEP = (
+    "arch", "shape", "mesh", "plan", "chips", "dominant_term",
+    "compute_term_s", "memory_term_s", "collective_term_s",
+    "hlo_flops_per_dev", "hlo_bytes_per_dev", "collective_bytes_per_dev",
+    "collective_counts", "useful_flops_ratio", "n_params", "n_params_active",
+    "lower_s", "compile_s",
+)
 
 
-def _dryrun_backend(spec: SweepSpec) -> Callable[..., Dict[str, Any]]:
-    """Refused when the sweep starts, before any trial record is written."""
-    raise NotImplementedError(DRYRUN_NOT_PORTED)
+def _dryrun_backend(spec: SweepSpec, device: Any = None
+                    ) -> Callable[..., Dict[str, Any]]:
+    """Trace the trial's step on a fake world and report roofline terms.
+
+    The base config is either a full dryrun *run document* (``run:`` section
+    plus ``arch``/``shape``/``mesh``/``plan``/``precision`` component graph)
+    or the historic flat ``dryrun()`` kwarg mapping (``arch``, ``shape`` plus
+    any of ``plan_name``, ``scan_block``, ``multi_pod``, ...), which is
+    converted to a run document per trial; patch paths address whichever form
+    the base uses.  Each trial builds (and ends) its own fake world; the
+    card is never touched, but ``device`` resolves as for every run (the
+    card unless the caller asks for the CPU).
+    """
+    import copy
+
+    from ..device import resolve_device
+    from ..run import api as run_api
+    from ..run.legacy import legacy_dryrun_doc
+
+    device = resolve_device(device)
+
+    def run(raw: Dict[str, Any], trial: Optional[Trial] = None) -> Dict[str, Any]:
+        name, out_dir = _trial_location(spec, trial)
+        if "run" in raw:
+            doc = copy.deepcopy(raw)
+            run_sec = dict(doc.get("run") or {})
+            run_sec["kind"] = "dryrun"
+            if name:
+                run_sec["name"] = name
+            if out_dir:
+                run_sec["output_dir"] = out_dir
+            doc["run"] = run_sec
+        else:
+            doc = legacy_dryrun_doc(raw, name=name)
+            if out_dir:
+                doc["run"]["output_dir"] = out_dir
+        res = run_api.execute_doc(doc, device=device,
+                                  write_result=bool(out_dir),
+                                  log=lambda msg: None)
+        if "skipped" in res:
+            return {"skipped": res["skipped"]}
+        metrics = {k: res[k] for k in _DRYRUN_KEEP if k in res}
+        metrics["roofline_step_s"] = max(
+            res["compute_term_s"], res["memory_term_s"],
+            res["collective_term_s"],
+        )
+        return metrics
+
+    run.accepts_trial = True
+    return run
 
 
 BACKENDS: Dict[str, Callable[[SweepSpec], Callable]] = {
@@ -157,8 +204,8 @@ class SweepRunner:
         self.device = device
 
     def backend(self) -> Callable:
-        """The spec's backend: a refused backend (``dryrun``) or a missing
-        card raises here, before the runner writes a file."""
+        """The spec's backend: a missing card raises here, before the
+        runner writes a file."""
         factory = BACKENDS[self.spec.backend]
         params = inspect.signature(factory).parameters
         return factory(self.spec, **({"device": self.device}

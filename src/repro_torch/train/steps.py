@@ -1,4 +1,4 @@
-"""Step functions: train, serve and the engine tick (port of
+"""Step functions: train, prefill, serve and the engine tick (port of
 ``repro.train.steps``).
 
 JAX jits these and donates the state; PyTorch runs them eagerly.  The train
@@ -179,6 +179,18 @@ def init_train_state(model, optimizer, gen: torch.Generator, param_dtype=None):
                           if p.dtype == torch.float32 else p, params)
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+
+
+def make_prefill_step(model, mesh_ctx=None, storage_axes=()):
+    """``prefill_step(params, batch) -> (last-token logits, cache)``: the
+    model's prefill, under a mesh on the plan's DTensors (what a dryrun
+    traces for a prefill shape)."""
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, mesh_ctx=mesh_ctx,
+                             storage_axes=storage_axes)
+
+    return prefill_step
 
 
 def make_serve_step(model):

@@ -95,8 +95,10 @@ def test_serve_document_parses_and_engine_mode_is_refused():
     with pytest.raises(RunError):
         parse_run_doc(apply_overrides(engine_doc, parse_overrides(
             ["run.serve.sampling.top_p=0.0"])))
-    with pytest.raises(NotImplementedError, match="A9"):
-        parse_run_doc({"run": {"kind": "dryrun"}})
+    # the dryrun kind is ported: its document parses to JAX's settings
+    dry = {"run": {"kind": "dryrun"}}
+    assert dataclasses.asdict(parse_run_doc(dry).settings) == \
+        dataclasses.asdict(jax_parse_run_doc(dry).settings)
 
 
 def test_custom_arch_config_resolves_as_in_jax():

@@ -54,6 +54,19 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 ENGINE_YAML = os.path.join(ROOT, "examples", "configs", "serve_engine.yaml")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are reduced: their ops are far too small to split
+    across threads, and under the suite's parallel workers, which share the
+    host's cores, torch's default of one thread per core leaves each op
+    waiting on descheduled threads.  One thread for this module, restored
+    after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def qwen():
     """Reduced Qwen in both packages on the same params (JAX's init, with

@@ -975,3 +975,44 @@ def test_fsdp_tp_step_through_flash_equals_the_no_mesh_step(cuda):
             assert torch.equal(a.full_tensor(), b)
     finally:
         MESH.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "mamba2_780m"])
+def test_card_step_counts_what_its_dryrun_counts(cuda, arch):
+    """One reduced train step on the card under the dryrun's counter (a
+    ``(1, 1)`` mesh over a one-rank NCCL group, ``ddp``), through
+    ``flash_fwd`` or ``ssd_scan``: its FLOPs, bytes, collectives and
+    argument bytes ``==`` the dryrun of the same step on a fake world, and
+    the kernel launches once a layer, forward and remat recompute."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.models import build_model
+    from repro_torch.sharding import plans as PL
+
+    cfg = get_reduced(arch).with_(use_flash_kernel=arch.startswith("qwen"))
+    shape = InputShape("card", 128, 2, "train")
+    plan = PL.make_plan("ddp")
+    dry = DR.compile_run(cfg, shape, MESH.LocalMesh(1, 1), plan)
+    counter = ops if cfg.use_flash_kernel else ssd_ops
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        setup = DR.build_step(build_model(cfg), shape, mesh, plan,
+                              device=cuda)
+        before = counter.launches
+        with CostCounter(arguments=setup.args) as c:
+            out = setup.fn(*setup.args)
+            torch.cuda.synchronize()
+        ana, mem = c.analyze(), c.memory(setup.args, out)
+    finally:
+        MESH.shutdown()
+    assert counter.launches - before == 2 * cfg.n_layers
+    assert ana["flops"] == dry["hlo_flops_per_dev"]
+    assert ana["bytes"] == dry["hlo_bytes_per_dev"]
+    assert ana["collective_counts"] == dry["collective_counts"]
+    assert mem["mem_argument_size_in_bytes"] == \
+        dry["mem_argument_size_in_bytes"]
+    assert torch.isfinite(out[1]["loss"])

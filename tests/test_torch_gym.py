@@ -48,6 +48,19 @@ CURVE_TOL = 2e-3
 EVAL_TOL = 3e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The models here are reduced: their ops are far too small to split
+    across threads, and under the suite's parallel workers, which share the
+    host's cores, torch's default of one thread per core leaves each op
+    waiting on descheduled threads.  One thread for this module, restored
+    after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _quiet(_msg):
     pass
 
@@ -234,9 +247,11 @@ def test_train_without_device_needs_a_card(tmp_path):
 
 
 REFUSED = [
-    ("run={kind: dryrun}", "A9"),
-    ("run.kind=dryrun", "A9"),
-    ("run.kind=trace", "A9"),
+    # dryrun and trace are ported: a train document relabelled as either
+    # fails as in JAX, for want of a shape, or for its train settings
+    ("run={kind: dryrun}", "^dryrun run needs a top-level 'shape' entry"),
+    ("run.kind=dryrun", "^run section has unknown keys \\['train'\\]"),
+    ("run.kind=trace", "^run section has unknown keys \\['train'\\]"),
     # sweeps are ported: this document now parses as a sweep, whose body
     # (a train graph) is no sweep spec (see the test)
     ("run.kind=sweep", "^sweep$"),

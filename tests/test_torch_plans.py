@@ -240,8 +240,8 @@ def test_mesh_context_and_pipeline_info_equal_jax(mesh_key):
 
 
 def test_inline_plan_mapping_normalizes_as_jax():
-    """``tests/test_parallel_plans.py``'s documents, as train documents
-    (the port has no dryrun kind yet): the same graph in both."""
+    """``tests/test_parallel_plans.py``'s documents, as train documents:
+    the same graph in both."""
     for doc in (
             {"run": {"kind": "train", "name": "t"},
              "plan": {"tp": True, "pp": 2, "fsdp_axes": ["data"]},

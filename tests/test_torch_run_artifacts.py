@@ -33,10 +33,8 @@ from repro_torch.run.overrides import apply_overrides, parse_overrides
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CONFIGS = os.path.join(ROOT, "examples", "configs")
 PORTED = ["quickstart", "serve", "serve_engine", "warmstart", "sft", "dpo",
-          "bench", "lr_sweep"]
-NOT_PORTED = {"ablation_dryrun": "A9b's dryrun half",
-              "dryrun": "A9b's dryrun half", "trace": "A9b's dryrun half",
-              "train_pp": "A8b"}
+          "bench", "lr_sweep", "ablation_dryrun", "dryrun", "trace"]
+NOT_PORTED = {"train_pp": "A8b"}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -213,6 +213,7 @@ def _component_kwargs(tmp_path):
         ("checkpointer", "async"): dict(ckpt_dir=str(tmp_path / "ck")),
         ("checkpointer", "sync"): dict(ckpt_dir=str(tmp_path / "ck")),
         ("mesh_provider", "split"): dict(dp=1, tp=1),
+        ("shape", "custom"): dict(seq_len=64, global_batch=2, kind="train"),
     }
 
 

@@ -518,27 +518,61 @@ def test_sweep_records_flow_to_telemetry(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 # the dryrun backend and the device
 # ---------------------------------------------------------------------------
-def _dryrun_spec(tmp_path):
-    return SweepSpec.from_yaml(os.path.join(CONFIGS, "ablation_dryrun.yaml")), \
-        str(tmp_path / "abl")
-
-
 def test_dryrun_backend_refuses_before_any_record(tmp_path):
-    spec, out = _dryrun_spec(tmp_path)
-    spec.output_dir = out
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b's dryrun "
-                       "half, after the parallelism slice \\(ROADMAP A8\\)"):
-        SweepRunner(spec, device="cpu").run()
-    assert not os.path.exists(out)
+    """The dryrun backend is ported (it refused before A9b's dryrun half):
+    two trials of a reduced dryrun document, each traced on its own fake
+    2 x 2 world, write ``ok`` records with JAX's metric keys and
+    ``roofline_step_s`` the largest term, and leave no process group."""
+    import torch.distributed as dist
+
+    from repro_torch.sweep.runner import _DRYRUN_KEEP
+
+    out = str(tmp_path / "abl")
+    base = {
+        "run": {"kind": "dryrun"},
+        "arch": {"component_key": "arch_config",
+                 "variant_key": "qwen1p5_0p5b", "config": {"reduced": True}},
+        "shape": {"component_key": "shape", "variant_key": "custom",
+                  "config": {"seq_len": 32, "global_batch": 4,
+                             "kind": "train"}},
+        "mesh": {"component_key": "mesh_provider", "variant_key": "local",
+                 "config": {"dp": 2, "tp": 2}},
+        "plan": {"component_key": "sharding_plan", "variant_key": "ddp"},
+    }
+    spec = SweepSpec.from_dict({
+        "name": "abl", "backend": "dryrun", "base": base,
+        "axes": [{"type": "grid",
+                  "parameters": {"plan.variant_key": ["ddp", "fsdp"]}}],
+        "objective": {"metric": "roofline_step_s", "mode": "min"},
+        "output_dir": out})
+    records = SweepRunner(spec, device="cpu").run()
+    assert [r["status"] for r in records] == ["ok", "ok"]
+    for r in records:
+        m = r["metrics"]
+        assert set(m) == set(_DRYRUN_KEEP) | {"roofline_step_s"}
+        assert m["chips"] == 4 and m["mesh"] == "2x2"
+        assert m["roofline_step_s"] == max(
+            m["compute_term_s"], m["memory_term_s"], m["collective_term_s"])
+    assert len(load_records(out)) == 2
+    assert not dist.is_initialized()
 
 
 def test_dryrun_sweep_through_the_cli_refuses(tmp_path, capsys):
+    """``ablation_dryrun.yaml`` runs through the CLI (it refused before):
+    its first trial (full-width StableLM-1.6B under ``ddp`` on a fake
+    world of 256 ranks) is ``ok``, and the report ranks it."""
     out = str(tmp_path / "abl")
     rc = cli_main(["sweep", "--config",
                    os.path.join(CONFIGS, "ablation_dryrun.yaml"),
-                   "--output-dir", out, "--device", "cpu"])
-    assert rc == 2 and "A9b's dryrun half" in capsys.readouterr().err
-    assert not os.path.exists(out)
+                   "--output-dir", out, "--device", "cpu",
+                   "--max-trials", "1"])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    [record] = load_records(out)
+    assert record["status"] == "ok"
+    assert record["trial_id"] == "plan_name=ddp__scan_block=1"
+    assert record["metrics"]["chips"] == 256
+    assert "best trial: plan_name=ddp__scan_block=1" in text
 
 
 def test_gym_sweep_without_device_needs_a_card(tmp_path):
@@ -873,8 +907,8 @@ def test_validate_reports_the_sweeps(capsys):
     assert rc == 0
     assert lines[0].startswith("ok ") and lines[0].endswith(
         "(kind=sweep backend=gym trials=6)")
-    assert lines[1].startswith("skip ") and lines[1].endswith(
-        "(not ported: ROADMAP A9b's dryrun half)")
+    assert lines[1].startswith("ok ") and lines[1].endswith(
+        "(kind=sweep backend=dryrun trials=12)")
 
 
 def test_sweep_shim_warns_and_delegates(capsys):
