@@ -158,6 +158,20 @@
    then a checkpoint of the ``fsdp_tp`` Qwen state restored under ``ddp``
    and with no mesh, equal to the saved state, its manifest's specs the
    plan's.  The group is destroyed at the end of the phase.
+10b. The GPipe schedule and expert parallelism (``--only pp``, ROADMAP
+   A8b's training half): full-width Qwen1.5-0.5B through ``flash_fwd`` (8 x
+   1024, ``remat: full``) 3 AdamW steps through the pipelined backbone
+   stage-local (a ``MeshContext`` with ``pp`` 2, 4 microbatches, no pipe
+   group) beside 3 unpipelined steps: 192 launches a step (24 layers x 4
+   microbatches x 2), one step's loss and per-leaf gradients against the
+   unpipelined step within ``TRAIN_SLICES['qwen']``'s bf16 tolerances,
+   both curves, ms/step and peak memory; then full-width DeepSeekMoE-16B at
+   depth 4 under ``fsdp_tp_ep`` on a ``(1, 1)`` NCCL mesh (EP degree 1,
+   ``C_e`` 960) through the gym beside the no-mesh run (8 launches and 6
+   EP bodies a step), the dropped share of each MoE layer's assignments,
+   and one step's loss and gradients against ``moe_dense`` with the
+   dropped assignments' gates zeroed (or the no-mesh step where none
+   drops) within ``moe16b``'s bf16 tolerances.
 11. The dryrun, trace and dryrun sweep (``--only dryrun``, ROADMAP A9b's
    dryrun half): (a) ``dryrun.yaml`` and ``trace.yaml`` unchanged through
    the port's CLI, each in a child process on the host from a temporary
@@ -838,14 +852,15 @@ def _patched(cfg, dtype, attention="kernel", ssd="kernel",
     elif callable(moe):
         stack.enter_context(mock.patch.object(moe_mod, "moe_routed", moe))
     if routes is not None:
-        route = moe_mod.route
+        route = moe_mod.route_stats
 
         def recording(cfg_, w, x):
             out = route(cfg_, w, x)
             routes.append(out[0])
             return out
 
-        stack.enter_context(mock.patch.object(moe_mod, "route", recording))
+        stack.enter_context(mock.patch.object(moe_mod, "route_stats",
+                                              recording))
     return model, stack
 
 
@@ -1254,17 +1269,23 @@ class _Capture:
         return params, state
 
 
-def step_grads(model, params, batch, trainable=None):
-    """One ``make_train_step`` of ``model``: (loss, gradient tree)."""
+def step_grads(model, params, batch, trainable=None, mesh_ctx=None,
+               storage_axes=()):
+    """One ``make_train_step`` of ``model`` (under ``mesh_ctx``): (loss,
+    gradient tree), the gradients as plain tensors."""
     import torch
 
+    from repro_torch.models.base import is_dtensor
     from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import tree_map
 
     cap = _Capture(trainable)
     state = {"params": params, "opt": {},
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
-    _, metrics = make_train_step(model, cap)(state, batch)
-    return float(metrics["loss"]), cap.grads
+    _, metrics = make_train_step(model, cap, mesh_ctx, storage_axes)(state,
+                                                                     batch)
+    return float(metrics["loss"]), tree_map(
+        lambda g: g.full_tensor() if is_dtensor(g) else g, cap.grads)
 
 
 def grad_diff(a, b, zero_leaves=()):
@@ -2303,9 +2324,9 @@ def _resil_sigterm(data_dir: str, card: str) -> bool:
     """(f) ``python -m repro_torch train`` on the unchanged quickstart
     (reduced, no kernel) with preemption on, ``resume: auto`` and a
     checkpoint dir set through ``--set``, its metrics printed by the stdout
-    tracker: a straight run; the same command sent SIGTERM after its first
-    metric line (exit 75, ``status: preempted``); then the same command
-    again, resuming to the budget.  The two halves' curve ``==`` the
+    tracker: a straight run and, beside it, the same command sent SIGTERM
+    after its first metric line (exit 75, ``status: preempted``); then the
+    same command again, resuming to the budget.  The two halves' curve ``==`` the
     straight one."""
     import signal
 
@@ -2337,8 +2358,10 @@ def _resil_sigterm(data_dir: str, card: str) -> bool:
 
     t0 = time.perf_counter()
     cmd, out_s = command("sig_straight")
-    straight = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
+    # the straight run beside the interrupted one (the card holds both)
+    straight = subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
     cmd, out = command("sig_run")
     proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -2351,14 +2374,16 @@ def _resil_sigterm(data_dir: str, card: str) -> bool:
                 break
         rest = proc.stdout.read()
         rc = proc.wait(timeout=600)
+        part = result(out)
+        resumed = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+        straight.wait(timeout=600)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (proc, straight):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         proc.stdout.close()
-    part = result(out)
-    resumed = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                             text=True, timeout=600)
     full = result(out)
     want = curve(result(out_s)) if straight.returncode == 0 else {}
     got = curve(part, full)
@@ -3254,6 +3279,333 @@ def _mesh_elastic(data_dir: str, gym, state) -> bool:
           f"{'ok' if ok else 'FAILED'}", flush=True)
     del plain, saved
     return ok
+
+
+# the pp phase (ROADMAP A8b's training half): full-width Qwen through the
+# pipelined backbone, stage-local (2 stages of 12 layers, 4 microbatches),
+# and full-width DeepSeekMoE-16B at depth 4 through expert parallelism
+PP_SLICE = {"steps": 3, "pp": 2, "n_micro": 4}
+EP_SLICE = {"steps": 2, "plan": "fsdp_tp_ep"}
+
+
+def _timed_steps(step, state, batch, steps):
+    """``steps`` calls of a train step: (state, losses, ms per step, peak
+    GiB), the peak over the steps."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return state, losses, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_pp(data_dir: str, results: dict, card: str) -> bool:
+    """The GPipe schedule and expert parallelism on the card (ROADMAP
+    A8b's training half).
+
+    (a) Full-width Qwen1.5-0.5B through ``flash_fwd`` (8 x 1024, ``remat:
+    full``) through the pipelined backbone, stage-local (a ``MeshContext``
+    with ``pp`` 2, 4 microbatches and no pipe group: both stages of 12
+    layers on this card), ``PP_SLICE['steps']`` AdamW steps beside the same
+    steps unpipelined: ``flash_fwd`` launches 24 layers x 4 microbatches x
+    2 (forward and remat recompute) = 192 a step, each at batch 2; one
+    step's loss and per-leaf gradients, pipelined against unpipelined,
+    within ``TRAIN_SLICES['qwen']``'s bf16 tolerances; both curves,
+    ms/step and peak memory.
+
+    (b) Full-width DeepSeekMoE-16B at ``TRAIN_SLICES['moe16b']``'s depth 4
+    (1 dense + 3 MoE layers of 64 experts, top 6) through ``flash_fwd``,
+    under ``fsdp_tp_ep`` on the ``(1, 1)`` NCCL mesh of the mesh phase: EP
+    degree 1, all 64 experts local, T·k = 49,152 > 4096 so the capacity
+    path runs with ``C_e`` 960.  Through the gym its document resolves to,
+    ``EP_SLICE['steps']`` steps beside the no-mesh run (ms/step, peak,
+    ``flash_fwd`` 8 a step, the EP body's calls 6 a step); then one step's
+    loss and per-leaf gradients against the no-mesh step (the dropless
+    ``moe_routed``) where no assignment dropped, else against ``moe_dense``
+    with the dropped assignments' gates zeroed, within ``moe16b``'s bf16
+    tolerances; the share of dropped assignments per MoE layer."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import base as B
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding import plans as PL
+    from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_leaves
+
+    ok = True
+    # (a) the pipelined Qwen step, stage-local
+    spec = TRAIN_SLICES["qwen"]
+    loss_tol, grad_tol = spec["tols"]["bfloat16"]
+    cfg = get_config(spec["arch"]).with_(use_flash_kernel=True)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    ctx = B.MeshContext(pp=PP_SLICE["pp"], n_micro=PP_SLICE["n_micro"])
+    steps = PP_SLICE["steps"]
+    counters = _counters()
+    runs = {}
+    for name, mctx in (("unpipelined", None), ("pipelined", ctx)):
+        opt = AdamW(lr=3e-4)
+        state = ST.init_train_state(
+            model, opt, torch.Generator(device="cuda").manual_seed(0))
+        step = ST.make_train_step(model, opt, mctx)
+        for c in counters.values():
+            c.launches = 0
+        state, losses, ms, peak = _timed_steps(step, state, batch, steps)
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        runs[name] = (losses, ms, peak, counts)
+        del state, opt, step
+        _free()
+    per_step = cfg.n_layers * PP_SLICE["n_micro"] * 2
+    want = {"flash_fwd": per_step * steps, "ssd_scan": 0}
+    (ul, ums, upeak, ucounts), (pl, pms, ppeak, pcounts) = (
+        runs["unpipelined"], runs["pipelined"])
+    run_ok = (pcounts == want and all(map(math.isfinite, pl + ul))
+              and ucounts["flash_fwd"] == cfg.n_layers * 2 * steps)
+    print(f"pp qwen: {cfg.name} full width ({cfg.n_layers} layers), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat {cfg.remat}, {steps} AdamW "
+          f"steps; pipelined stage-local: {ctx.pp} stages of "
+          f"{cfg.n_layers // ctx.pp} layers, {ctx.n_micro} microbatches of "
+          f"{TRAIN_BATCH // ctx.n_micro} (bubble "
+          f"{PL.pipeline_info(PL.make_plan('pp2_fsdp'), {'pipe': 2}, TRAIN_BATCH)['bubble_fraction']:.3f} "
+          f"of a pipe-sharded schedule)", flush=True)
+    print(f"pp qwen: losses unpipelined {json.dumps([round(x, 5) for x in ul])}"
+          f", pipelined {json.dumps([round(x, 5) for x in pl])}; ms/step "
+          f"unpipelined {json.dumps([round(x, 3) for x in ums])}, pipelined "
+          f"{json.dumps([round(x, 3) for x in pms])}; peak {upeak:.3f} / "
+          f"{ppeak:.3f} GiB [{card}]", flush=True)
+    print(f"pp qwen: flash_fwd launches pipelined {pcounts['flash_fwd']} "
+          f"({pcounts['flash_fwd'] // steps} a step; want {cfg.n_layers} "
+          f"layers x {ctx.n_micro} microbatches x 2 (forward and remat "
+          f"recompute) = {per_step}, each at batch "
+          f"{TRAIN_BATCH // ctx.n_micro}), unpipelined "
+          f"{ucounts['flash_fwd'] // steps} a step: "
+          f"{'ok' if run_ok else 'FAILED'}", flush=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ref = step_grads(model, params, batch)
+    for c in counters.values():
+        c.launches = 0
+    got = step_grads(model, params, batch, mesh_ctx=ctx)
+    counts = {n: c.launches for n, c in counters.items()}
+    add_launches(results, counts)
+    torch.cuda.synchronize()
+    dloss, rel, worst = grad_diff(ref, got)
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(got[1]))
+    grad_ok = (finite and dloss <= loss_tol and rel[worst] <= grad_tol
+               and counts["flash_fwd"] == per_step)
+    print(f"pp qwen: one step (bfloat16) pipelined vs unpipelined: loss "
+          f"{got[0]:.6f} vs {ref[0]:.6f}, |dloss| {dloss:.6g} (tol "
+          f"{loss_tol}); worst leaf {worst} max|dg|/max|g| {rel[worst]:.6g} "
+          f"(tol {grad_tol}); finite {finite}; {counts['flash_fwd']} "
+          f"flash_fwd: {'ok' if grad_ok else 'FAILED'}", flush=True)
+    print(f"pp qwen: per leaf max|dg|/max|g| "
+          f"{json.dumps({p: float(f'{v:.4g}') for p, v in rel.items()})}",
+          flush=True)
+    ok &= run_ok and grad_ok
+    del params, ref, got, model, batch
+    _free()
+
+    # (b) DeepSeekMoE-16B at depth 4 under fsdp_tp_ep on a (1, 1) mesh
+    mspec = TRAIN_SLICES["moe16b"]
+    loss_tol, grad_tol = mspec["tols"]["bfloat16"]
+    espec = {"steps": EP_SLICE["steps"], "kernel": "flash_fwd",
+             "sets": mspec["sets"]}
+    body = MOE._ep_local
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return body(*args, **kw)
+
+    try:
+        gym, out, base_counts, base_peak, base_med, base_ms = _mesh_run(
+            data_dir, "moe16b", espec, None)
+        cfg = gym.model.cfg
+        base_losses = [h["loss"] for h in out["history"]]
+        add_launches(results, base_counts)
+        del gym, out
+        _free()
+        with mock.patch.object(MOE, "_ep_local", counted):
+            gym, out, counts, peak, med, ms = _mesh_run(
+                data_dir, "moe16b", espec, EP_SLICE["plan"])
+        ep_calls = len(calls)
+        losses = [h["loss"] for h in out["history"]]
+        lbs = [h["router_lb"] for h in out["history"]]
+        add_launches(results, counts)
+        n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+        want = {"flash_fwd": cfg.n_layers * 2 * espec["steps"],
+                "ssd_scan": 0}
+        run_ok = (counts == want and ep_calls == n_moe * 2 * espec["steps"]
+                  and all(map(math.isfinite, losses + lbs)))
+        print(f"pp moe16b: {cfg.name} full width, depth {cfg.n_layers} "
+              f"({cfg.moe.n_dense_layers} dense + {n_moe} MoE layers of "
+              f"{cfg.moe.n_routed} experts, top {cfg.moe.top_k}), batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, {espec['steps']} steps through "
+              f"the gym: no mesh losses "
+              f"{json.dumps([round(x, 5) for x in base_losses])}, "
+              f"{PL.make_plan(EP_SLICE['plan']).describe()} on mesh "
+              f"{_mesh_shape(gym._mesh)} losses "
+              f"{json.dumps([round(x, 5) for x in losses])}, router_lb "
+              f"{json.dumps([round(x, 7) for x in lbs])}; flash_fwd "
+              f"{counts['flash_fwd'] // espec['steps']} a step (want "
+              f"{want['flash_fwd'] // espec['steps']}), the EP body "
+              f"{ep_calls // espec['steps']} calls a step ({n_moe} MoE "
+              f"layers x 2); ms/step {json.dumps([round(x, 3) for x in ms])}"
+              f" (no mesh {json.dumps([round(x, 3) for x in base_ms])}); "
+              f"peak {peak:.3f} GiB (no mesh {base_peak:.3f}) [{card}]: "
+              f"{'ok' if run_ok else 'FAILED'}", flush=True)
+        mesh = gym._mesh
+        model = gym.model
+        del gym, out
+        _free()
+        ok &= run_ok & _ep_grads(model, mesh, results, card, loss_tol,
+                                 grad_tol)
+    finally:
+        MESH.shutdown()
+    return bool(ok)
+
+
+def _ep_capacity(T: int, k: int, n_experts: int, ep: int, cf: float) -> int:
+    """The slots ``C_e`` of each local expert on an EP rank of ``T`` tokens
+    (JAX's ``_capacity`` and ``_ep_local``), worked out here from the
+    config: dropless up to 4096 assignments, else ``cf`` times an even
+    share, rounded up to 128 over the rank, then ``cf`` again over its
+    experts."""
+    import math
+
+    total = T * k
+    c_total = total
+    if total > 4096:
+        c = math.ceil(cf * total / ep)
+        c_total = min(total, -(-c // 128) * 128)
+    return max(8, -(-int(c_total * cf) // (n_experts // ep)))
+
+
+def _first_per_expert(e, n_experts: int, C_e: int):
+    """[N] bool: whether each of the row-major assignments ``e`` [N] is
+    among the first ``C_e`` of its expert, by a stable sort by expert (not
+    the program's running count)."""
+    import torch
+
+    order = torch.argsort(e, stable=True)
+    counts = torch.bincount(e, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(e)
+    rank[order] = torch.arange(e.numel(), device=e.device) - starts[e[order]]
+    return rank < C_e
+
+
+def _ep_grads(model, mesh, results, card, loss_tol, grad_tol) -> bool:
+    """One step of ``model`` under ``fsdp_tp_ep`` on ``mesh`` against its
+    reference: the no-mesh step (``moe_routed``, dropless) where no
+    assignment dropped, else ``moe_dense`` with the dropped assignments'
+    gates zeroed, the dropped ones chosen here (:func:`_ep_capacity`,
+    :func:`_first_per_expert`).  Each EP call's drops, the program's
+    (``capacity_buckets``) against these, and the dropped share of each MoE
+    layer printed."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import plans as PL
+    from repro_torch.tree import tree_leaves
+
+    cfg = model.cfg
+    m = cfg.moe
+    plan = PL.make_plan(EP_SLICE["plan"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    tok = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    sh, _ = PL.param_shardings(plan, mesh, params, model.param_axes())
+    laid = PL.distribute(params, sh)
+    lbatch = PL.distribute(batch, PL.batch_shardings(plan, mesh, batch))
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    body = MOE._ep_local
+    calls = []
+
+    def recorded(cfg_, x, idx, gate, wg, wu, wd, *, e0, ep_size):
+        E_loc = wg.shape[0]
+        local, keep = MOE.capacity_buckets(cfg_, idx, e0, E_loc, ep_size)[:2]
+        e = idx.reshape(-1)
+        mine = (e >= e0) & (e < e0 + E_loc)
+        C_e = _ep_capacity(x.shape[0], m.top_k, m.n_routed, ep_size,
+                           m.capacity_factor)
+        kept = mine & _first_per_expert(
+            torch.where(mine, e - e0, E_loc), E_loc + 1, C_e)
+        calls.append(((local & ~keep).sum(), (mine & ~kept).sum(),
+                      mine.sum()))
+        return body(cfg_, x, idx, gate, wg, wu, wd, e0=e0, ep_size=ep_size)
+
+    with mock.patch.object(MOE, "_ep_local", recorded):
+        got = step_grads(model, laid, lbatch,
+                         mesh_ctx=PL.mesh_context(plan, mesh),
+                         storage_axes=plan.ep_storage_axes)
+    calls = [tuple(int(v) for v in c) for c in calls]
+    add_launches(results, {n: c.launches for n, c in counters.items()})
+    del laid
+    _free()
+    n_moe = cfg.n_layers - m.n_dense_layers
+    fwd = calls[:n_moe]          # the forward's calls; the rest recompute
+    drops_ok = len(calls) == 2 * n_moe and all(a == b for a, b, _ in calls)
+    shares = [d / n for _, d, n in fwd]
+    dropped = any(d for _, d, _ in fwd)
+    C_e = _ep_capacity(TRAIN_BATCH * TRAIN_SEQ, m.top_k, m.n_routed, 1,
+                       m.capacity_factor)
+    if not dropped:
+        ref = step_grads(model, params, batch)
+        what = "the no-mesh step (moe_routed, dropless)"
+    else:
+        def kept_dense(cfg_, p, x_flat, idx, gate):
+            keep = _first_per_expert(idx.reshape(-1), m.n_routed, C_e)
+            return MOE.moe_dense(cfg_, p, x_flat, idx,
+                                 gate * keep.reshape(idx.shape).to(gate.dtype))
+
+        with mock.patch.object(MOE, "moe_routed", kept_dense):
+            ref = step_grads(model, params, batch)
+        what = "moe_dense with the dropped assignments' gates zeroed"
+    torch.cuda.synchronize()
+    dloss, rel, worst = grad_diff(ref, got)
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(got[1]))
+    good = (finite and drops_ok and dloss <= loss_tol
+            and rel[worst] <= grad_tol)
+    print(f"pp moe16b: one step (bfloat16) under {EP_SLICE['plan']} (EP "
+          f"degree 1, C_e {C_e} per expert for T·k "
+          f"{TRAIN_BATCH * TRAIN_SEQ * m.top_k}): dropped share per MoE "
+          f"layer {json.dumps([round(x, 6) for x in shares])} "
+          f"({json.dumps([[d, n] for _, d, n in fwd])} of the assignments); "
+          f"the program's drops per EP call "
+          f"{json.dumps([a for a, _, _ in calls])} vs a stable sort's "
+          f"{json.dumps([b for _, b, _ in calls])} ({len(calls)} calls, want "
+          f"{2 * n_moe}); vs {what}: loss {got[0]:.6f} vs {ref[0]:.6f}, "
+          f"|dloss| {dloss:.6g} (tol {loss_tol}); worst leaf {worst} "
+          f"max|dg|/max|g| {rel[worst]:.6g} (tol {grad_tol}); finite "
+          f"{finite} [{card}]: {'ok' if good else 'FAILED'}", flush=True)
+    print(f"pp moe16b: per leaf max|dg|/max|g| "
+          f"{json.dumps({p: float(f'{v:.4g}') for p, v in rel.items()})}",
+          flush=True)
+    del params, ref, got
+    _free()
+    return good
 
 
 def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
@@ -4541,7 +4893,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, mesh, sweep, dryrun, engine (default: "
+                         "posttrain, mesh, pp, sweep, dryrun, engine "
+                         "(default: "
                          "all); a partial run prints no result line")
     args = ap.parse_args()
     only = {p for p in args.only.split(",") if p}
@@ -4588,87 +4941,59 @@ def main() -> int:
 
     results: dict = {}
     ok = True
-    if want("kernels"):
-        ok = phase_kernels(results)
-        ok &= phase_ssd(results)
-        print(f"phase kernels: {'ok' if ok else 'FAILED'}", flush=True)
-    for key in SLICES if want("slices") else ():
-        slice_ok = phase_slice(key, results, args.profile)
-        print(f"phase slice {key}: {'ok' if slice_ok else 'FAILED'}",
-              flush=True)
-        ok &= slice_ok
-    for key in MM_SLICES if want("mm") else ():
+
+    def run(label: str, *checks) -> None:
+        """One phase: every check runs (a failure does not skip the next),
+        then the phase's verdict and wall on one line."""
+        nonlocal ok
         t0 = time.perf_counter()
-        mm_ok = phase_mm_serve(key, results, card, args.profile)
-        mm_ok &= phase_mm_train(key, results, card, args.profile)
-        print(f"phase mm {key}: {'ok' if mm_ok else 'FAILED'} "
+        good = True
+        for check in checks:
+            good &= bool(check())
+        print(f"phase {label}: {'ok' if good else 'FAILED'} "
               f"({time.perf_counter() - t0:.1f}s)", flush=True)
-        ok &= mm_ok
+        ok &= good
+
+    if want("kernels"):
+        run("kernels", lambda: phase_kernels(results),
+            lambda: phase_ssd(results))
+    for key in SLICES if want("slices") else ():
+        run(f"slice {key}", lambda: phase_slice(key, results, args.profile))
+    for key in MM_SLICES if want("mm") else ():
+        run(f"mm {key}",
+            lambda: phase_mm_serve(key, results, card, args.profile),
+            lambda: phase_mm_train(key, results, card, args.profile))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
         if want("train"):
-            train_ok = phase_train_quickstart(data_dir)
-            print(f"phase train quickstart: {'ok' if train_ok else 'FAILED'}",
-                  flush=True)
-            ok &= train_ok
+            run("train quickstart", lambda: phase_train_quickstart(data_dir))
         for key in TRAIN_SLICES if want("train") else ():
-            train_ok = phase_train_full(key, data_dir, results, card,
-                                        args.profile)
-            print(f"phase train {key}: {'ok' if train_ok else 'FAILED'}",
-                  flush=True)
-            ok &= train_ok
+            run(f"train {key}", lambda: phase_train_full(
+                key, data_dir, results, card, args.profile))
         if want("bench"):
-            bench_ok = phase_bench(data_dir, results, card)
-            print(f"phase bench: {'ok' if bench_ok else 'FAILED'}",
-                  flush=True)
-            ok &= bench_ok
+            run("bench", lambda: phase_bench(data_dir, results, card))
         if want("ckpt"):
-            ckpt_ok = phase_ckpt_quickstart(data_dir)
-            ckpt_ok &= phase_ckpt_qwen(data_dir, results, card)
-            print(f"phase ckpt qwen: {'ok' if ckpt_ok else 'FAILED'}",
-                  flush=True)
-            ok &= ckpt_ok
+            run("ckpt qwen", lambda: phase_ckpt_quickstart(data_dir),
+                lambda: phase_ckpt_qwen(data_dir, results, card))
         if want("resil"):
-            resil_ok = phase_resil_qwen(data_dir, results, card)
-            print(f"phase resil qwen: {'ok' if resil_ok else 'FAILED'}",
-                  flush=True)
-            ok &= resil_ok
+            run("resil qwen", lambda: phase_resil_qwen(data_dir, results,
+                                                       card))
         if want("posttrain"):
-            post_ok = phase_posttrain_qwen(data_dir, results, card)
-            print(f"phase posttrain qwen: {'ok' if post_ok else 'FAILED'}",
-                  flush=True)
-            ok &= post_ok
+            run("posttrain qwen",
+                lambda: phase_posttrain_qwen(data_dir, results, card))
         if want("mesh"):
-            t0 = time.perf_counter()
-            mesh_ok = phase_mesh(data_dir, results, card)
-            print(f"phase mesh: {'ok' if mesh_ok else 'FAILED'} "
-                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
-            ok &= mesh_ok
+            run("mesh", lambda: phase_mesh(data_dir, results, card))
+        if want("pp"):
+            run("pp", lambda: phase_pp(data_dir, results, card))
         if want("sweep"):
-            sweep_ok = phase_sweep(data_dir, results, card)
-            print(f"phase sweep: {'ok' if sweep_ok else 'FAILED'}",
-                  flush=True)
-            ok &= sweep_ok
+            run("sweep", lambda: phase_sweep(data_dir, results, card))
         if want("dryrun"):
-            t0 = time.perf_counter()
-            dry_ok = phase_dryrun(data_dir, results, card)
-            print(f"phase dryrun: {'ok' if dry_ok else 'FAILED'} "
-                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
-            ok &= dry_ok
+            run("dryrun", lambda: phase_dryrun(data_dir, results, card))
         if want("engine"):
-            engine_ok = phase_engine_quickstart(data_dir)
-            print(f"phase engine quickstart: "
-                  f"{'ok' if engine_ok else 'FAILED'}", flush=True)
-            ok &= engine_ok
+            run("engine quickstart", lambda: phase_engine_quickstart(data_dir))
     if want("engine"):
-        engine_ok = phase_engine_qwen(results, args.profile)
-        print(f"phase engine qwen: {'ok' if engine_ok else 'FAILED'}",
-              flush=True)
-        ok &= engine_ok
+        run("engine qwen", lambda: phase_engine_qwen(results, args.profile))
     for key in ENGINE_SLICES if want("engine") else ():
-        engine_ok = phase_engine_model(key, results)
-        print(f"phase engine {key}: {'ok' if engine_ok else 'FAILED'}",
-              flush=True)
-        ok &= engine_ok
+        run(f"engine {key}", lambda: phase_engine_model(key, results))
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s, the "
           f"kernels' build included", flush=True)
     if not ok:

@@ -17,8 +17,8 @@ and ``dataset/preference_synthetic``, ``tokenizer/byte`` and
 ``shape/<name>`` for every input shape plus ``shape/custom`` and
 ``precision/policy``.  The names and settings
 match ``repro.core.components``, so a run YAML of the JAX package
-resolves here unchanged; a local mesh with a pipe axis (``pp > 1``) is
-ROADMAP A8b and fails ``validate`` naming it.  Each component key
+resolves here unchanged, a local mesh with a pipe axis (``pp > 1``)
+included.  Each component key
 is bound to its interface (:mod:`.interfaces`), as in JAX: the registry
 refuses a built instance
 that does not satisfy it, and the port's concrete classes are registered
@@ -200,11 +200,7 @@ def _register_parallelism() -> None:
     REG.register("mesh_provider", "single_device", MESH.SingleDeviceMesh,
                  IF.MeshProviderIF)
 
-    def local(dp: int = 1, tp: int = 1, pp: int = 1):
-        return MESH.LocalMesh(dp, tp, pp)
-
-    local.not_ported_for = _pipe_axis_refusal
-    REG.register("mesh_provider", "local", local)
+    REG.register("mesh_provider", "local", MESH.LocalMesh)
     REG.register("mesh_provider", "production", MESH.ProductionMesh)
     REG.register("mesh_provider", "split", MESH.SplitMesh)
     _register_dryrun()
@@ -234,18 +230,6 @@ def _custom_shape(seq_len: int, global_batch: int, kind: str,
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"shape kind must be train|prefill|decode, got {kind!r}")
     return InputShape(name, int(seq_len), int(global_batch), kind)
-
-
-def _pipe_axis_refusal(config: Dict[str, Any]) -> str:
-    """``validate``'s word on a local mesh: a pipe axis (``pp > 1``) is the
-    GPipe schedule, ROADMAP A8b."""
-    from ..sharding.plans import A8B
-
-    pp = config.get("pp", 1)
-    if isinstance(pp, int) and pp > 1:
-        return (f"a pipe axis (pp={pp}): the GPipe schedule comes with "
-                f"{A8B}")
-    return ""
 
 
 def _cfg(arch: str, reduced: bool, overrides: Dict[str, Any]) -> ArchConfig:
@@ -288,13 +272,14 @@ def _bpe_tokenizer(path: str = "", corpus: str = "",
 
 def _synthetic_chunked(n_tokens: int, vocab: int, prefix: str, seq_len: int,
                        seed: int = 0, shuffle: bool = True):
-    """Write the synthetic packed dataset at ``prefix`` unless it is there,
-    then chunk it (JAX's ``dataset/synthetic``)."""
+    """Write the synthetic packed dataset at ``prefix`` unless it is there
+    (its doc index, the file written last), then chunk it (JAX's
+    ``dataset/synthetic``)."""
     from ..data.packed_dataset import (ChunkedLMDataset, PackedDataset,
                                        synthetic_dataset)
-    from ..data.tokenize_pipeline import TOKENS_SUFFIX
+    from ..data.tokenize_pipeline import DOCIDX_SUFFIX
 
-    if not os.path.exists(prefix + TOKENS_SUFFIX):
+    if not os.path.exists(prefix + DOCIDX_SUFFIX):
         synthetic_dataset(n_tokens, vocab, prefix, seed)
     return ChunkedLMDataset(PackedDataset(prefix), seq_len, seed, shuffle)
 

@@ -8,6 +8,7 @@ same files and yields the same batches as the JAX package."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -148,14 +149,26 @@ class ShardedLoader:
 
 def synthetic_dataset(n_tokens: int, vocab: int, prefix: str, seed: int = 0,
                       avg_doc_len: int = 512):
-    """Write a synthetic packed dataset (tests / examples without a corpus)."""
+    """Write a synthetic packed dataset (tests / examples without a corpus).
+
+    Each file is written under a name of this process's and moved into
+    place, the doc index last: ranks that write the same dataset at once
+    never read a partial file, and a reader that finds the doc index finds
+    the tokens."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(3, vocab, size=n_tokens, dtype=np.uint32)
-    toks.tofile(prefix + TOKENS_SUFFIX)
     bounds = [0]
     pos = 0
     while pos < n_tokens:
         pos = min(n_tokens, pos + int(rng.integers(avg_doc_len // 2, avg_doc_len * 2)))
         bounds.append(pos)
-    np.save(prefix + DOCIDX_SUFFIX, np.asarray(bounds, dtype=np.int64))
+
+    def put(suffix, write):
+        tmp = f"{prefix}{suffix}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            write(f)
+        os.replace(tmp, prefix + suffix)
+
+    put(TOKENS_SUFFIX, toks.tofile)
+    put(DOCIDX_SUFFIX, lambda f: np.save(f, np.asarray(bounds, np.int64)))
     return PackedDataset(prefix)

@@ -166,6 +166,21 @@ def make_local_mesh(dp: int = 1, tp: int = 1, pp: int = 1, device_type=None):
     return _mesh((dp, tp), ("data", "model"), device_type, "")
 
 
+def pipe_of(mesh, axis: str = "pipe"):
+    """The GPipe schedule's handles on ``mesh``'s dim ``axis``: a
+    :class:`~repro_torch.sharding.pipeline.Pipe` with the dim's process
+    group, its size, this rank's coordinate on it, and the submesh of the
+    other dims (``mesh["data", "model"]`` for the local ``(pipe, data,
+    model)`` mesh), where each stage's body runs."""
+    from ..sharding.pipeline import Pipe
+
+    names = list(mesh.mesh_dim_names)
+    rest = tuple(n for n in names if n != axis)
+    return Pipe(group=mesh.get_group(axis), size=mesh.size(names.index(axis)),
+                rank=mesh.get_local_rank(axis), axis=axis, mesh=mesh,
+                stage_mesh=mesh[rest] if rest else None)
+
+
 def make_split_mesh(dp: int, tp: int, device_type=None):
     """Re-split a pod's chips into a dp x tp ("data", "model") mesh — the
     dry-run's mesh-split knob (e.g. 32x8 over the same 256)."""

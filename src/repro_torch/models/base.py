@@ -134,6 +134,16 @@ class MeshContext:
     pp: int = 1                        # pipeline stage count (1 => unpipelined)
     pipe_axis: Optional[str] = None    # mesh axis the stage dim shards over
     n_micro: int = 0                   # microbatches (0 => 2*pp default)
+    # the pipe axis's group, this rank's stage and the stage submesh
+    # (``launch.mesh.pipe_of``); None with pp > 1 runs every stage here
+    pipe: Any = None
+
+    def stage_context(self) -> "MeshContext":
+        """The context a pipeline stage's body runs under: no pipe axis,
+        and in the pipe-sharded mode the submesh of the other dims."""
+        mesh = self.mesh if self.pipe is None else self.pipe.stage_mesh
+        return dataclasses.replace(self, mesh=mesh, pp=1, pipe_axis=None,
+                                   pipe=None)
 
     def axis_size(self, axes) -> int:
         """The product of the sizes of ``axes`` (a name or a tuple)."""

@@ -126,29 +126,41 @@ _AXES_BY_KIND = {"dense_block": dense_block_axes,
                  "moe_block": moe_block_axes, "ssm": ssm_block_axes}
 
 
-def _ffn(cfg, kind, p, h, mesh_ctx=None):
-    """The block's feed-forward half on the normed ``h``: (out, aux), aux
-    the MoE layer's router balance loss, None for a dense MLP."""
+def _ffn(cfg, kind, p, h, mesh_ctx=None, storage_axes=()):
+    """The block's feed-forward half on the normed ``h``: (out, stats),
+    stats the MoE layer's router statistics ``[2, E]``
+    (``moe.route_stats``), None for a dense MLP."""
     if kind == "moe_block":
-        return MOE.moe_forward(cfg, p["moe"], h, mesh_ctx)
+        return MOE.moe_layer(cfg, p["moe"], h, mesh_ctx, storage_axes)
     return M.mlp_forward(cfg, p["mlp"], h), None
 
 
-def apply_block(cfg, kind, p, x, positions, mesh_ctx=None):
+def apply_block(cfg, kind, p, x, positions, mesh_ctx=None, storage_axes=(),
+                stats=False):
     """Residual block of the training forward; returns (x, aux).  ``aux``
-    is the router balance loss of MoE blocks, zero for the others.  Under a
-    mesh the residual stream is laid out by ``constrain`` where JAX
-    constrains it: batch over the dp axes, replicated over ``model``."""
+    is the router balance loss of MoE blocks over the tokens of ``x``, zero
+    for the others; with ``stats`` a MoE block returns its router
+    statistics instead (``moe.route_stats``), which the pipelined backbone
+    sums over microbatches.  Under a mesh the residual stream is laid out
+    by ``constrain`` where JAX constrains it: batch over the dp axes,
+    replicated over ``model``."""
     x = B.constrain(x, mesh_ctx)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = B.replicate_like(torch.zeros((), dtype=torch.float32,
+                                        device=x.device), x)
     if kind == "ssm":
         return x + S.ssm_forward(cfg, p["ssm"],
                                  apply_norm(cfg, p["norm"], x)), zero
     h = apply_norm(cfg, p["attn_norm"], x)
     attn = A.mla_forward if cfg.mla else A.gqa_forward
     x = _residual(x, attn(cfg, p["attn"], h, positions), mesh_ctx)
-    h, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx)
-    return B.constrain(x + h, mesh_ctx), zero if aux is None else aux
+    h, st = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx,
+                 storage_axes)
+    x = B.constrain(x + h, mesh_ctx)
+    if st is None:
+        return x, zero
+    if stats:
+        return x, st
+    return x, MOE.balance_loss(cfg, st, x.shape[0] * x.shape[1])
 
 
 def _residual(x, h, mesh_ctx):
@@ -232,7 +244,7 @@ def _pad_cache_seq(k, max_len, window):
 
 
 def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype,
-                  mesh_ctx=None):
+                  mesh_ctx=None, storage_axes=()):
     """One layer of prefill; also returns its decode-ready cache.  Under a
     mesh the residual stream is laid out as in ``apply_block``."""
     x = B.constrain(x, mesh_ctx)
@@ -256,7 +268,8 @@ def prefill_block(cfg, kind, p, x, positions, max_len, cache_dtype,
             "v": _pad_cache_seq(v.to(cache_dtype), max_len, cfg.window),
         }
     x = _residual(x, h, mesh_ctx)
-    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx)
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx,
+                storage_axes)
     return B.constrain(x + h, mesh_ctx), cache
 
 
@@ -269,19 +282,18 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
 
 
 def refuse_mesh(cfg: B.ArchConfig) -> None:
-    """The archs a mesh runs in this part of the parallelism item: the
-    dense decoders and Mamba2.  The MoE (expert parallelism), MLA, the
-    hybrid's weight-shared stack, the encoder-decoder and the VLM under a
-    mesh come with ROADMAP A8b."""
-    if cfg.arch_type in ("dense", "ssm") and not cfg.mla:
+    """The archs a mesh runs: the dense decoders, Mamba2 and the MoE (with
+    expert parallelism where the plan has it).  MLA, the hybrid's
+    weight-shared stack, the encoder-decoder and the VLM under a mesh come
+    with ROADMAP A8b."""
+    if cfg.arch_type in ("dense", "ssm", "moe") and not cfg.mla:
         return
     from ..sharding.plans import A8B
 
     what = "MLA" if cfg.mla else f"the {cfg.arch_type} arch"
     raise NotImplementedError(
         f"{cfg.name}: {what} under a mesh comes with {A8B}; the dense "
-        f"decoders and Mamba2 train under every plan without a pipe axis "
-        f"or expert parallelism")
+        f"decoders, Mamba2 and the MoE train under every plan")
 
 
 class DecoderLM(B.Model):
@@ -374,18 +386,26 @@ class DecoderLM(B.Model):
 
     # -- training forward ------------------------------------------------------
     def _scan_stack(self, stack_params, kind, x, positions, n_layers,
-                    shared_attn=None, force_group=None, mesh_ctx=None):
+                    shared_attn=None, force_group=None, mesh_ctx=None,
+                    storage_axes=(), stats=None):
         """Fold over layer groups of ``cfg.scan_block_size`` (or
         ``force_group``) with the arch's remat policy (JAX's
-        ``_scan_stack``).  With ``shared_attn`` the weight-shared dense
-        block runs after each group, inside its remat wrap, so the backward
-        recomputes it too.  Under a mesh each layer's FSDP shards are
-        gathered in the loop (``B.gather_fsdp``)."""
+        ``_scan_stack``); returns (x, summed aux).  With ``shared_attn`` the
+        weight-shared dense block runs after each group, inside its remat
+        wrap, so the backward recomputes it too.  Under a mesh each layer's
+        FSDP shards are gathered in the loop (``B.gather_fsdp``).  With
+        ``stats`` (a ``[n, 2, E]`` shift register) each MoE layer's router
+        statistics go in at its end and the oldest row out, and the
+        register comes back in place of the aux."""
         cfg = self.cfg
+        register = stats is not None
 
         def body(carry, lp):
             x, aux = carry
-            x, a = apply_block(cfg, kind, lp, x, positions, mesh_ctx)
+            x, a = apply_block(cfg, kind, lp, x, positions, mesh_ctx,
+                               storage_axes, stats=register)
+            if register:
+                return x, torch.cat([aux[1:], a[None]])
             return x, aux + a
 
         def tail(carry):
@@ -397,28 +417,101 @@ class DecoderLM(B.Model):
                            block_size=force_group or cfg.scan_block_size,
                            remat=cfg.remat,
                            tail=tail if shared_attn is not None else None,
-                           gather=(None if mesh_ctx is None else
+                           gather=(None if mesh_ctx is None
+                                   or mesh_ctx.mesh is None else
                                    lambda lp: B.gather_fsdp(lp, mesh_ctx)))
-        aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
-        return stack.fold(stack_params, (x, aux0))
+        if not register:
+            stats = B.replicate_like(torch.zeros(
+                (), dtype=torch.float32, device=x.device), x)
+        return stack.fold(stack_params, (x, stats))
 
-    def backbone(self, params, x, positions, mesh_ctx=None):
+    def backbone(self, params, x, positions, mesh_ctx=None, storage_axes=()):
         """Every stack in layer order; returns (x, summed aux).  The hybrid
         folds its Mamba2 layers in groups of ``attn_every - 1`` with the
-        shared block as each group's tail.  The pipelined backbone comes
-        with ROADMAP A8b (``plans.mesh_context`` refuses a pipe axis)."""
+        shared block as each group's tail.  With ``mesh_ctx.pp > 1`` the
+        stacks run the GPipe schedule (:meth:`_backbone_pipelined`)."""
+        if mesh_ctx is not None and mesh_ctx.pp > 1:
+            if self.cfg.arch_type == "hybrid":
+                raise ValueError(
+                    "pipeline parallelism does not compose with the "
+                    "weight-shared hybrid stack; use an unpipelined plan")
+            return self._backbone_pipelined(params, x, positions, mesh_ctx,
+                                            storage_axes)
         if self.cfg.arch_type == "hybrid":
             n_groups, seg = self._hybrid_groups()
             return self._scan_stack(params["ssm_blocks"], "ssm", x, positions,
                                     n_groups * seg,
                                     shared_attn=params["shared_attn"],
                                     force_group=seg)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = None
         for name, kind, idxs in self._stacks():
             x, aux = self._scan_stack(params[name], kind, x, positions,
-                                      len(idxs), mesh_ctx=mesh_ctx)
-            aux_total = aux_total + aux
+                                      len(idxs), mesh_ctx=mesh_ctx,
+                                      storage_axes=storage_axes)
+            aux_total = aux if aux_total is None else aux_total + aux
         return x, aux_total
+
+    def _backbone_pipelined(self, params, x, positions, mesh_ctx,
+                            storage_axes=()):
+        """GPipe the backbone (JAX's ``_backbone_pipelined``): each stack's
+        layers in ``mesh_ctx.pp`` stages, the batch in M microbatches
+        (``effective_n_micro``), each stage body the :class:`Stacked` fold
+        over its layers with remat, ``scan_block_size`` and the FSDP
+        gather.  Stage-local without a pipe group (``mesh_ctx.pipe``); with
+        one, each rank runs its stage on its local block of the stacked
+        leaves, laid out on the stage's submesh, so the stage body's A8a
+        code (``constrain``, ``gather_fsdp``, ``local_call``) runs unchanged.
+        Heterogeneous stacks (a dense prelude, then MoE) are pipelined one
+        after another.
+
+        The router balance loss is not JAX's: JAX sums each microbatch's
+        Switch loss, which is not the whole batch's (ROADMAP C8).  Here each
+        MoE layer's router statistics ride the carry and are summed over the
+        microbatches, and the loss is formed once from the whole batch's,
+        so it equals the unpipelined one up to the order of f32 sums."""
+        from ..sharding import pipeline as PIPE
+
+        cfg = self.cfg
+        n_stages = mesh_ctx.pp
+        stacks = self._stacks()
+        for name, _, idxs in stacks:
+            if len(idxs) % n_stages:
+                raise ValueError(
+                    f"stack {name!r} has {len(idxs)} layers — not divisible "
+                    f"into pp={n_stages} stages")
+        pipe = mesh_ctx.pipe
+        stage_ctx = mesh_ctx.stage_context()
+        n_micro = PIPE.effective_n_micro(mesh_ctx.n_micro, n_stages,
+                                         x.shape[0])
+        n_tokens = x.shape[0] * x.shape[1]
+        aux = B.replicate_like(torch.zeros((), dtype=torch.float32,
+                                           device=x.device), x)
+        for name, kind, idxs in stacks:
+            per_stage = len(idxs) // n_stages
+            carry = {"x": PIPE.enter(x, n_micro, pipe)}
+            if kind == "moe_block":
+                zeros = torch.zeros((n_micro, len(idxs), 2, cfg.moe.n_routed),
+                                    dtype=torch.float32, device=x.device)
+                carry["stats"] = B.replicate_like(zeros, carry["x"])
+            if pipe is None:
+                staged = PIPE.stage_split(params[name], n_stages)
+            else:
+                staged = PIPE.local_stage(params[name], pipe)
+
+            def stage_fn(sp, c, kind=kind, per_stage=per_stage):
+                xx, st = self._scan_stack(sp, kind, c["x"], positions,
+                                          per_stage, mesh_ctx=stage_ctx,
+                                          storage_axes=storage_axes,
+                                          stats=c.get("stats"))
+                return {"x": xx, "stats": st} if "stats" in c else {"x": xx}
+
+            carry = PIPE.pipeline_apply(stage_fn, staged, carry, pipe)
+            x = PIPE.leave(carry["x"], pipe)
+            if "stats" in carry:
+                stats = PIPE.leave(carry["stats"], pipe, merge=False).sum(0)
+                for layer in range(len(idxs)):
+                    aux = aux + MOE.balance_loss(cfg, stats[layer], n_tokens)
+        return x, aux
 
     def apply(self, params, batch, mesh_ctx=None, storage_axes=()):
         """Training forward: (logits [B, S, vocab], {"router_lb": aux}),
@@ -435,8 +528,8 @@ class DecoderLM(B.Model):
         out by a sharding plan) the dense and ssm archs run the same code
         on DTensors: the unstacked leaves are gathered here, each layer's
         in the loop, and the activations constrained where JAX constrains
-        them.  ``storage_axes`` (JAX's expert-weight storage sharding) has
-        no use until expert parallelism (ROADMAP A8b).
+        them.  ``storage_axes`` are the mesh axes the experts' ``d_model``
+        dim is stored sharded over (the EP plans' ``ep_storage_axes``).
         """
         if mesh_ctx is not None and mesh_ctx.mesh is not None:
             refuse_mesh(self.cfg)
@@ -447,7 +540,7 @@ class DecoderLM(B.Model):
             params, batch["tokens"].long()))
         x = B.constrain(x, mesh_ctx)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self.backbone(params, x, positions, mesh_ctx)
+        x, aux = self.backbone(params, x, positions, mesh_ctx, storage_axes)
         aux_d = {"router_lb": aux}
         if self.cfg.mtp and "labels" in batch:
             aux_d["mtp"] = self._mtp_loss(params, x, batch, positions)
@@ -507,8 +600,8 @@ class DecoderLM(B.Model):
         Under a mesh (``mesh_ctx``, the params and the batch DTensors laid
         out by a sharding plan) the dense and ssm archs run as in
         ``apply``: unstacked leaves gathered here, each layer's in the
-        loop.  ``storage_axes`` waits for expert parallelism (ROADMAP
-        A8b), as in ``apply``."""
+        loop; the MoE's experts as in ``apply``.  A plan's pipe axis plays
+        no part: prefill runs the layers in order (as JAX's)."""
         cfg = self.cfg
         gather = None
         if mesh_ctx is not None and mesh_ctx.mesh is not None:
@@ -534,7 +627,7 @@ class DecoderLM(B.Model):
                 if gather is not None:
                     lp = gather(lp)
                 return prefill_block(cfg, kind, lp, x, positions, max_len,
-                                     cache_dtype, mesh_ctx)
+                                     cache_dtype, mesh_ctx, storage_axes)
 
             x, cache[name] = ST.layer_loop(body, params[name], x, len(idxs))
         logits = self.logits(params, x[:, -1:], mesh_ctx)[:, 0]

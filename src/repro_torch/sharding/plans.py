@@ -31,8 +31,10 @@ from ..models import base as B
 TP_AXES = {B.HEADS, B.KV_HEADS, B.D_FF, B.VOCAB, B.D_INNER, B.CONV_DIM,
            B.D_EXPERT}
 
-#: what the plans of the next part of the parallelism item need
-A8B = "ROADMAP A8b (pipeline, after A8a)"
+#: what the rest of the parallelism item brings (sharded serving, LoRA
+#: under a plan, MLA, the hybrid, Whisper and LLaVA under a mesh, the
+#: decode-shape dryrun), after the GPipe schedule and expert parallelism
+A8B = "ROADMAP A8b (sharded serving, LoRA, MLA and the other archs under a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,9 +519,11 @@ def distribute(tree, shardings):
 
 
 def mesh_context(plan: ShardingPlan, mesh) -> B.MeshContext:
-    """The model's view of ``plan`` on ``mesh``.  A ``pp > 1`` plan on a
-    mesh without its pipe axis runs its unpipelined core, as JAX's does;
-    on a mesh that carries it the GPipe schedule is ROADMAP A8b."""
+    """The model's view of ``plan`` on ``mesh`` (JAX's ``mesh_context``).
+    The pipeline is active only when the mesh carries the plan's pipe axis
+    (a pp plan on a ``data x model`` mesh runs its unpipelined core, as TP
+    and EP degrade on a 1-wide model axis); on a ``DeviceMesh`` the context
+    then holds the pipe axis's handles (``launch.mesh.pipe_of``)."""
     sizes = axis_sizes(mesh)
     pp = 1
     if plan.pp > 1 and plan.pipe_axis in sizes:
@@ -528,10 +532,11 @@ def mesh_context(plan: ShardingPlan, mesh) -> B.MeshContext:
             raise ValueError(
                 f"plan {plan.name!r} wants pp={plan.pp} but mesh axis "
                 f"{plan.pipe_axis!r} has {pp} devices")
-        raise NotImplementedError(
-            f"plan {plan.name!r}: the GPipe schedule over the mesh's "
-            f"{plan.pipe_axis!r} axis comes with {A8B}; a mesh without a "
-            f"pipe axis runs the plan's unpipelined core")
+    pipe = None
+    if pp > 1 and hasattr(mesh, "get_group"):
+        from ..launch.mesh import pipe_of
+
+        pipe = pipe_of(mesh, plan.pipe_axis)
     return B.MeshContext(
         mesh=mesh,
         dp_axes=plan.dp_axes,
@@ -541,6 +546,7 @@ def mesh_context(plan: ShardingPlan, mesh) -> B.MeshContext:
         pp=pp,
         pipe_axis=plan.pipe_axis if pp > 1 else None,
         n_micro=plan.n_micro,
+        pipe=pipe,
     )
 
 

@@ -97,8 +97,14 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
     DTensor's op propagation stands for XLA's GSPMD: each gradient is laid
     out like its param before the update (the data-parallel all-reduce or
     the FSDP reduce-scatter), and the metrics come back as plain
-    replicated 0-d tensors.  Pipe axes, expert parallelism and LoRA under a
-    plan are ROADMAP A8b and raise here.
+    replicated 0-d tensors.  Under a plan with a pipe axis the backbone
+    runs the GPipe schedule (``sharding.pipeline``), each ``grad_accum``
+    chunk pipelined; a leaf the pipe axis replicates takes its gradient on
+    the stages that use it (the embedding on stage 0), as a partial sum over
+    the pipe axis that the redistribution to the leaf's layout reduces, so
+    every rank updates it alike.  A context with ``pp > 1`` and no mesh runs
+    every stage on this device.  LoRA under a plan is ROADMAP A8b and raises
+    here.
     """
 
     trainable = getattr(optimizer, "trainable", None)
@@ -126,7 +132,7 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
         else:
             metrics, grads = value_and_grad(loss_fn, state["params"], batch,
                                             trainable=trainable)
-        if mesh_ctx is not None:
+        if mesh_ctx is not None and mesh_ctx.mesh is not None:
             grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
                                                          p.placements),
                              grads, state["params"])
@@ -146,13 +152,11 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
 
 
 def _refuse_a8b(model, trainable, mesh_ctx) -> None:
-    """What a mesh does not train in this part of the parallelism item."""
+    """What a mesh does not train yet: LoRA under a plan, models other than
+    the decoder, and the archs ``refuse_mesh`` names."""
     from ..models.transformer import DecoderLM, refuse_mesh
     from ..sharding.plans import A8B
 
-    if mesh_ctx.ep_enabled:
-        raise NotImplementedError(
-            f"expert parallelism (an ep plan) comes with {A8B}")
     if trainable is not None:
         raise NotImplementedError(f"LoRA under a plan comes with {A8B}")
     if not isinstance(model, DecoderLM):

@@ -10,7 +10,12 @@
   per-device FLOPs within ``FLOPS_TOL`` of JAX's.
 - The Whisper x ``long_500k`` skip record ``==`` JAX's, with no process
   group started; decode shapes and the archs a mesh does not run yet
-  raise naming ROADMAP A8b.
+  raise naming ROADMAP A8b; full-width DeepSeekMoE's ``train_4k`` dry-runs
+  under ``fsdp_tp_ep``.
+- A reduced MoE under ``fsdp_tp_ep`` against JAX's dryrun on 8 forced
+  devices (keys and ``EQUAL_KEYS``) and a reduced StableLM under
+  ``pp2_fsdp_tp`` on a fake world of 256 ranks (JAX's keys, plan and
+  pipeline record), the EP collectives and the pipe shift counted.
 - On a fake 2 x 2 world, each plan's collectives against the traffic its
   layouts imply.
 - The kernel ops on ``meta``: shapes, dtypes, no launch, and FLOP formulas
@@ -145,12 +150,22 @@ def test_whisper_long_500k_skip_record_starts_no_group(tmp_path, monkeypatch):
 def test_later_slices_raise_naming_a8b(tmp_path, arch, shape, monkeypatch):
     """Decode shapes (the serve step under a mesh, the cache's layout) and
     the archs a mesh does not run yet raise naming ROADMAP A8b, after the
-    skip check and before any process group."""
-    monkeypatch.setattr(MESH, "fake_world", None)
+    skip check and before any process group.  DeepSeekMoE's ``train_4k``
+    dry-runs under its default plan, ``fsdp_tp_ep``, on the production
+    mesh's fake world of 256 ranks (full width)."""
     doc = {"run": {"kind": "dryrun", "name": "a8b",
                    "output_dir": str(tmp_path / "a8b")},
            "arch": {"component_key": "arch_config", "variant_key": arch},
            "shape": {"component_key": "shape", "variant_key": shape}}
+    if arch == "deepseek_moe_16b":
+        res = api.execute_doc(doc, device="cpu", log=_quiet)
+        assert res["plan"] == ("fsdp_tp_ep(dp=data; fsdp=data; tp=model; "
+                               "ep=model+storage=data)")
+        assert res["chips"] == 256 and res["sharding_warnings"] == []
+        assert res["collective_counts"]["all-gather"] > 0
+        assert not dist.is_initialized()
+        return
+    monkeypatch.setattr(MESH, "fake_world", None)
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
         api.execute_doc(doc, device="cpu", log=_quiet)
     assert not dist.is_initialized()
@@ -337,3 +352,86 @@ def test_dryrun_modules_never_import_jax_or_repro():
             text = f.read()
         assert not re.search(r"^\s*(from|import) (repro|jax)\b", text,
                              re.M), rel
+
+
+# ---------------------------------------------------------------------------
+# the MoE under expert parallelism and a dense arch under the GPipe
+# schedule
+# ---------------------------------------------------------------------------
+#: (arch, JAX's mesh of 8 devices, the port's mesh, plan), reduced, train
+#: 16 x 64: the MoE on JAX's mesh (its full width on 256 ranks is
+#: ``test_later_slices_raise_naming_a8b``'s), the pipelined StableLM on a
+#: fake world of 256 ranks
+A8B_TRAINING = {
+    "moe-fsdp_tp_ep": ("deepseek_moe_16b", {"dp": 2, "tp": 4},
+                       {"dp": 2, "tp": 4}, "fsdp_tp_ep"),
+    "stablelm-pp2_fsdp_tp": ("stablelm_1p6b", {"dp": 2, "tp": 2, "pp": 2},
+                             {"dp": 8, "tp": 16, "pp": 2}, "pp2_fsdp_tp"),
+}
+_A8B_SHAPE = {"seq_len": 64, "global_batch": 16, "kind": "train"}
+
+_JAX_A8B = """
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+from repro.run import api
+import test_torch_dryrun as T
+out = {}
+for case, (arch, mesh, _, plan) in T.A8B_TRAINING.items():
+    res = api.execute_doc(T._doc(arch, T._A8B_SHAPE, sys.argv[3] + "/" + case,
+                                 mesh=mesh, plan=plan), write_files=False)
+    out[case] = {"keys": sorted(res),
+                 "equal": {k: res[k] for k in T.EQUAL_KEYS}}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_a8b(tmp_path_factory):
+    """JAX's dryruns of the two cases on 8 forced host devices, in a
+    subprocess (this process's JAX has one device)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_A8B, os.path.join(here, "..", "src"),
+         here, str(tmp_path_factory.mktemp("jax_a8b"))],
+        capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", list(A8B_TRAINING))
+def test_ep_and_pipelined_dryruns_match_jax(tmp_path, case, jax_a8b):
+    """A reduced DeepSeekMoE train step under ``fsdp_tp_ep`` on JAX's 2 x
+    4 mesh: JAX's keys and its ``EQUAL_KEYS`` values (the plan, the
+    ``pipeline`` record, the warnings, the argument bytes).  A reduced
+    StableLM under ``pp2_fsdp_tp`` on a fake world of 256 ranks (2 x 8 x 16
+    ``(pipe, data, model)``): JAX's keys, plan and ``pipeline`` record
+    (JAX's on 2 x 2 x 2).  EP's all-gather of the experts' stored
+    ``d_model`` shards and its reduction of the partial sums are counted;
+    the pipe shift is counted as ``all-to-all`` (``all_to_all_single``
+    with one non-empty split, where JAX's is a ``collective-permute``): S +
+    M - 2 shifts in the forward and as many in the backward."""
+    arch, jax_mesh, mesh, plan = A8B_TRAINING[case]
+    want = jax_a8b[case]
+    missing = {"xla_cost_flops_unscaled", "mem_generated_code_size_in_bytes"}
+    res = api.execute_doc(_doc(arch, _A8B_SHAPE, str(tmp_path / "p"),
+                               mesh=mesh, plan=plan), device="cpu", log=_quiet)
+    assert set(res) == set(want["keys"]) - missing
+    same = EQUAL_KEYS if mesh == jax_mesh else ("plan", "pipeline")
+    for key in same:
+        assert res[key] == want["equal"][key], (key, res[key])
+    counts = res["collective_counts"]
+    if "pp" in mesh:
+        info = res["pipeline"]
+        assert res["chips"] == 256
+        assert info["pp"] == 2 and info["n_micro"] == 4
+        assert counts["all-to-all"] >= 2 * (info["pp"] + info["n_micro"] - 2)
+    else:
+        assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
+    assert not dist.is_initialized()

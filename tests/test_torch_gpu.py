@@ -977,6 +977,40 @@ def test_fsdp_tp_step_through_flash_equals_the_no_mesh_step(cuda):
         MESH.shutdown()
 
 
+def test_stage_local_pipelined_step_through_flash_equals_the_step(cuda):
+    """One train step of reduced Qwen (2 layers) through ``flash_fwd`` with
+    the pipelined backbone stage-local (``pp`` 2, 4 microbatches, no pipe
+    group) against the unpipelined step: the kernel launches 2 layers x 4
+    microbatches x 2 (forward and remat recompute) times, each at a
+    quarter of the batch, and the loss and every gradient are within
+    ``chip_smoke.py``'s bf16 bounds for full-width Qwen (1e-3 on the loss,
+    0.06 of each leaf's largest gradient)."""
+    from repro_torch.models import base as B
+    from repro_torch.tree import tree_leaves
+
+    model, _, state = _card_train_state(cuda)
+    model = type(model)(model.cfg.with_(use_flash_kernel=True))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(3, model.cfg.vocab, (8, 128), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    from repro_torch.train import steps as ST
+
+    def grads(ctx):
+        return ST.value_and_grad(
+            lambda p, b: ST.compute_loss(model, p, b, ctx), state["params"],
+            batch)
+
+    want_aux, want = grads(None)
+    before = ops.launches
+    got_aux, got = grads(B.MeshContext(pp=2, n_micro=4))
+    assert ops.launches - before == model.cfg.n_layers * 4 * 2
+    assert abs(float(got_aux["ce"]) - float(want_aux["ce"])) <= 1e-3
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 0.06 * scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "mamba2_780m"])
 def test_card_step_counts_what_its_dryrun_counts(cuda, arch):

@@ -84,6 +84,29 @@ def test_synthetic_dataset_files_equal_jax(tmp_path):
             assert a.read() == b.read()
 
 
+def test_synthetic_dataset_appears_whole_to_ranks_writing_it_at_once(
+        tmp_path):
+    """The ranks of one run write its synthetic dataset at once: a rank
+    that finds only another's partial tokens (no doc index yet) writes the
+    dataset itself instead of reading the missing index, each file moves
+    into place whole, and no temporary file is left."""
+    from repro_torch.core import components as C
+
+    prefix = str(tmp_path / "d")
+    PD.synthetic_dataset(30000, 512, prefix + "_whole", seed=3)
+    with open(prefix + ".tokens.u32", "wb") as f:
+        f.write(b"\0" * 8)
+    ds = C._synthetic_chunked(30000, 512, prefix, 32, seed=3)
+    assert len(ds) > 0
+    for suffix in (".tokens.u32", ".docidx.npy"):
+        with open(prefix + suffix, "rb") as a, \
+                open(prefix + "_whole" + suffix, "rb") as b:
+            assert a.read() == b.read()
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        p + s for p in ("d", "d_whole") for s in (".tokens.u32",
+                                                  ".docidx.npy"))
+
+
 def test_sharded_loader_batches_equal_jax(tmp_path):
     PD.synthetic_dataset(30000, 512, str(tmp_path / "d"), seed=4)
     jl = JD.ShardedLoader(JD.ChunkedLMDataset(

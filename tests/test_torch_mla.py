@@ -407,7 +407,9 @@ def _routes():
     run): JAX's indices with its router input and weights, through
     ``jax.debug.callback`` inside jit, and the port's indices."""
     rec = {"jax": [], "port": []}
-    jroute, proute = JMOE.route, PMOE.route
+    # the port's layer routes through ``route_stats`` (the balance loss
+    # is formed from its sums: ROADMAP C8)
+    jroute, proute = JMOE.route, PMOE.route_stats
 
     def jax_route(cfg, w, x):
         out = jroute(cfg, w, x)
@@ -421,7 +423,7 @@ def _routes():
         return out
 
     with mock.patch.object(JMOE, "route", jax_route), \
-            mock.patch.object(PMOE, "route", port_route):
+            mock.patch.object(PMOE, "route_stats", port_route):
         yield rec
 
 

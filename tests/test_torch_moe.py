@@ -111,7 +111,9 @@ def _routes():
     weights, through ``jax.debug.callback`` inside jit, and the port's
     indices."""
     rec = {"jax": [], "port": []}
-    jroute, proute = JMOE.route, MOE.route
+    # the port's layer routes through ``route_stats`` (the balance loss
+    # is formed from its sums: ROADMAP C8)
+    jroute, proute = JMOE.route, MOE.route_stats
 
     def jax_route(cfg, w, x):
         out = jroute(cfg, w, x)
@@ -125,7 +127,7 @@ def _routes():
         return out
 
     with mock.patch.object(JMOE, "route", jax_route), \
-            mock.patch.object(MOE, "route", port_route):
+            mock.patch.object(MOE, "route_stats", port_route):
         yield rec
 
 
@@ -207,10 +209,23 @@ def test_unported_archs_name_their_item(arch, item):
 
 
 def test_expert_parallel_mesh_is_refused(reduced):
-    x = torch.zeros((1, 4, 256))
-    with pytest.raises(NotImplementedError, match="A8"):
-        MOE.moe_forward(reduced["cfg"], reduced["pp"]["moe_blocks"]["moe"],
-                        x, mesh=object())
+    """Expert parallelism is no longer refused: ``moe_forward`` takes JAX's
+    ``mesh_ctx`` and ``storage_axes``; an EP context with no mesh (no
+    devices to spread the experts over) runs the one-device path, as JAX's
+    condition says (``tests/test_torch_ep.py`` holds the EP path against
+    JAX's)."""
+    from repro_torch.models import base as B
+
+    cfg, p = reduced["cfg"], reduced["pp"]["moe_blocks"]["moe"]
+    p = {k: (v[0] if not isinstance(v, dict) else
+             {kk: vv[0] for kk, vv in v.items()}) for k, v in p.items()}
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    ctx = B.MeshContext(tp_axis="model", ep_enabled=True)
+    assert not MOE.use_ep(cfg, ctx)
+    want = MOE.moe_forward(cfg, p, x)
+    got = MOE.moe_forward(cfg, p, x, ctx, ("data",))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------

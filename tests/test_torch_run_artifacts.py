@@ -33,8 +33,9 @@ from repro_torch.run.overrides import apply_overrides, parse_overrides
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CONFIGS = os.path.join(ROOT, "examples", "configs")
 PORTED = ["quickstart", "serve", "serve_engine", "warmstart", "sft", "dpo",
-          "bench", "lr_sweep", "ablation_dryrun", "dryrun", "trace"]
-NOT_PORTED = {"train_pp": "A8b"}
+          "bench", "lr_sweep", "ablation_dryrun", "dryrun", "trace",
+          "train_pp"]
+NOT_PORTED = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -149,6 +150,7 @@ def test_validate_examples(capsys):
     status = {os.path.splitext(os.path.basename(line.split()[1]))[0]:
               line for line in lines}
     assert set(status) == set(PORTED) | set(NOT_PORTED)
+    assert len(status) == 12
     for name in PORTED:
         assert status[name].startswith("ok "), status[name]
     for name, item in NOT_PORTED.items():

@@ -517,16 +517,16 @@ def test_validate_checks_nested_component_configs():
 
 
 def test_validate_of_a_later_slice_names_its_item():
-    """A plan validates as in JAX (A8a); a local mesh with a pipe axis,
-    which JAX validates, is refused naming its item (A8b)."""
+    """A plan validates as in JAX (A8a), and so does a local mesh with a
+    pipe axis (A8b's GPipe schedule), with JAX's counts."""
     raw = {"plan": {"component_key": "sharding_plan", "variant_key": "fsdp"}}
     assert _outcome(lambda: jax_validate_config(raw)) == \
         _outcome(lambda: validate_config(raw))
     pipe = {"mesh": {"component_key": "mesh_provider", "variant_key": "local",
                      "config": {"dp": 4, "pp": 2}}}
     assert _outcome(lambda: jax_validate_config(pipe))[0] == "ok"
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        validate_config(pipe)
+    assert _outcome(lambda: validate_config(pipe)) == \
+        _outcome(lambda: jax_validate_config(pipe))
 
 
 def test_port_never_imports_jax_or_repro():
