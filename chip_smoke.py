@@ -99,8 +99,9 @@
    warmstart of 2 steps from it; ``replay`` of the interrupted run's
    directory (the same fingerprint, the same losses).  Prints the
    snapshot's stall, the writer's seconds and bytes and the restore time.
-7. Resilience and run accounting: full-width Qwen1.5-0.5B through the
-   flash kernel (batch 8 x 1024, a checkpoint every 2 steps, 6 steps)
+7. Resilience and run accounting: full-width Qwen1.5-0.5B at 12 of its 24
+   layers (``RESIL_LAYERS``) through the flash kernel (batch 8 x 1024, a
+   checkpoint every 2 steps, 6 steps)
    straight with a ``torch.profiler`` window at step 3 (its ``flash_fwd``
    kernel events counted in the trace); with telemetry off (losses ``==``);
    with ``nan_loss`` at 2 and ``nan_params`` at 5 under the sentinel (two
@@ -172,6 +173,22 @@
    and one step's loss and gradients against ``moe_dense`` with the
    dropped assignments' gates zeroed (or the no-mesh step where none
    drops) within ``moe16b``'s bf16 tolerances.
+10c. Serving under sharding plans (``--only serve_mesh``, ROADMAP A8b's
+   serving half), each run beside the same run with no mesh: (e) first,
+   one full-width Qwen1.5-0.5B decode step (8 slots, a cache of 1024)
+   under ``ddp`` on a ``(1, 1)`` NCCL mesh under the dryrun's counter
+   beside its dryrun on a fake world (FLOPs, bytes, collectives and
+   argument bytes equal); then on a ``(1, 1)`` NCCL mesh (a) Qwen's static
+   shim at 8 x 1024 x 32 through ``flash_fwd`` under ``fsdp_tp`` (streams
+   ``==``, 24 launches an admission, tok/s and peak memory), (b) Qwen's
+   paged engine under ``ddp`` on 8 requests of the engine phase's traffic
+   (streams and prefix hit rate ``==``), (c) Mamba2's shim at 8 x 1024 x
+   32 through ``ssd_scan`` under ``fsdp_tp`` (streams ``==``, 48 launches
+   an admission), (d) DeepSeekMoE-16B at depth 4 through its shim at 8 x
+   512 x 32 under ``serve_ep`` (EP degree 1: every admission's and tick's
+   T·k and dropped share, first-token logits within the bf16 MoE bound of
+   the no-mesh shim, streams equal or parted where the no-mesh logits tie
+   within that bound).  The group is destroyed at the end of the phase.
 11. The dryrun, trace and dryrun sweep (``--only dryrun``, ROADMAP A9b's
    dryrun half): (a) ``dryrun.yaml`` and ``trace.yaml`` unchanged through
    the port's CLI, each in a child process on the host from a temporary
@@ -189,7 +206,8 @@
    are dropped), 48 / 96 launches, the measured ms/step beside
    ``max(terms)`` and the traced peak beside ``max_memory_allocated``.
 12. The continuous-batching engine: ``serve_engine.yaml`` unchanged but for
-   its output directory; full-width Qwen on the paged engine; full-width
+   its output directory; full-width Qwen at 6 of its 24 layers
+   (``ENGINE_QWEN_LAYERS``) on the paged engine; full-width
    Mamba2 and full-width Zamba2-2.7B (``use_flash_kernel=True``) on the
    dense engine and full-width DeepSeekMoE-16B on the paged engine (pages
    of 16, chunk 256), each 16 sampled requests of 256/512/1024 prompt
@@ -2076,6 +2094,10 @@ def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
 # resilience and run accounting: rollback, retried IO, preemption, profiler
 # ---------------------------------------------------------------------------
 RESIL_STEPS = 6
+# full-width Qwen cut to 12 of its 24 layers in the resil phase (its
+# steps are host-bound: a step's time goes with its layers), to keep the
+# script within its time with the serve_mesh phase
+RESIL_LAYERS = 12
 # the three chaos blocks of the resil phase, each a run.train.resilience
 RESIL_ROLLBACK = {"sentinel": {"nan": True}, "max_rollbacks": 3,
                   "faults": [{"kind": "nan_loss", "at": 2},
@@ -2113,8 +2135,9 @@ def _ckpt_steps(out_dir: str) -> list:
 
 
 def phase_resil_qwen(data_dir: str, results: dict, card: str) -> bool:
-    """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
-    document, batch 8 x 1024, ``remat: full``, a checkpoint every 2 steps,
+    """Full-width Qwen1.5-0.5B at ``RESIL_LAYERS`` of its 24 layers through
+    the flash kernel (``TRAIN_SLICES``' document, batch 8 x 1024, ``remat:
+    full``, a checkpoint every 2 steps,
     metrics every step), 6 steps, each run through the run API on the card:
     (a) straight with a ``torch.profiler`` window at step 3; (b) straight
     with telemetry off; (c) ``nan_loss`` at 2 and ``nan_params`` at 5 under
@@ -2131,15 +2154,26 @@ def phase_resil_qwen(data_dir: str, results: dict, card: str) -> bool:
     from repro_torch.core.gym import Gym
     from repro_torch.run import api
 
+    from repro_torch.configs import get_config
+    from repro_torch.device import MetaGenerator
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
     spec = TRAIN_SLICES["qwen"]
     n_tokens = (RESIL_STEPS + 2) * TRAIN_BATCH * (TRAIN_SEQ + 1)
     base = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
             f"loader.config.global_batch={TRAIN_BATCH}",
             f"dataset.config.n_tokens={n_tokens}", *spec["sets"],
+            f"arch.config.n_layers={RESIL_LAYERS}",
             f"run.train.steps={RESIL_STEPS}", "gym.config.ckpt_every=2",
             "gym.config.log_every=1"]
     counters = _counters()
-    layers = 24 * 2     # attention layers x (forward + remat recompute)
+    layers = RESIL_LAYERS * 2   # attention layers x (forward + recompute)
+    # 6·N·D with N the cut model's params counted on meta
+    n_params = sum(t.numel() for t in tree_leaves(build_model(
+        get_config("qwen1p5_0p5b").with_(n_layers=RESIL_LAYERS)).init(
+            MetaGenerator())))
+    flops = 6.0 * n_params * TRAIN_BATCH * TRAIN_SEQ
     tag = f"[{card}]"
     t_phase = time.perf_counter()
 
@@ -2199,7 +2233,7 @@ def phase_resil_qwen(data_dir: str, results: dict, card: str) -> bool:
     ok &= summary("a, straight, profiled", a, layers * RESIL_STEPS)
     ms = _step_ms(a["res"]["history"])
     ok &= mfu_line("resil qwen: (a)", a["res"], float(np.median(ms)),
-                   spec["flops"], card)
+                   flops, card)
     trace = a["res"].get("profile_trace", "")
     n_ev = _flash_kernel_events(trace) if trace else 0
     prof_ok = bool(trace) and n_ev == layers
@@ -2837,7 +2871,10 @@ def _posttrain_documents(data_dir: str) -> bool:
 # the continuous-batching engine
 # ---------------------------------------------------------------------------
 # full-width Qwen on the paged engine: a prefix-heavy trace of sampled
-# requests, every fourth greedy, closed loop
+# requests, every fourth greedy, closed loop; depth cut to 6 of its 24
+# layers (the phase is host-bound, a tick's time goes with its layers) to
+# keep the script within its time with the serve_mesh phase
+ENGINE_QWEN_LAYERS = 6
 ENGINE_QWEN = {"n_slots": 8, "max_len": 1024, "block_len": 16,
                "prefill_chunk": 256}
 ENGINE_QWEN_TRACE = {"n_requests": 32, "prefix_len": 512, "n_prefixes": 2,
@@ -3303,6 +3340,374 @@ def _timed_steps(step, state, batch, steps):
         ms.append(1e3 * (time.perf_counter() - t0))
     torch.cuda.synchronize()
     return state, losses, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+# the serve_mesh phase (ROADMAP A8b's serving half): full-width serving
+# under plans on a one-rank NCCL group, each beside the same run with no
+# mesh.  Under serve_ep a decode tick of 8 slots (T·k 48) keeps every
+# assignment (each expert's C_e is at least 8, and a token picks an expert
+# once), but an admission of T prompt tokens gives each expert C_e =
+# 1.25·T·k/E slots and drops what passes them, as JAX's EP does: the MoE
+# shim's no-mesh run therefore mirrors those drops (moe_dense with the
+# dropped assignments' gates zeroed, as the pp phase's reference), so the
+# two differ only in bf16 summation order
+SERVE_MESH_SHIMS = {
+    "qwen": {"arch": "qwen1p5_0p5b", "with": {"use_flash_kernel": True},
+             "plan": "fsdp_tp", "kernel": "flash_fwd", "prompt": 1024},
+    "mamba2": {"arch": "mamba2_780m", "with": {}, "plan": "fsdp_tp",
+               "kernel": "ssd_scan", "prompt": 1024},
+    "moe16b": {"arch": "deepseek_moe_16b",
+               "with": {"n_layers": 4, "use_flash_kernel": True},
+               "plan": "serve_ep", "kernel": "flash_fwd", "prompt": 512},
+}
+SERVE_MESH_ENGINE_TRACE = dict(ENGINE_QWEN_TRACE, n_requests=8,
+                               gen_tokens=(32,))
+# the MoE shim's first-token logits under serve_ep against the no-mesh
+# shim: MOE16B_LOGITS' bf16 MoE row (the main path against moe_dense, one
+# bf16 rounding of each routed output from f32 sums of other orders)
+SERVE_MESH_MOE_TOL = next(t for d, plain, t, _, _ in MOE16B_LOGITS
+                          if d == "bfloat16" and plain == "MoE")
+SERVE_MESH_DECODE = {"batch": 8, "cache": 1024, "timed": 3}
+
+
+def _shim_run(model, params, spec, mesh=None):
+    """The static shim (``serve_benchmark``) at ``SLICE_BATCH`` x
+    ``spec['prompt']`` x ``SLICE_GEN`` with every launch counter set to 0
+    just before it: (result, launches, peak GiB, wall s)."""
+    import torch
+
+    from repro_torch.launch.serve import serve_benchmark
+    from repro_torch.sharding import plans as PL
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = serve_benchmark(
+        model, batch=SLICE_BATCH, prompt_len=spec["prompt"], gen=SLICE_GEN,
+        seed=0, params=params, device="cuda", mesh=mesh,
+        plan=PL.make_plan(spec["plan"]) if mesh is not None else None,
+        log=_quiet)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: c.launches for name, c in counters.items()}
+    return res, counts, torch.cuda.max_memory_allocated() / 2**30, wall
+
+
+def _shim_line(res, counts, peak, wall) -> str:
+    return (f"prefill {res['prefill_tok_s']} tok/s, decode "
+            f"{res['decode_tok_s']} tok/s, peak {peak:.3f} GiB, wall "
+            f"{wall:.2f}s, launches {counts}")
+
+
+def _moe_routes():
+    """A patch of ``moe.capacity_buckets`` that tallies each EP call's
+    assignments and the ones it drops, by T·k: (patch, {T·k: [calls,
+    assignments, dropped]})."""
+    from repro_torch.models import moe as MOE
+
+    tally: dict = {}
+    real = MOE.capacity_buckets
+
+    def counted(cfg, idx, e0, E_loc, ep_size):
+        out = real(cfg, idx, e0, E_loc, ep_size)
+        local, keep = out[0], out[1]
+        row = tally.setdefault(int(idx.numel()), [0, 0, 0])
+        row[0] += 1
+        row[1] += int(local.sum())
+        row[2] += int((local & ~keep).sum())
+        return out
+
+    return mock.patch.object(MOE, "capacity_buckets", counted), tally
+
+
+def _mirrored_drops(cfg):
+    """A patch of ``moe.moe_routed`` (the no-mesh main path) by
+    ``moe_dense`` with the gates of the assignments EP at degree 1 drops
+    zeroed: the first ``C_e`` of each expert's, in row-major order, kept
+    (:func:`_ep_capacity`, :func:`_first_per_expert`)."""
+    from repro_torch.models import moe as MOE
+
+    m = cfg.moe
+
+    def kept_dense(cfg_, p, x_flat, idx, gate):
+        C_e = _ep_capacity(x_flat.shape[0], m.top_k, m.n_routed, 1,
+                           m.capacity_factor)
+        keep = _first_per_expert(idx.reshape(-1), m.n_routed, C_e)
+        return MOE.moe_dense(cfg_, p, x_flat, idx,
+                             gate * keep.reshape(idx.shape).to(gate.dtype))
+
+    return mock.patch.object(MOE, "moe_routed", kept_dense)
+
+
+def _serve_mesh_shim(key: str, mesh, results: dict, card: str) -> bool:
+    """(a), (c), (d): one model's static shim under its plan beside the
+    same shim with no mesh."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import load_params
+    from repro_torch.sharding import plans as PL
+
+    spec = SERVE_MESH_SHIMS[key]
+    cfg = get_config(spec["arch"]).with_(**spec["with"])
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cuda")
+    layers = kernel_layers(cfg)[spec["kernel"]]
+    want = {name: 0 for name in _counters()}
+    want[spec["kernel"]] = layers * (SLICE_BATCH + 1)
+    if key == "moe16b":
+        with _mirrored_drops(cfg):
+            base, bcounts, bpeak, bwall = _shim_run(model, params, spec)
+    else:
+        base, bcounts, bpeak, bwall = _shim_run(model, params, spec)
+    patch, tally = _moe_routes()
+    with patch:
+        res, counts, peak, wall = _shim_run(model, params, spec, mesh)
+    add_launches(results, bcounts)
+    add_launches(results, counts)
+    got, ref = res["generated_ids"], base["generated_ids"]
+    same = sum(a == b for a, b in zip(got, ref))
+    ok = counts == want == bcounts and len(got) == SLICE_BATCH
+    print(f"serve_mesh ({'a' if key == 'qwen' else 'c' if key == 'mamba2' else 'd'}) "
+          f"{key}: {cfg.name} full width ({cfg.n_layers} layers), shim "
+          f"{SLICE_BATCH} x {spec['prompt']} x {SLICE_GEN} under "
+          f"{PL.make_plan(spec['plan']).describe()} on "
+          f"{_mesh_shape(mesh)} ({torch.distributed.get_backend()}): "
+          f"{_shim_line(res, counts, peak, wall)}; no mesh: "
+          f"{_shim_line(base, bcounts, bpeak, bwall)}; {spec['kernel']} "
+          f"{counts[spec['kernel']] // (SLICE_BATCH + 1)} an admission "
+          f"(want {layers}: {want}); streams equal {same}/{len(ref)} "
+          f"[{card}]", flush=True)
+    if key != "moe16b":
+        ok &= got == ref
+    else:
+        ok &= _serve_mesh_moe_checks(cfg, model, params, mesh, spec, got,
+                                     ref, tally, card)
+    print(f"serve_mesh {key}: {'ok' if ok else 'FAILED'}", flush=True)
+    del params
+    _free()
+    return bool(ok)
+
+
+def _serve_mesh_moe_checks(cfg, model, params, mesh, spec, got, ref, tally,
+                           card) -> bool:
+    """(d): every EP call's T·k and dropped share (0 in every tick), each
+    prompt's first-token logits under ``serve_ep`` against the no-mesh
+    prefill (the drops mirrored) within ``SERVE_MESH_MOE_TOL``, and each
+    parted stream's first differing tokens within that bound of each other
+    in the no-mesh logits of the common prefix (teacher-forced)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding import plans as PL
+
+    k = cfg.moe.top_k
+    tick = tally.get(SLICE_BATCH * k, [0, 0, 0])
+    ok = tick[0] > 0 and tick[2] == 0
+    adm = tally.get(spec["prompt"] * k, [0, 0, 0])
+    ok &= adm[0] > 0
+    # the shim's prompts (serve_benchmark's, seed 0)
+    prompts = np.random.default_rng(1).integers(
+        3, cfg.vocab, size=(SLICE_BATCH, spec["prompt"]), dtype=np.int32)
+    plan = PL.make_plan(spec["plan"])
+    ctx = PL.mesh_context(plan, mesh)
+    psh, _ = PL.param_shardings(plan, mesh, params, model.param_axes())
+    dparams = PL.distribute(params, psh)
+    errs, size = [], 0.0
+    for row in prompts:
+        tok = torch.as_tensor(row[None], dtype=torch.int64, device="cuda")
+        with _mirrored_drops(cfg):
+            lp, _ = model.prefill(params, {"tokens": tok})
+        lm, _ = model.prefill(dparams, {"tokens": tok}, mesh_ctx=ctx)
+        lm = lm.full_tensor()
+        errs.append(float((lm.float() - lp.float()).abs().max()))
+        size = max(size, float(lp.float().abs().max()))
+    ok &= max(errs) <= SERVE_MESH_MOE_TOL
+    ties = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a == b:
+            continue
+        j = next(t for t in range(len(a)) if a[t] != b[t])
+        seq = np.concatenate([prompts[i], np.asarray(b[:j], np.int32)])
+        tok = torch.as_tensor(seq[None], dtype=torch.int64, device="cuda")
+        with _mirrored_drops(cfg):
+            lp, _ = model.prefill(params, {"tokens": tok})
+        gap = abs(float(lp[0, a[j]]) - float(lp[0, b[j]]))
+        ties.append((i, j, round(gap, 4)))
+        ok &= gap <= SERVE_MESH_MOE_TOL
+    rows = {tk: f"{n} calls, {a} assignments, {d} dropped (share "
+                f"{d / max(a, 1):.6g})" for tk, (n, a, d) in sorted(tally.items())}
+    print(f"serve_mesh (d) moe16b: EP at degree 1 by T·k (a tick "
+          f"{SLICE_BATCH * k}, an admission {spec['prompt'] * k}): {rows}; "
+          f"first-token logits serve_ep vs no mesh (the admission's drops "
+          f"mirrored) max abs diff {max(errs):.6g} (per prompt "
+          f"{[round(e, 4) for e in errs]}), max |logit| {size:.4f}, tol "
+          f"{SERVE_MESH_MOE_TOL} (MOE16B_LOGITS' bf16 MoE row); parted "
+          f"streams (request, token, no-mesh logit gap) {ties} [{card}]",
+          flush=True)
+    del dparams
+    return bool(ok)
+
+
+def _serve_mesh_engine(mesh, results: dict, card: str) -> bool:
+    """(b): full-width Qwen's paged engine under ``ddp`` beside the engine
+    with no mesh, on 8 requests of the engine phase's traffic (2 shared
+    512-token prefixes, 32 tokens each, every fourth greedy)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, load_params
+    from repro_torch.serve.workload import shared_prefix_trace
+    from repro_torch.sharding import plans as PL
+
+    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True)
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cuda")
+    t = SERVE_MESH_ENGINE_TRACE
+    rows = {}
+    for label, kw in (("no mesh", {}),
+                      ("ddp", {"mesh": mesh, "plan": PL.make_plan("ddp")})):
+        trace = shared_prefix_trace(
+            t["n_requests"], cfg.vocab, prefix_len=t["prefix_len"],
+            n_prefixes=t["n_prefixes"], seed=0, prompt_lens=t["prompt_lens"],
+            gen_tokens=t["gen_tokens"], max_len=ENGINE_QWEN["max_len"],
+            **SAMPLING)
+        for r in trace[::4]:
+            r.temperature = 0.0
+        engine = ServeEngine(model, params, **ENGINE_QWEN, **kw)
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        res = engine.run(trace, realtime=False)
+        torch.cuda.synchronize()
+        counts = {name: c.launches for name, c in counters.items()}
+        add_launches(results, counts)
+        rows[label] = (res, counts, torch.cuda.max_memory_allocated() / 2**30)
+        del engine
+        _free()
+    (b, bc, bp), (m, mc, mp) = rows["no mesh"], rows["ddp"]
+    streams = [r["gen_ids"] for r in m["requests"]]
+    want = [r["gen_ids"] for r in b["requests"]]
+    ok = (streams == want and m["completed"] == t["n_requests"]
+          and m["prefill_cache_hit_rate"] == b["prefill_cache_hit_rate"] > 0
+          and mc == bc == {name: 0 for name in _counters()})
+    print(f"serve_mesh (b) qwen engine: paged (block_len "
+          f"{ENGINE_QWEN['block_len']}, chunk {ENGINE_QWEN['prefill_chunk']}"
+          f"), {t['n_requests']} requests on {t['n_prefixes']} prefixes of "
+          f"{t['prefix_len']}, {t['gen_tokens'][0]} tokens each, "
+          f"{SAMPLING}, every fourth greedy; under ddp on "
+          f"{_mesh_shape(mesh)}: {m['tok_s']} tok/s, decode "
+          f"{m['decode_tok_s']} tok/s, tpot p50 {m['tpot_ms']['p50']:.3f} "
+          f"ms, elapsed {m['elapsed_s']}s, peak {mp:.3f} GiB, hit rate "
+          f"{m['prefill_cache_hit_rate']}, launches {mc}; no mesh: "
+          f"{b['tok_s']} tok/s, decode {b['decode_tok_s']} tok/s, tpot p50 "
+          f"{b['tpot_ms']['p50']:.3f} ms, elapsed {b['elapsed_s']}s, peak "
+          f"{bp:.3f} GiB, hit rate {b['prefill_cache_hit_rate']}; streams "
+          f"equal {streams == want} [{card}]: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    del params
+    _free()
+    return bool(ok)
+
+
+def _serve_mesh_decode(results: dict, card: str) -> bool:
+    """(e): one full-width Qwen decode step (``make_serve_step`` at
+    ``SERVE_MESH_DECODE``'s batch and cache) on the card under the
+    dryrun's counter beside its dryrun: FLOPs, bytes, collectives and
+    argument bytes equal, ms/step beside ``max(terms)``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.models import build_model
+    from repro_torch.sharding import plans as PL
+
+    d = SERVE_MESH_DECODE
+    cfg = get_config("qwen1p5_0p5b")
+    shape = InputShape("card", d["cache"], d["batch"], "decode")
+    plan = PL.make_plan("ddp")
+    dry = DR.compile_run(cfg, shape, MESH.LocalMesh(1, 1), plan)
+    roofline = max(dry["compute_term_s"], dry["memory_term_s"],
+                   dry["collective_term_s"])
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        setup = DR.build_step(build_model(cfg), shape, mesh, plan,
+                              device="cuda")
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        with CostCounter(arguments=setup.args) as counter:
+            out = setup.fn(*setup.args)
+            torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        add_launches(results, launches)
+        ana, mem = counter.analyze(), counter.memory(setup.args, out)
+        ms = []
+        params, cache, tokens, positions = setup.args
+        for _ in range(d["timed"]):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            setup.fn(params, cache, tokens, positions)
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        tok = out[0]
+        run_ok = (ana["flops"] == dry["hlo_flops_per_dev"]
+                  and ana["bytes"] == dry["hlo_bytes_per_dev"]
+                  and ana["collective_counts"] == dry["collective_counts"]
+                  and mem["mem_argument_size_in_bytes"]
+                  == dry["mem_argument_size_in_bytes"]
+                  and tok.shape == (d["batch"],)
+                  and 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+                  and all(n == 0 for n in launches.values()))
+        med = sorted(ms)[len(ms) // 2]
+        print(f"serve_mesh (e) decode: {cfg.name} full width, make_serve_step"
+              f" at batch {d['batch']} x cache {d['cache']} under ddp on a "
+              f"(1, 1) mesh; flops/device card {ana['flops']!r} vs dryrun "
+              f"{dry['hlo_flops_per_dev']!r}; bytes/device card "
+              f"{ana['bytes']!r} vs dryrun {dry['hlo_bytes_per_dev']!r}; "
+              f"collectives card {ana['collective_counts']} vs dryrun "
+              f"{dry['collective_counts']}; arguments card "
+              f"{mem['mem_argument_size_in_bytes']} B vs dryrun "
+              f"{dry['mem_argument_size_in_bytes']} B; launches {launches}; "
+              f"ms/step {json.dumps([round(x, 3) for x in ms])}, median "
+              f"{med:.3f} vs max(terms) {roofline * 1e3:.4f} ms (dominant "
+              f"{dry['dominant_term']}) [{card}]: "
+              f"{'ok' if run_ok else 'FAILED'}", flush=True)
+        del setup, out, params, cache
+    finally:
+        MESH.shutdown()
+        _free()
+    return bool(run_ok)
+
+
+def phase_serve_mesh(results: dict, card: str) -> bool:
+    """Serving under sharding plans on the card (ROADMAP A8b's serving
+    half): (e) the decode step against its dryrun, then (a)-(d) on a
+    one-rank NCCL group's ``(1, 1)`` mesh, each beside the same run with
+    no mesh.  The group is destroyed at the end of the phase."""
+    from repro_torch.launch import mesh as MESH
+
+    ok = _serve_mesh_decode(results, card)
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        ok &= _serve_mesh_shim("qwen", mesh, results, card)
+        ok &= _serve_mesh_engine(mesh, results, card)
+        ok &= _serve_mesh_shim("mamba2", mesh, results, card)
+        ok &= _serve_mesh_shim("moe16b", mesh, results, card)
+    finally:
+        MESH.shutdown()
+    return bool(ok)
 
 
 def phase_pp(data_dir: str, results: dict, card: str) -> bool:
@@ -4148,7 +4553,8 @@ def phase_engine_qwen(results: dict, profile_dir: str = "") -> bool:
     from repro_torch.serve.sampling import request_key, token_key
     from repro_torch.serve.workload import shared_prefix_trace
 
-    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True)
+    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True,
+                                           n_layers=ENGINE_QWEN_LAYERS)
     model = build_model(cfg)
     params = load_params(model, seed=0, device="cuda")
     t = ENGINE_QWEN_TRACE
@@ -4182,7 +4588,8 @@ def phase_engine_qwen(results: dict, profile_dir: str = "") -> bool:
     lost = sorted({int(trace[i].rid) % t["n_prefixes"]
                    for i in range(len(trace)) if got[i] < want[i]})
     hits_ok = got == want and res["prefill_cache_hit_rate"] == rate
-    print(f"engine qwen: {cfg.name} full width, paged (block_len "
+    print(f"engine qwen: {cfg.name} full width, depth {cfg.n_layers} of "
+          f"24, paged (block_len "
           f"{pg['block_len']}, n_blocks {pg['n_blocks']}, prefill_chunk "
           f"{pg['prefill_chunk']}), {len(trace)} requests (prefix "
           f"{t['prefix_len']} x {t['n_prefixes']}, tails {t['prompt_lens']}, "
@@ -4893,7 +5300,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, mesh, pp, sweep, dryrun, engine "
+                         "posttrain, mesh, pp, serve_mesh, sweep, dryrun, "
+                         "engine "
                          "(default: "
                          "all); a partial run prints no result line")
     args = ap.parse_args()
@@ -4984,6 +5392,8 @@ def main() -> int:
             run("mesh", lambda: phase_mesh(data_dir, results, card))
         if want("pp"):
             run("pp", lambda: phase_pp(data_dir, results, card))
+        if want("serve_mesh"):
+            run("serve_mesh", lambda: phase_serve_mesh(results, card))
         if want("sweep"):
             run("sweep", lambda: phase_sweep(data_dir, results, card))
         if want("dryrun"):

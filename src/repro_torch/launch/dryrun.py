@@ -26,9 +26,12 @@ The result has JAX's keys but two that torch cannot give:
 ``xla_cost_flops_unscaled`` (XLA's own cost analysis) and
 ``mem_generated_code_size_in_bytes`` (there is no compiled program).
 ``lower_s`` is the time to build the state and the inputs, ``compile_s``
-the traced step's.  Decode shapes (the serve step under a mesh and the
-cache's layout) and the archs that do not run under a mesh yet raise
-``NotImplementedError`` naming ROADMAP A8b, after the skip check.
+the traced step's.  A decode shape traces ``make_serve_step`` under the
+mesh: the params (cast to bf16 under ``serve_bf16``) laid out by the plan,
+the cache of ``shape.global_batch`` rows by ``plans.cache_shardings``, the
+tokens and positions by ``plans.batch_shardings``.  The archs that do not
+run under a mesh yet raise ``NotImplementedError`` naming ROADMAP A8b,
+after the skip check.
 """
 from __future__ import annotations
 
@@ -106,17 +109,22 @@ class StepSetup:
 
 def build_step(model, shape, mesh, plan, *, device="meta",
                grad_accum: int = 1, bf16_params: bool = False,
-               seed: int = 0) -> StepSetup:
-    """The step that ``shape.kind`` runs (the train step, or the prefill),
-    its state and its batch laid out on ``mesh`` by ``plan``.  On ``meta``
-    the tensors hold no memory (a dryrun); on a card they are seeded:
-    params from ``model.init`` and tokens drawn in ``[0, vocab)``."""
+               serve_bf16: bool = False, seed: int = 0) -> StepSetup:
+    """The step that ``shape.kind`` runs (the train step, the prefill, or
+    one decode step), its state and its inputs laid out on ``mesh`` by
+    ``plan``.  On ``meta`` the tensors hold no memory (a dryrun); on a card
+    they are seeded: params from ``model.init``, tokens drawn in ``[0,
+    vocab)``, a decode step's positions in ``[0, seq_len)`` and its cache
+    zeroed, each rank allocating its block (``plans.pool_zeros``)."""
     device = torch.device(device)
     cfg = model.cfg
     gen = (MetaGenerator() if device.type == "meta"
            else torch.Generator(device).manual_seed(seed))
     mesh_ctx = PL.mesh_context(plan, mesh)
     storage_axes = plan.ep_storage_axes if plan.ep else ()
+    if shape.kind == "decode":
+        return _decode_step(model, shape, mesh, plan, mesh_ctx, gen, device,
+                            serve_bf16)
     batch = SP.input_specs(cfg, shape)["batch"]
     if device.type != "meta":
         batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen,
@@ -134,22 +142,48 @@ def build_step(model, shape, mesh, plan, *, device="meta",
         first = PL.distribute(state, state_sh)
         fn = ST.make_train_step(model, opt, mesh_ctx, storage_axes,
                                 grad_accum=grad_accum)
-    elif shape.kind == "prefill":
+    else:
         params = model.init(gen)
         pspecs, warnings = PL.param_shardings(plan, mesh, params,
                                               model.param_axes())
         first = PL.distribute(params, pspecs)
         fn = ST.make_prefill_step(model, mesh_ctx, storage_axes)
-    else:
-        raise NotImplementedError(_decode_refusal(shape.name))
     batch = PL.distribute(batch, PL.batch_shardings(plan, mesh, batch))
     return StepSetup(fn=fn, args=(first, batch), warnings=warnings)
 
 
-def _decode_refusal(shape_label: str) -> str:
-    return (f"dryrun of the decode shape {shape_label!r}: the serve step "
-            f"under a mesh and the cache's layout (plans.cache_shardings) "
-            f"come with {PL.A8B}")
+def _decode_step(model, shape, mesh, plan, mesh_ctx, gen, device,
+                 serve_bf16: bool) -> StepSetup:
+    """JAX's decode branch: ``make_serve_step(model, mesh_ctx)`` on the
+    params (bf16 under ``serve_bf16``: serving keeps no f32 master), the
+    cache of ``shape.global_batch`` rows laid out by ``cache_shardings``,
+    and the tokens and positions by ``batch_shardings``."""
+    from ..tree import tree_map
+
+    cfg = model.cfg
+    params = model.init(gen)
+    if serve_bf16:
+        params = tree_map(lambda p: p.to(torch.bfloat16)
+                          if p.dtype == torch.float32 else p, params)
+    pspecs, warnings = PL.param_shardings(plan, mesh, params,
+                                          model.param_axes())
+    params = PL.distribute(params, pspecs)
+    ins = SP.input_specs(cfg, shape, model=model)
+    csh = PL.cache_shardings(plan, mesh, ins["cache"], shape.global_batch)
+    cache = PL.pool_zeros(ins["cache"], csh, device)
+    toks = {"tokens": ins["tokens"], "positions": ins["positions"]}
+    if device.type != "meta":
+        toks = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch,),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32),
+                "positions": torch.randint(0, shape.seq_len,
+                                           (shape.global_batch,),
+                                           generator=gen, device=device,
+                                           dtype=torch.int32)}
+    toks = PL.distribute(toks, PL.batch_shardings(plan, mesh, toks))
+    return StepSetup(fn=ST.make_serve_step(model, mesh_ctx),
+                     args=(params, cache, toks["tokens"], toks["positions"]),
+                     warnings=warnings)
 
 
 def compile_run(cfg, shape, mesh, plan=None, *, grad_accum: int = 1,
@@ -164,7 +198,8 @@ def compile_run(cfg, shape, mesh, plan=None, *, grad_accum: int = 1,
     MeshProvider (built after the skip check, inside a fake world of its
     size) or a ``DeviceMesh`` of the caller's world, ``plan`` a
     ShardingPlan (default: per-arch), precision via the two bf16 flags
-    (``serve_bf16`` applies to decode shapes, which wait for ROADMAP A8b).
+    (``bf16_params`` applies to a train shape, ``serve_bf16`` to a decode
+    shape, as in JAX).
     """
     from ..models.transformer import refuse_mesh
 
@@ -174,11 +209,9 @@ def compile_run(cfg, shape, mesh, plan=None, *, grad_accum: int = 1,
     ok, why = SP.supports_shape(cfg, shape)
     if not ok:
         return {"arch": arch_label, "shape": shape_label, "skipped": why}
-    if shape.kind == "decode":
-        raise NotImplementedError(_decode_refusal(shape_label))
     refuse_mesh(cfg)
     kw = dict(grad_accum=grad_accum, bf16_params=bf16_params,
-              verbose=verbose, keep_messages=keep_messages,
+              serve_bf16=serve_bf16, verbose=verbose, keep_messages=keep_messages,
               arch_label=arch_label, shape_label=shape_label)
     if not hasattr(mesh, "build"):
         if mesh is None:
@@ -192,8 +225,9 @@ def compile_run(cfg, shape, mesh, plan=None, *, grad_accum: int = 1,
                       **kw)
 
 
-def _trace(cfg, shape, mesh, plan, *, grad_accum, bf16_params, verbose,
-           keep_messages, arch_label, shape_label) -> Dict[str, Any]:
+def _trace(cfg, shape, mesh, plan, *, grad_accum, bf16_params, serve_bf16,
+           verbose, keep_messages, arch_label,
+           shape_label) -> Dict[str, Any]:
     multi_pod = "pod" in mesh.mesh_dim_names
     if plan is None:
         plan = PL.default_plan_for(cfg, multi_pod)
@@ -201,7 +235,7 @@ def _trace(cfg, shape, mesh, plan, *, grad_accum, bf16_params, verbose,
 
     t0 = time.time()
     setup = build_step(model, shape, mesh, plan, grad_accum=grad_accum,
-                       bf16_params=bf16_params)
+                       bf16_params=bf16_params, serve_bf16=serve_bf16)
     t_lower = time.time() - t0
     t0 = time.time()
     _, ana = analyze(setup.fn, *setup.args)

@@ -37,6 +37,11 @@ Where a convention cannot carry over:
   fused program moves;
 * there are no loops to multiply: the step runs every layer, so a layer's
   ops are seen as often as they run;
+* an in-place cache write (``index_put_``, :data:`_INPLACE_UPDATES`: a
+  decode step's new K/V rows into the cache, through indices) moves JAX's
+  ``dynamic-update-slice`` traffic: twice the bytes of its operands but
+  the largest (read and write of the update and the indices), not the
+  whole buffer, which aliases the output;
 * memory: the live bytes of the storages the step makes are tracked as
   they are made and freed (:meth:`CostCounter.memory`), the arguments
   apart; kernels' own workspaces (allocated inside an op) and the CUDA
@@ -92,6 +97,11 @@ _NO_TRAFFIC = frozenset({
     "_c10d_functional.wait_tensor", "_c10d_functional._wrap_tensor_autograd"})
 
 
+#: in-place updates of a buffer through indices (JAX's
+#: ``_is_inplace_update``): traffic is twice the operands but the buffer
+_INPLACE_UPDATES = frozenset({"aten.index_put_", "aten._index_put_impl_"})
+
+
 def _tensors(tree) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     if isinstance(tree, torch.Tensor):
@@ -142,6 +152,7 @@ class CostCounter(TorchDispatchMode):
         self.n_ops = 0
         self._args = {_local(t).untyped_storage()._cdata
                       for t in _tensors(arguments)}
+        self._read: set = set()          # argument storages an op read
         self._live: Dict[int, int] = {}
         self._refs: Dict[int, Any] = {}
         self.live_bytes = 0
@@ -186,6 +197,10 @@ class CostCounter(TorchDispatchMode):
         from torch.utils.flop_counter import flop_registry
 
         self.n_ops += 1
+        for t in _tensors((args, kwargs)):
+            key = t.untyped_storage()._cdata
+            if key in self._args:
+                self._read.add(key)
         packet = func._overloadpacket
         name = str(packet)
         namespace, _, op = name.partition(".")
@@ -196,6 +211,10 @@ class CostCounter(TorchDispatchMode):
         if name in _NO_TRAFFIC or func.is_view:
             return
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if name in _INPLACE_UPDATES:
+            sizes = list(map(_nbytes, ins))
+            self.bytes += 2 * (sum(sizes) - max(sizes))
+            return
         self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         if namespace not in _COLL_NAMESPACES:
             return
@@ -227,11 +246,16 @@ class CostCounter(TorchDispatchMode):
 
     def memory(self, arguments: Any, outputs: Any) -> Dict[str, int]:
         """JAX's ``memory_analysis`` sizes: the local bytes of the
-        arguments and of the outputs, and the peak of live bytes the step
-        made beyond the arguments."""
+        arguments the step reads and of the outputs, and the peak of live
+        bytes the step made beyond the arguments.  An argument no op reads
+        is left out, as ``jax.jit`` prunes unused arguments from the
+        executable (``keep_unused=False``: a Mamba2 decode step's
+        positions)."""
+        read = [t for t in _tensors(arguments)
+                if _local(t).untyped_storage()._cdata in self._read]
         return {
             "mem_temp_size_in_bytes": int(self.peak_bytes),
-            "mem_argument_size_in_bytes": local_bytes(arguments),
+            "mem_argument_size_in_bytes": local_bytes(read),
             "mem_output_size_in_bytes": local_bytes(outputs),
         }
 

@@ -13,7 +13,8 @@ import numpy as np
 
 def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
                     gen: int = 16, ckpt: str = "", seed: int = 0,
-                    params: Any = None, device=None,
+                    params: Any = None, device=None, mesh: Any = None,
+                    plan: Any = None,
                     log: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     """Prefill + greedy-decode ``batch`` requests; returns throughput metrics.
 
@@ -29,8 +30,11 @@ def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
     packages the same numpy prompts instead.  Params come from
     ``load_params`` unless given: a training checkpoint's params with
     ``ckpt`` (either format), else a seeded ``torch.Generator``; ``device``
-    is the card unless the caller asks for the CPU.  The audio and VLM
-    archs take ``_multimodal_benchmark`` instead of the engine.
+    is the card unless the caller asks for the CPU.  ``mesh``/``plan``
+    shard the serve exactly like the engine path (JAX's), so an
+    engine-vs-shim comparison stays equal-footing.  The audio and VLM
+    archs take ``_multimodal_benchmark`` instead of the engine (under a
+    plan they raise naming ROADMAP A8b).
     """
     from ..device import resolve_device
     from ..serve.engine import ServeEngine, load_params
@@ -45,10 +49,14 @@ def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
     prompts = np.random.default_rng(seed + 1).integers(
         3, cfg.vocab, size=(B, P), dtype=np.int32)
     if cfg.arch_type == "audio" or cfg.n_patches:
+        if mesh is not None and plan is not None:
+            from ..models.transformer import refuse_mesh
+
+            refuse_mesh(cfg)
         return _multimodal_benchmark(model, params, prompts, G, dev, log)
     # block_len=0 pins the dense slot pool, as in JAX
-    engine = ServeEngine(model, params, n_slots=B, max_len=P + G, greedy=True,
-                         block_len=0)
+    engine = ServeEngine(model, params, n_slots=B, max_len=P + G,
+                         mesh=mesh, plan=plan, greedy=True, block_len=0)
     out = engine.run(static_trace(prompts, G, seed=seed), realtime=False)
 
     rows = out["requests"]

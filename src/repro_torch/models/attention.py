@@ -285,28 +285,40 @@ def gqa_decode(cfg: B.ArchConfig, p, cache, x, positions):
     The cache is updated in place (JAX donated it and returned a new one).
     Every slot writes at its own position, also a slot whose request is
     inactive: its position is frozen, and the next admission overwrites the
-    whole slot row.
+    whole slot row.  Under a mesh (DTensors laid out by a plan and
+    ``plans.cache_shardings``) each rank attends over its own block of the
+    cache and writes its own rows of it (:func:`_mesh_attend`).
     """
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    L = cache["k"].shape[1]
+    if B.is_dtensor(q):
+        o = _mesh_attend("dense", cfg, q, k, v, cache["k"], cache["v"],
+                         positions, x.dtype)
+    else:
+        o = _dense_core(cfg, q, k, v, cache["k"], cache["v"], positions,
+                        x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def _dense_core(cfg, q, k, v, ck, cv, positions, dtype):
+    """The dense decode's write and attention on plain tensors: ``o``
+    ``[B, 1, H, dh]``."""
+    L = ck.shape[1]
     slot = positions % L if cfg.window > 0 else positions
-    bidx = torch.arange(x.shape[0], device=x.device)
-    ck, cv = cache["k"], cache["v"]
+    bidx = torch.arange(q.shape[0], device=q.device)
     ck[bidx, slot] = k[:, 0].to(ck.dtype)
     cv[bidx, slot] = v[:, 0].to(cv.dtype)
 
     dh = q.shape[-1]
     scores = _gqa_scores_einsum(q, ck).float() / math.sqrt(dh)      # [B,H,1,L]
     n_valid = torch.clamp(positions + 1, max=L)                      # [B]
-    valid = torch.arange(L, device=x.device)[None, :] < n_valid[:, None]  # [B,L]
+    valid = torch.arange(L, device=q.device)[None, :] < n_valid[:, None]  # [B,L]
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = _gqa_out_einsum(probs, cv)                                   # [B,1,H,dh]
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return out, cache
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return _gqa_out_einsum(probs, cv)                                # [B,1,H,dh]
 
 
 # ---------------------------------------------------------------------------
@@ -379,11 +391,23 @@ def gqa_decode_paged(cfg: B.ArchConfig, p, cache, x, positions, pages,
     x [B,1,D]; positions [B]; pages int32 [B, n_pages] physical block ids
     per slot; active bool [B] suppresses cache writes for dead slots (their
     frozen positions may alias pages since freed and reused).  The cache is
-    updated in place and returned."""
+    updated in place and returned; under a mesh on each rank's own block
+    of the pool (:func:`_mesh_attend`)."""
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
+    if B.is_dtensor(q):
+        o = _mesh_attend("paged", cfg, q, k, v, cache["k"], cache["v"],
+                         positions, x.dtype, pages=pages, active=active)
+    else:
+        o = _paged_core(q, k, v, cache["k"], cache["v"], positions, pages,
+                        active, x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def _paged_core(q, k, v, ck, cv, positions, pages, active, dtype):
+    """The paged decode's write and attention on plain tensors."""
     bl = ck.shape[1]
     phys = _page_of(pages, positions, bl)
     if active is not None:
@@ -395,14 +419,12 @@ def gqa_decode_paged(cfg: B.ArchConfig, p, cache, x, positions, pages,
     dh = q.shape[-1]
     scores = _gqa_scores_einsum(q, vk).float() / math.sqrt(dh)
     T = vk.shape[1]
-    valid = (torch.arange(T, device=x.device)[None, :]
+    valid = (torch.arange(T, device=q.device)[None, :]
              < (positions + 1)[:, None])                         # [B,T]
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = _gqa_out_einsum(probs, vv)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return out, cache
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return _gqa_out_einsum(probs, vv)
 
 
 def gqa_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
@@ -418,9 +440,21 @@ def gqa_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
+    if B.is_dtensor(q):
+        o = _mesh_attend("chunk", cfg, q, k, v, cache["k"], cache["v"],
+                         positions, x.dtype, pages=pages_row,
+                         n_valid=n_valid)
+    else:
+        o = _chunk_core(q, k, v, cache["k"], cache["v"], positions,
+                        pages_row, n_valid, x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def _chunk_core(q, k, v, ck, cv, positions, pages_row, n_valid, dtype):
+    """The prefill chunk's writes and attention on plain tensors."""
     bl = ck.shape[1]
-    row_idx = torch.arange(positions.shape[0], device=x.device)
+    row_idx = torch.arange(positions.shape[0], device=q.device)
     phys = torch.where(row_idx < n_valid, _page_of(pages_row, positions, bl),
                        scratch_block(ck))
     _paged_write(ck, phys, positions % bl, k[0])
@@ -431,13 +465,195 @@ def gqa_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
     scores = _gqa_scores_einsum(q, vk).float() / math.sqrt(dh)
     T = vk.shape[1]
     valid = (positions[:, None]
-             >= torch.arange(T, device=x.device)[None, :])      # [C,T] causal
+             >= torch.arange(T, device=q.device)[None, :])      # [C,T] causal
     scores = torch.where(valid[None, None], scores,
                          torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = _gqa_out_einsum(probs, vv)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return out, cache
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return _gqa_out_einsum(probs, vv)
+
+
+# ---------------------------------------------------------------------------
+# GQA decode under a mesh: each rank on its own block of the cache
+# ---------------------------------------------------------------------------
+def _mesh_attend(mode, cfg, q, k, v, ck, cv, positions, dtype, pages=None,
+                 active=None, n_valid=None):
+    """The decode cores on each rank's block of a cache laid out by
+    ``plans.cache_shardings`` (``mode``: ``"dense"`` slot rows, ``"paged"``
+    block pool, ``"chunk"`` a paged prefill chunk); returns ``o`` ``[B,
+    Sq, H, dh]`` as a DTensor.
+
+    Per mesh dim, the cache leaf's placement says what this rank holds:
+    its slots (the dense slot dim, ``rows``), its KV heads (``heads``), or
+    a part of every stream's key positions (``part``: the paged block dim,
+    where a slot's pages lie on any rank, or the sequence dim, which the
+    rule shards where the heads or the slots do not divide).  The queries
+    and new K/V are laid out to match: rows and heads cut as the cache is,
+    replicated over a ``part`` dim.  Each rank writes the new K/V rows its
+    block holds, in place (:func:`base.local_cache_call`); nothing gathers
+    the cache.
+
+    With no ``part`` dim (a single rank among them) the plain core runs on
+    the blocks unchanged.  With one, the softmax spans ranks: each rank
+    scores its own key positions (the others ``NEG_INF``), the scores are
+    combined by max (a ``Partial("max")``) and gathered, the softmax is
+    the plain one over the whole row, and each rank's share of P·V is
+    summed in f32 across the ``part`` dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ck.device_mesh
+    lead = "rows" if mode == "dense" else "part"
+    roles = B.shard_roles(ck, {0: lead, 1: "part", 2: "heads"})
+    pos = B.replicate_like(positions, q)
+    extra = () if mode == "dense" else (B.replicate_like(pages, q),)
+    if mode == "paged" and active is not None:
+        extra += (B.replicate_like(active, q),)
+
+    if "part" not in roles:
+        # on each rank's slots and heads, the plain core unchanged: what a
+        # mesh dim does not cut in the cache is replicated over it (every
+        # rank of a replicated pool writes every slot's rows), and a mesh
+        # dim of size 1 keeps every argument's placement
+        def keep(t, table):
+            return [table.get(r, Replicate()) if mesh.size(i) > 1 else p
+                    for i, (r, p) in enumerate(zip(roles, t.placements))]
+
+        qkv = {"rows": Shard(0), "heads": Shard(2)}
+        row = {"rows": Shard(0)}
+        args = (q, k, v, pos) + extra
+        pls = [keep(q, qkv), keep(k, qkv), keep(v, qkv), keep(pos, row)]
+        pls += [keep(t, {}) for t in extra]
+        out_pl = keep(q, qkv)
+        if mode == "dense":
+            def core(ckl, cvl, ql, kl, vl, pl):
+                return _dense_core(cfg, ql, kl, vl, ckl, cvl, pl, dtype)
+        elif mode == "paged":
+            def core(ckl, cvl, ql, kl, vl, pl, pg, *act):
+                return _paged_core(ql, kl, vl, ckl, cvl, pl, pg,
+                                   act[0] if act else None, dtype)
+        else:
+            def core(ckl, cvl, ql, kl, vl, pl, pg):
+                return _chunk_core(ql, kl, vl, ckl, cvl, pl, pg, n_valid,
+                                   dtype)
+        return B.local_cache_call(core, (ck, cv), args, pls, out_pl)
+
+    # the key positions span ranks: this rank's share of the pool
+    names = range(mesh.ndim)
+    lead_dims = [i for i in names if roles[i] == "part"
+                 and ck.placements[i].dim % ck.ndim == 0]
+    off_dims = [i for i in names if roles[i] == "part"
+                and ck.placements[i].dim % ck.ndim == 1]
+    lc, _ = B.mesh_coord(mesh, lead_dims)
+    oc, n_off = B.mesh_coord(mesh, off_dims)
+    local = ck.to_local()
+    span = local.shape[1]                # key positions a block holds here
+    o0 = oc * span
+    n_pool = local.shape[0] - (0 if mode == "dense" else 1)
+    b0 = lc * n_pool if lead_dims else 0
+
+    def table(rows, heads, part):
+        return [rows if r == "rows" else heads if r == "heads"
+                else part if r == "part" else Replicate() for r in roles]
+
+    in_qkv = table(Shard(0), Shard(2), Replicate())
+    in_row = table(Shard(0), Replicate(), Replicate())
+    rep = table(Replicate(), Replicate(), Replicate())
+    dh = q.shape[-1]
+
+    def owned_pages(pg, n):
+        """Page ids on this rank, as local ids (the rest: the scratch
+        block), and which of them are this rank's."""
+        mine = (pg >= b0) & (pg < b0 + n)
+        return torch.where(mine, pg - b0, n).long(), mine
+
+    if mode == "dense":
+        def scores_fn(ckl, cvl, ql, kl, vl, pl):
+            L = span * n_off
+            slot = pl % L if cfg.window > 0 else pl
+            own = (slot >= o0) & (slot < o0 + span)
+            idx = torch.clamp(slot - o0, 0, span - 1)
+            b = torch.arange(ql.shape[0], device=ql.device)
+            for c, new in ((ckl, kl), (cvl, vl)):
+                c[b, idx] = torch.where(own[:, None, None],
+                                        new[:, 0].to(c.dtype), c[b, idx])
+            sc = _gqa_scores_einsum(ql, ckl).float() / math.sqrt(dh)
+            n_ok = torch.clamp(pl + 1, max=L)
+            gpos = o0 + torch.arange(span, device=ql.device)
+            ok = gpos[None, :] < n_ok[:, None]
+            sc = torch.where(ok[:, None, None, :], sc,
+                             torch.full_like(sc, NEG_INF))
+            return sc[:, :, :, None, :]                  # [B,H,1,1,span]
+
+        def pv_fn(cvl, pr):
+            p = pr.reshape(pr.shape[:3] + (-1,)).float()
+            return _gqa_out_einsum(p, cvl.float())
+    else:
+        def scores_fn(ckl, cvl, ql, kl, vl, pl, pg, *act):
+            bl = span * n_off
+            if mode == "paged":
+                phys = _page_of(pg, pl, bl)
+                rows_k, rows_v = kl[:, 0], vl[:, 0]
+                live = act[0] if act else torch.ones_like(pl, dtype=torch.bool)
+            else:
+                phys = _page_of(pg, pl, bl)
+                rows_k, rows_v = kl[0], vl[0]
+                live = torch.arange(pl.shape[0], device=pl.device) < n_valid
+            off = pl % bl
+            own = (live & (phys >= b0) & (phys < b0 + n_pool)
+                   & (off >= o0) & (off < o0 + span))
+            lphys = torch.where(own, phys - b0, n_pool)
+            loff = torch.where(own, off - o0, 0)
+            _paged_write(ckl, lphys, loff, rows_k)
+            _paged_write(cvl, lphys, loff, rows_v)
+            tab = pg if pg.dim() == 2 else pg[None]
+            lp, mine = owned_pages(tab, n_pool)
+            vk = paged_view(ckl, lp)                     # [b,n_pages*span,..]
+            sc = _gqa_scores_einsum(ql, vk).float() / math.sqrt(dh)
+            n_pages = tab.shape[-1]
+            gpos = (torch.arange(n_pages, device=pl.device)[:, None] * bl
+                    + o0 + torch.arange(span, device=pl.device)[None, :]
+                    ).reshape(-1)
+            mine = mine.repeat_interleave(span, dim=-1)  # [b, T]
+            if mode == "paged":
+                ok = (gpos[None, :] < (pl + 1)[:, None]) & mine
+                ok = ok[:, None, None, :]
+            else:
+                ok = (pl[:, None] >= gpos[None, :]) & mine
+                ok = ok[None, None]
+            sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+            return sc.reshape(sc.shape[:3] + (n_pages, span))
+
+        def pv_fn(cvl, pr, pg):
+            tab = pg if pg.dim() == 2 else pg[None]
+            lp, mine = owned_pages(tab, n_pool)
+            vv = paged_view(cvl, lp)
+            p = pr * mine[:, None, None, :, None]
+            return _gqa_out_einsum(p.reshape(p.shape[:3] + (-1,)).float(),
+                                   vv.float())
+
+    # the scores: a part dim of the lead (block) dim holds every position,
+    # its others NEG_INF (combined by max); one of the offsets holds its
+    # own columns
+    sc_pl = [Shard(0) if r == "rows" else Shard(1) if r == "heads"
+             else (Partial("max") if i in lead_dims else Shard(4))
+             if r == "part" else Replicate() for i, r in enumerate(roles)]
+    pls = [in_qkv, in_qkv, in_qkv, in_row] + [rep] * len(extra)
+    sc = B.local_cache_call(scores_fn, (ck, cv), (q, k, v, pos) + extra,
+                            pls, sc_pl)
+    full = [Replicate() if r == "part" else p for r, p in zip(roles, sc_pl)]
+    sc = sc.redistribute(mesh, full)
+    shp = sc.shape
+    probs = torch.softmax(sc.reshape(shp[:3] + (-1,)), dim=-1).to(dtype)
+    probs = probs.reshape(shp)
+    pr_pl = [Replicate() if i in lead_dims else p
+             for i, p in enumerate(sc_pl)]
+    o_pl = [Shard(0) if r == "rows" else Shard(2) if r == "heads"
+            else Partial() if r == "part" else Replicate() for r in roles]
+    args = (probs,) + (extra[:1] if mode != "dense" else ())
+    o = B.local_cache_call(pv_fn, (cv,), args,
+                           [pr_pl] + [rep] * (len(args) - 1), o_pl)
+    o = o.redistribute(mesh, [Replicate() if r == "part" else p
+                              for r, p in zip(roles, o_pl)])
+    return o.to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -195,7 +195,10 @@ def constrain(x, mesh_ctx: Optional[MeshContext], *rest):
 
     spec = [None] * x.ndim
     dp = mesh_ctx.dp_axes
-    if dp and x.shape[0] % mesh_ctx.dp_size == 0:
+    # a batch of one stays replicated: on a mesh dim of size 1 the two are
+    # the same block, and DTensor cannot reshape a sharded dim of size 1
+    # (the einsums' views of a one-request admission)
+    if dp and x.shape[0] % mesh_ctx.dp_size == 0 and x.shape[0] > 1:
         spec[0] = dp
     for i, ax in enumerate(rest[: x.ndim - 1], start=1):
         if ax is None:
@@ -250,8 +253,8 @@ def gather_fsdp(tree, mesh_ctx: Optional[MeshContext]):
 def replicate_like(t, ref):
     """A plain tensor ``t`` as a replicated DTensor on ``ref``'s mesh (a
     constant that meets DTensor activations); ``t`` itself when ``ref`` is
-    a plain tensor."""
-    if not is_dtensor(ref):
+    a plain tensor or ``t`` a DTensor already."""
+    if not is_dtensor(ref) or is_dtensor(t):
         return t
     from torch.distributed.tensor import DTensor, Replicate
 
@@ -298,6 +301,75 @@ def local_call(fn, args, in_placements, grad_placements, out_placements):
                      redistribute_inputs=True)(*args)
 
 
+def shard_roles(t, roles: Dict[int, str], all_dims: bool = False) -> List:
+    """Per mesh dim of the DTensor ``t``: ``roles[d]`` where that mesh dim
+    shards tensor dim ``d`` (a name the caller gives each dim), else None.
+    A mesh dim of size 1 holds the whole tensor whatever its placement,
+    so it has no role unless ``all_dims``."""
+    from torch.distributed.tensor import Shard
+
+    out: List = []
+    for i, p in enumerate(t.placements):
+        big = all_dims or t.device_mesh.size(i) > 1
+        out.append(roles.get(p.dim % t.ndim) if big and isinstance(p, Shard)
+                   else None)
+    return out
+
+
+def mesh_coord(mesh, dims) -> Tuple[int, int]:
+    """(this rank's index, the count) of the blocks that the mesh dims
+    ``dims`` (indices, in mesh order) cut one tensor dim into: DTensor
+    splits a dim over several mesh dims major to minor, in mesh order."""
+    c, n = 0, 1
+    for i in dims:
+        c, n = c * mesh.size(i) + mesh.get_local_rank(i), n * mesh.size(i)
+    return c, n
+
+
+def local_cache_call(fn, cache: Sequence[Any], args: Sequence[Any],
+                     in_placements, out_placements):
+    """``fn(*cache_blocks, *arg_blocks)`` on each rank: a decode core that
+    writes the cache in place, on each rank's own block of it.
+
+    ``cache`` are DTensors (cache leaves, or layer views of them) passed
+    as their local blocks, never redistributed: the blocks are views of
+    the cache's storage, so ``fn``'s in-place writes land in the cache and
+    its placements are the same after the call as before.  ``args`` are
+    redistributed to ``in_placements`` first (as :func:`local_call` does),
+    and the outputs come back as DTensors with ``out_placements`` (one
+    list, or a tuple of them)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(list(c.placements) for c in cache) + tuple(in_placements)
+    return local_map(fn, out_placements=out_placements, in_placements=pl,
+                     in_grad_placements=pl, device_mesh=cache[0].device_mesh,
+                     redistribute_inputs=True)(*cache, *args)
+
+
+def put_slot(c, n, slot: int) -> None:
+    """Write a batch=1 request's cache leaf ``n`` ``[L, 1, ...]`` into slot
+    ``slot`` of the pool leaf ``c`` ``[L, n_slots, ...]``, in place.  Under
+    a mesh (``c`` a DTensor laid out by ``plans.cache_shardings``) the rank
+    whose block holds the slot writes it into its block, the request's rows
+    cut as the pool's other dims are; the others write nothing."""
+    if not is_dtensor(c):
+        c[:, slot] = n[:, 0].to(c.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = c.device_mesh
+    rows = [i for i, p in enumerate(c.placements)
+            if isinstance(p, Shard) and p.dim % c.ndim == 1]
+    want = [Replicate() if i in rows else p
+            for i, p in enumerate(c.placements)]
+    n = replicate_like(n, c).redistribute(mesh, want)
+    local = c.to_local()
+    coord, _ = mesh_coord(mesh, rows)
+    lo = coord * local.shape[1]
+    if lo <= slot < lo + local.shape[1]:
+        local[:, slot - lo] = n.to_local()[:, 0].to(local.dtype)
+
+
 class Model(abc.ABC):
     """The model IF: params are a nested dict of tensors, methods are plain
     functions of (params, inputs)."""
@@ -318,7 +390,7 @@ class Model(abc.ABC):
                    device=None) -> Any:
         raise NotImplementedError(f"{self.cfg.name}: no decode path")
 
-    def decode_step(self, params, cache, tokens, positions):
+    def decode_step(self, params, cache, tokens, positions, mesh_ctx=None):
         raise NotImplementedError(f"{self.cfg.name}: no decode path")
 
     def supports_paged_cache(self) -> bool:
@@ -330,12 +402,10 @@ class Model(abc.ABC):
         Every leaf of ``cache`` is ``[L, n_slots, ...]``; the whole slot row is
         overwritten, so no stale state survives a slot's reuse.  In place:
         where JAX donated the pool and returned a new one, the port writes
-        into the pool's storage and returns the same tree.
+        into the pool's storage and returns the same tree; under a mesh on
+        the rank that holds the slot (:func:`put_slot`).
         """
-        def put(c, n):
-            c[:, slot] = n[:, 0].to(c.dtype)
-
-        _tree_zip(put, cache, request_cache)
+        _tree_zip(lambda c, n: put_slot(c, n, slot), cache, request_cache)
         return cache
 
 

@@ -119,13 +119,15 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 def apply_rope(x, positions, theta: float):
     """x: [..., S, H, dh]; positions: [..., S] absolute positions."""
+    from .base import replicate_like
+
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                  # [dh/2]
+    # positions laid out on a mesh (a dryrun's decode step) meet the
+    # frequencies as a replicated constant
+    freqs = replicate_like(rope_freqs(dh, theta, x.device), positions)
     angles = positions[..., None].float() * freqs            # [..., S, dh/2]
     cos = torch.cos(angles)[..., None, :]                    # [..., S, 1, dh/2]
     sin = torch.sin(angles)[..., None, :]
-    from .base import replicate_like
-
     # under a mesh (a DTensor ``x``) the tables are replicated constants
     cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -212,10 +212,15 @@ class EncDecLM(B.Model):
         return logits, {"self": self_c, "cross_k": cks, "cross_v": cvs}
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, positions):
+    def decode_step(self, params, cache, tokens, positions, mesh_ctx=None):
         """One token for every row: logits ``[B, vocab]``; the self cache is
         updated in place.  Activations follow the cache's dtype, and the
-        learned position is read at the position clipped to the table."""
+        learned position is read at the position clipped to the table.
+        Under a mesh it raises naming ROADMAP A8b, as training does."""
+        if mesh_ctx is not None and mesh_ctx.mesh is not None:
+            from .transformer import refuse_mesh
+
+            refuse_mesh(self.cfg)
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens[:, None].long(),
                          cache["cross_k"].dtype)

@@ -191,37 +191,120 @@ def ssm_init_state(cfg: B.ArchConfig, batch: int, dtype=torch.float32,
 
 def ssm_decode(cfg: B.ArchConfig, p, state, x):
     """x [B,1,D] -> (y [B,1,D], state).  The state is updated in place (JAX
-    returned a new one) and returned."""
+    returned a new one) and returned; under a mesh on each rank's own block
+    of it (:func:`_mesh_decode`)."""
     s = cfg.ssm
     d_inner, H, conv_dim = ssm_dims(cfg)
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
-    z, xs, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
-    xBC_new = torch.cat([xs, Bm, Cm], dim=-1)[:, 0]               # [B, conv_dim]
-    # conv ring: the state holds the last W-1 inputs
-    conv = state["conv"]
-    hist = torch.cat([conv, xBC_new[:, None, :].to(conv.dtype)], dim=1)
-    w = p["conv_w"].to(x.dtype)                                   # [W, C]
-    xBC = torch.einsum("bwc,wc->bc", hist.to(x.dtype), w) \
-        + p["conv_b"].to(x.dtype)
-    xBC = F.silu(xBC)
-    gn = s.n_groups * s.d_state
-    xs1, Bm1, Cm1 = torch.split(xBC, [d_inner, gn, gn], dim=-1)
-    dt1 = _softplus(dt[:, 0].float() + p["dt_bias"])              # [B,H]
-    A = -torch.exp(p["A_log"])
-    xs1 = xs1.reshape(-1, H, s.head_dim).float()
-    Bm1 = Bm1.reshape(-1, s.n_groups, s.d_state).float()
-    Cm1 = Cm1.reshape(-1, s.n_groups, s.d_state).float()
-    rep = H // s.n_groups
-    Bh = Bm1.repeat_interleave(rep, dim=1)                        # [B,H,N]
-    Ch = Cm1.repeat_interleave(rep, dim=1)
-    dA = torch.exp(dt1 * A)                                       # [B,H]
-    h = state["ssm"] * dA[:, :, None, None] + torch.einsum(
-        "bhn,bhp,bh->bhpn", Bh, xs1, dt1)
-    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + p["D"][None, :, None] * xs1
+    if B.is_dtensor(zxbcdt):
+        return _mesh_decode(cfg, p, state, x, zxbcdt), state
+    xBC, conv_new = _conv_step(cfg, zxbcdt, state["conv"], p["conv_w"],
+                               p["conv_b"], x.dtype)
+    y, h = _ssm_step(cfg, xBC, zxbcdt, state["ssm"], p["dt_bias"],
+                     p["A_log"], p["D"], 0, H)
     y = y.reshape(-1, 1, d_inner).to(x.dtype)
+    z = _split_proj(cfg, zxbcdt)[0]
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
-    conv.copy_(hist[:, 1:])
+    state["conv"].copy_(conv_new)
     state["ssm"].copy_(h)
     return out, state
 
+
+def _conv_step(cfg, zxbcdt, conv, conv_w, conv_b, dtype, c0: int = 0):
+    """The conv ring's step over the channels ``[c0, c0 + conv.shape[-1])``
+    (the conv is depthwise: each channel reads its own history): (the
+    conv's output on them, the ring's new contents)."""
+    _, xs, Bm, Cm, _ = _split_proj(cfg, zxbcdt)
+    xBC_new = torch.cat([xs, Bm, Cm], dim=-1)[:, 0]               # [B, conv_dim]
+    xBC_new = xBC_new[:, c0:c0 + conv.shape[-1]]
+    # conv ring: the state holds the last W-1 inputs
+    hist = torch.cat([conv, xBC_new[:, None, :].to(conv.dtype)], dim=1)
+    xBC = torch.einsum("bwc,wc->bc", hist.to(dtype), conv_w.to(dtype)) \
+        + conv_b.to(dtype)
+    return xBC, hist[:, 1:]
+
+
+def _ssm_step(cfg, xBC, zxbcdt, h0, dt_bias, A_log, D, lo: int, n: int):
+    """The recurrence's step for heads ``[lo, lo + n)`` from the conv's
+    output over every channel: (y ``[B, n, P]`` f32, the new state of those
+    heads).  ``dt_bias``, ``A_log`` and ``D`` are those heads' own."""
+    s = cfg.ssm
+    d_inner, H, _ = ssm_dims(cfg)
+    dt = _split_proj(cfg, zxbcdt)[4]
+    xBC = F.silu(xBC)
+    gn = s.n_groups * s.d_state
+    xs1, Bm1, Cm1 = torch.split(xBC, [d_inner, gn, gn], dim=-1)
+    dt1 = _softplus(dt[:, 0, lo:lo + n].float() + dt_bias)        # [B,n]
+    A = -torch.exp(A_log)
+    xs1 = xs1.reshape(-1, H, s.head_dim)[:, lo:lo + n].float()
+    Bm1 = Bm1.reshape(-1, s.n_groups, s.d_state).float()
+    Cm1 = Cm1.reshape(-1, s.n_groups, s.d_state).float()
+    rep = H // s.n_groups
+    Bh = Bm1.repeat_interleave(rep, dim=1)[:, lo:lo + n]          # [B,n,N]
+    Ch = Cm1.repeat_interleave(rep, dim=1)[:, lo:lo + n]
+    dA = torch.exp(dt1 * A)                                       # [B,n]
+    h = h0 * dA[:, :, None, None] + torch.einsum(
+        "bhn,bhp,bh->bhpn", Bh, xs1, dt1)
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + D[None, :, None] * xs1
+    return y, h
+
+
+def _mesh_decode(cfg, p, state, x, zxbcdt):
+    """:func:`ssm_decode` under a mesh, on each rank's block of the state
+    laid out by ``plans.cache_shardings``: its slots (``conv`` and ``ssm``
+    dim 0), its channels of the conv ring (``conv`` dim 2 over ``model``)
+    and its heads of the recurrence (``ssm`` dim 1 over ``model``), as
+    :func:`_local_mixer` runs the forward on each rank's rows.  The
+    projection's output is gathered over every mesh dim but the slots'
+    (an activation of one token a slot); each rank steps the conv on its
+    channels and writes its block of the ring, the conv's output is
+    gathered over its channel dims, each rank steps the recurrence on its
+    heads and writes its block of the state, and the heads' outputs are
+    gathered for the gated norm over the whole ``d_inner``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d_inner, H, conv_dim = ssm_dims(cfg)
+    conv, ssm = state["conv"], state["ssm"]
+    mesh = conv.device_mesh
+    c_roles = B.shard_roles(conv, {0: "rows", 2: "cols"}, all_dims=True)
+    s_roles = B.shard_roles(ssm, {0: "rows", 1: "cols"}, all_dims=True)
+
+    def pl(roles, rows, cols):
+        return [rows if r == "rows" else cols if r == "cols" else Replicate()
+                for r in roles]
+
+    act = pl(c_roles, Shard(0), Replicate())
+    zx = zxbcdt.redistribute(mesh, act)
+    cc, _ = B.mesh_coord(mesh, [i for i, r in enumerate(c_roles)
+                                if r == "cols"])
+    sc, _ = B.mesh_coord(mesh, [i for i, r in enumerate(s_roles)
+                                if r == "cols"])
+    c_loc, h_loc = conv.to_local().shape[-1], ssm.to_local().shape[1]
+
+    def conv_fn(cl, z, w, b):
+        xbc, ring = _conv_step(cfg, z, cl, w, b, x.dtype, cc * c_loc)
+        cl.copy_(ring)
+        return xbc
+
+    xbc = B.local_cache_call(
+        conv_fn, (conv,), (zx, p["conv_w"], p["conv_b"]),
+        [act, pl(c_roles, Replicate(), Shard(1)),
+         pl(c_roles, Replicate(), Shard(0))],
+        pl(c_roles, Shard(0), Shard(1)))
+    xbc = xbc.redistribute(mesh, act)
+
+    def ssm_fn(hl, xb, z, dt_bias, a_log, d):
+        y, h = _ssm_step(cfg, xb, z, hl, dt_bias, a_log, d, sc * h_loc,
+                         h_loc)
+        hl.copy_(h)
+        return y
+
+    heads = pl(s_roles, Replicate(), Shard(0))
+    y = B.local_cache_call(
+        ssm_fn, (ssm,), (xbc, zx, p["dt_bias"], p["A_log"], p["D"]),
+        [act, act, heads, heads, heads], pl(s_roles, Shard(0), Shard(1)))
+    y = y.redistribute(mesh, act).reshape(-1, 1, d_inner).to(x.dtype)
+    z = _split_proj(cfg, zx)[0]
+    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))

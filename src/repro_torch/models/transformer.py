@@ -177,25 +177,33 @@ def _residual(x, h, mesh_ctx):
     return B.constrain(x + h, mesh_ctx)
 
 
-def decode_block(cfg, kind, p, cache, x, positions):
-    """One layer of decode; the cache is updated in place."""
+def decode_block(cfg, kind, p, cache, x, positions, mesh_ctx=None,
+                 storage_axes=()):
+    """One layer of decode; the cache is updated in place.  Under a mesh
+    the residual stream is laid out as in ``apply_block`` (the partial sums
+    of TP reduced where they meet it) and the MoE's experts run as in
+    training, through ``moe_ep`` where the plan has EP."""
+    x = B.constrain(x, mesh_ctx)
     if kind == "ssm":
         h, new_cache = S.ssm_decode(cfg, p["ssm"], cache,
                                     apply_norm(cfg, p["norm"], x))
-        return x + h, new_cache
+        return _residual(x, h, mesh_ctx), new_cache
     h = apply_norm(cfg, p["attn_norm"], x)
     if cfg.mla:
         h, new_cache = A.mla_decode(cfg, p["attn"], cache, h, positions,
                                     absorb=cfg.mla_absorb)
     else:
         h, new_cache = A.gqa_decode(cfg, p["attn"], cache, h, positions)
-    x = x + h
-    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
-    return x + h, new_cache
+    x = _residual(x, h, mesh_ctx)
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx,
+                storage_axes)
+    return B.constrain(x + h, mesh_ctx), new_cache
 
 
-def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active):
+def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active,
+                       mesh_ctx=None, storage_axes=()):
     """``decode_block`` reading/writing K/V through page tables."""
+    x = B.constrain(x, mesh_ctx)
     h = apply_norm(cfg, p["attn_norm"], x)
     if cfg.mla:
         h, new_cache = A.mla_decode_paged(cfg, p["attn"], cache, h, positions,
@@ -203,25 +211,37 @@ def decode_block_paged(cfg, kind, p, cache, x, positions, pages, active):
     else:
         h, new_cache = A.gqa_decode_paged(cfg, p["attn"], cache, h, positions,
                                           pages, active)
-    x = x + h
-    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
-    return x + h, new_cache
+    x = _residual(x, h, mesh_ctx)
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx,
+                storage_axes)
+    return B.constrain(x + h, mesh_ctx), new_cache
 
 
-def prefill_chunk_block(cfg, kind, p, cache, x, positions, pages_row, n_valid):
+def prefill_chunk_block(cfg, kind, p, cache, x, positions, pages_row, n_valid,
+                        mesh_ctx=None, storage_axes=()):
     """One layer of the fixed-shape chunked-prefill program."""
+    x = B.constrain(x, mesh_ctx)
     h = apply_norm(cfg, p["attn_norm"], x)
     chunk = A.mla_prefill_chunk if cfg.mla else A.gqa_prefill_chunk
     h, new_cache = chunk(cfg, p["attn"], cache, h, positions, pages_row,
                          n_valid)
-    x = x + h
-    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x))
-    return x + h, new_cache
+    x = _residual(x, h, mesh_ctx)
+    h, _ = _ffn(cfg, kind, p, apply_norm(cfg, p["mlp_norm"], x), mesh_ctx,
+                storage_axes)
+    return B.constrain(x + h, mesh_ctx), new_cache
 
 
 def _pad_cache_seq(k, max_len, window):
     """k [B,S,...] -> cache layout [B,L,...] (ring-packed when windowed),
-    padded with zeros."""
+    padded with zeros.  A DTensor (prefill under a mesh: the sequence dim
+    is not sharded) is padded block by block."""
+    if B.is_dtensor(k):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(_pad_cache_seq(k.to_local(), max_len,
+                                                 window),
+                                  k.device_mesh, k.placements,
+                                  run_check=False)
     S = k.shape[1]
     if window and window > 0:
         L = min(max_len, window)
@@ -590,6 +610,20 @@ class DecoderLM(B.Model):
         return embed_lookup(params["embed"], tokens, dtype)
 
     # -- serving -------------------------------------------------------------
+    def _serve_inputs(self, params, tokens, mesh_ctx):
+        """Under a mesh: the params with their unstacked leaves gathered,
+        a gather for each layer's, and ``tokens`` a DTensor (replicated
+        when the caller's are plain: the engine keeps its slot state on
+        every rank).  With no mesh: the params, no gather, the tokens."""
+        if mesh_ctx is None or mesh_ctx.mesh is None:
+            return params, None, tokens
+        refuse_mesh(self.cfg)
+        stacks = {name for name, _, _ in self._stacks()}
+        params = {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
+                  for k, v in params.items()}
+        return (params, lambda lp: B.gather_fsdp(lp, mesh_ctx),
+                B.replicate_like(tokens, params["embed"]))
+
     @torch.no_grad()
     def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16,
                 mesh_ctx=None, storage_axes=()):
@@ -603,15 +637,9 @@ class DecoderLM(B.Model):
         loop; the MoE's experts as in ``apply``.  A plan's pipe axis plays
         no part: prefill runs the layers in order (as JAX's)."""
         cfg = self.cfg
-        gather = None
-        if mesh_ctx is not None and mesh_ctx.mesh is not None:
-            refuse_mesh(cfg)
-            stacks = {name for name, _, _ in self._stacks()}
-            params = {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
-                      for k, v in params.items()}
-            gather = lambda lp: B.gather_fsdp(lp, mesh_ctx)  # noqa: E731
-        x = self._with_patches(batch, self.embed_tokens(params,
-                                                        batch["tokens"]))
+        params, gather, tokens = self._serve_inputs(params, batch["tokens"],
+                                                    mesh_ctx)
+        x = self._with_patches(batch, self.embed_tokens(params, tokens))
         x = B.constrain(x, mesh_ctx)
         S = x.shape[1]
         max_len = max_len or S
@@ -653,11 +681,16 @@ class DecoderLM(B.Model):
                    "shared_attn": ST.stack_layers(attn_c)}
 
     def prefill_into(self, params, batch, cache, slot, max_len=None,
-                     cache_dtype=torch.bfloat16):
+                     cache_dtype=torch.bfloat16, mesh_ctx=None,
+                     storage_axes=()):
         """Prefill one batch=1 request into slot ``slot`` of a slot-pool
-        cache; returns ``(last-token logits [1, vocab], pool cache)``."""
+        cache; returns ``(last-token logits [1, vocab], pool cache)``.  Under
+        a mesh the request's cache is written on the rank whose block of
+        the pool holds the slot (``base.put_slot``)."""
         logits, req_cache = self.prefill(params, batch, max_len=max_len,
-                                         cache_dtype=cache_dtype)
+                                         cache_dtype=cache_dtype,
+                                         mesh_ctx=mesh_ctx,
+                                         storage_axes=storage_axes)
         return logits, self.insert_cache(cache, req_cache, slot)
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -709,7 +742,7 @@ class DecoderLM(B.Model):
 
     @torch.no_grad()
     def prefill_chunk(self, params, cache, pages_row, tokens, start: int,
-                      n_valid: int):
+                      n_valid: int, mesh_ctx=None, storage_axes=()):
         """Run one fixed-shape prompt chunk into a request's pages.
 
         ``tokens`` [C] (entries past ``n_valid`` are padding, zeroed by the
@@ -717,49 +750,68 @@ class DecoderLM(B.Model):
         ``pages_row`` int32 [max_pages] this request's physical block ids.
         Returns (logits of the last valid row [1, vocab], the cache updated
         in place) — the logits only matter on an admission's final chunk.
+        Under a mesh each rank writes the rows its block of the pool holds
+        (``attention._mesh_attend``).
         """
         cfg = self.cfg
+        params, gather, tokens = self._serve_inputs(params, tokens, mesh_ctx)
         x = self.embed_tokens(params, tokens[None])
+        x = B.constrain(x, mesh_ctx)
         positions = start + torch.arange(tokens.shape[0], device=x.device)
         for name, kind, idxs in self._stacks():
 
             def body(x, inp, kind=kind):
                 lp, lc = inp
+                if gather is not None:
+                    lp = gather(lp)
                 x, _ = prefill_chunk_block(cfg, kind, lp, lc, x, positions,
-                                           pages_row, n_valid)
+                                           pages_row, n_valid, mesh_ctx,
+                                           storage_axes)
                 return x, None
 
             x, _ = ST.layer_loop(body, (params[name], cache[name]), x,
                                  len(idxs))
         last = x[:, n_valid - 1]                                 # [1, D]
-        return self.logits(params, last[:, None])[:, 0], cache
+        return self.logits(params, last[:, None], mesh_ctx)[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, positions, pages=None,
-                    active=None):
+    def decode_step(self, params, cache, tokens, positions, mesh_ctx=None,
+                    pages=None, active=None, storage_axes=()):
         """One token for every slot: logits [B, vocab]; the cache is updated
         in place and returned.  With ``pages`` (int32 [B, max_pages]) the
         cache is the block pool, read and written through the page tables;
-        ``active`` suppresses the writes of dead slots."""
+        ``active`` suppresses the writes of dead slots.
+
+        Under a mesh (``mesh_ctx``; the params laid out by a plan, the cache
+        by ``plans.cache_shardings``) the same code runs on DTensors, as
+        ``prefill`` does, and each rank reads and writes only its own block
+        of the cache; the logits come back a DTensor, the vocab dim over
+        ``model`` under TP."""
         cfg = self.cfg
+        params, gather, tokens = self._serve_inputs(params, tokens, mesh_ctx)
         x = self.embed_tokens(params, tokens[:, None])
         if cfg.arch_type == "hybrid" and pages is None:
             x = self._decode_hybrid(params, cache, x, positions)
             return self.logits(params, x)[:, 0], cache
+        x = B.constrain(x, mesh_ctx)
         for name, kind, idxs in self._stacks():
 
             def body(x, inp, kind=kind):
                 lp, lc = inp
+                if gather is not None:
+                    lp = gather(lp)
                 if pages is not None:
                     x, _ = decode_block_paged(cfg, kind, lp, lc, x, positions,
-                                              pages, active)
+                                              pages, active, mesh_ctx,
+                                              storage_axes)
                 else:
-                    x, _ = decode_block(cfg, kind, lp, lc, x, positions)
+                    x, _ = decode_block(cfg, kind, lp, lc, x, positions,
+                                        mesh_ctx, storage_axes)
                 return x, None
 
             x, _ = ST.layer_loop(body, (params[name], cache[name]), x,
                                  len(idxs))
-        return self.logits(params, x)[:, 0], cache
+        return self.logits(params, x, mesh_ctx)[:, 0], cache
 
     def _decode_hybrid(self, params, cache, x, positions):
         """One token through each group's Mamba2 layers and the shared

@@ -101,10 +101,22 @@ def execute_serve(ctx) -> Dict[str, Any]:
     from ..launch.serve import serve_benchmark
 
     s = cfg.settings
+    from ..device import resolve_device
+
+    provider = graph.get("mesh")
+    mesh = (provider.build(resolve_device(device).type)
+            if provider is not None else None)
+    plan = graph.get("plan")
+    if plan is not None and mesh is None:
+        raise RunError(
+            "run.serve: the config names a sharding 'plan' but its 'mesh' "
+            "entry is missing or builds no devices (single_device) — the "
+            "run would silently serve unsharded; add a device mesh or drop "
+            "the plan")
     if not s.engine:
         return serve_benchmark(model, batch=s.batch, prompt_len=s.prompt_len,
                                gen=s.gen, ckpt=s.ckpt, seed=s.seed,
-                               device=device, log=log)
+                               device=device, mesh=mesh, plan=plan, log=log)
 
     from ..serve.engine import ServeEngine, load_params
     from ..serve.workload import (shared_prefix_trace, synthetic_trace,
@@ -121,6 +133,7 @@ def execute_serve(ctx) -> Dict[str, Any]:
         fault_injector = FaultInjector.from_config(s.faults)
     rec = _build_telemetry(ctx, s)
     engine = ServeEngine(model, params, n_slots=s.n_slots, max_len=max_len,
+                         mesh=mesh, plan=plan,
                          greedy=samp.temperature <= 0,
                          block_len=None if s.block_len < 0 else s.block_len,
                          n_blocks=s.n_blocks, prefill_chunk=s.prefill_chunk,
@@ -157,14 +170,18 @@ def execute_serve(ctx) -> Dict[str, Any]:
     # resilience fields of the BENCH_* schema (serving never rolls back or
     # checkpoints; a clean engine run reports zeros)
     result.update(rollback_count=0, retry_count=0, graceful_exit=False)
+    if plan is not None:
+        result["plan"] = getattr(plan, "name", str(plan))
     if s.compare_static:
         # equal-footing baseline: the static-batch shim at batch=n_slots and
-        # the longest workload shape: continuous batching must not decode
-        # slower than a lockstep batch of the same width
+        # the longest workload shape, under the same mesh and plan:
+        # continuous batching must not decode slower than a lockstep batch
+        # of the same width and layout
         shim = serve_benchmark(model, batch=s.n_slots,
                                prompt_len=longest_prompt,
                                gen=max(w.gen_tokens), seed=s.seed,
-                               params=params, device=device, log=log)
+                               params=params, device=device, mesh=mesh,
+                               plan=plan, log=log)
         shim.pop("generated_ids", None)
         result["static_shim"] = shim
     if rec is not None:

@@ -35,9 +35,15 @@ sampling noise is a hash of ``(seed, generation index)``.
 ``docs/serving.md`` spells out the argument.
 
 A ``fault_injector`` fires ``serve_stall`` inside the tick, before its
-watchdog clock stops (a hung collective, simulated).  Sharded serving
-(``mesh``/``plan``, with ``cache_shardings``) comes with ROADMAP A8b and
-raises here.
+watchdog clock stops (a hung collective, simulated).
+
+Sharded serving (``mesh`` and ``plan``, as in JAX): the params are laid
+out by ``plans.param_shardings`` and the pool by ``plans.cache_shardings``
+as DTensors, each rank allocating and writing only its block of the
+cache; the slot state and the page table are plain tensors, the same on
+every rank, which runs the same scheduler (the logits are gathered before
+the sampling head, so every rank draws the same tokens).  A ``mesh``
+without a ``plan`` serves unsharded, as in JAX.
 """
 from __future__ import annotations
 
@@ -128,12 +134,6 @@ class ServeEngine:
                 f"{cfg.name}: the serving engine drives text decoders; "
                 f"audio/vlm prompts need modality extras the slot scheduler "
                 f"does not carry")
-        if mesh is not None or plan is not None:
-            from ..sharding.plans import A8B
-
-            raise NotImplementedError(
-                f"sharded serving (mesh/plan, cache_shardings) comes with "
-                f"{A8B}")
         if n_slots < 1 or max_len < 2:
             raise EngineError(f"need n_slots >= 1 and max_len >= 2, got "
                               f"{n_slots}/{max_len}")
@@ -141,8 +141,28 @@ class ServeEngine:
             raise EngineError(f"deadline_s/watchdog_s must be >= 0, got "
                               f"{deadline_s}/{watchdog_s}")
         self.model = model
-        self.params = params
         self.device = _params_device(params)
+        if hasattr(mesh, "build"):
+            mesh = mesh.build(self.device.type)
+        self.mesh, self.plan = mesh, plan
+        if mesh is not None and plan is not None:
+            from ..models.transformer import DecoderLM, refuse_mesh
+            from ..sharding import plans as PL
+
+            if not isinstance(model, DecoderLM):
+                raise NotImplementedError(
+                    f"{type(model).__name__} under a plan comes with "
+                    f"{PL.A8B}")
+            refuse_mesh(cfg)
+            self.mesh_ctx = PL.mesh_context(plan, mesh)
+            psh, self.shard_warnings = PL.param_shardings(
+                plan, mesh, params, model.param_axes())
+            params = PL.distribute(params, psh)
+        else:
+            self.mesh_ctx = None
+            self.shard_warnings = []
+        self._ranks = mesh.size() if self.mesh_ctx is not None else 1
+        self.params = params
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.cache_dtype = cache_dtype
@@ -179,24 +199,38 @@ class ServeEngine:
                     f"makes cached pages bitwise canonical")
             self.prefill_chunk = min(chunk, self.max_pages * self.block_len)
             self.prefix_cache = bool(prefix_cache)
-            self._chunk = ST.make_prefill_chunk_step(model)
+            self._chunk = ST.make_prefill_chunk_step(model, self.mesh_ctx)
         else:
             self.max_pages = 0
             self.n_blocks = 0
             self.prefill_chunk = 0
             self.prefix_cache = False
         self.greedy = bool(greedy)
-        self._tick = ST.make_engine_step(model, greedy=self.greedy,
-                                         paged=self.paged)
+        self._tick = ST.make_engine_step(model, self.mesh_ctx,
+                                         greedy=self.greedy, paged=self.paged)
 
     # -- device state --------------------------------------------------------
     def _init_pool(self):
+        """A fresh pool and slot state.  Under a mesh each leaf of the pool
+        is a DTensor laid out by ``plans.cache_shardings`` (JAX's rule at
+        ``n_blocks`` or ``n_slots``), each rank allocating only its block
+        (``plans.pool_zeros``: a paged pool's scratch block on every
+        rank)."""
+        dev = self.device if self.mesh_ctx is None else torch.device("meta")
         if self.paged:
             cache = self.model.init_paged_cache(self.n_blocks, self.block_len,
-                                                self.cache_dtype, self.device)
+                                                self.cache_dtype, dev)
         else:
             cache = self.model.init_cache(self.n_slots, self.max_len,
-                                          self.cache_dtype, self.device)
+                                          self.cache_dtype, dev)
+        if self.mesh_ctx is not None:
+            from ..sharding import plans as PL
+
+            csh = PL.cache_shardings(
+                self.plan, self.mesh, cache,
+                self.n_blocks if self.paged else self.n_slots,
+                paged=self.paged)
+            cache = PL.pool_zeros(cache, csh, self.device, paged=self.paged)
         n, dev = self.n_slots, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         slots = {
@@ -243,6 +277,7 @@ class ServeEngine:
     def _first_token(self, logits, slots, slot: int):
         """Generation index 0 from the prefill's last-row logits [1, V],
         with the slot's key and knobs (the same head as the tick)."""
+        logits = ST.full_logits(logits)
         if self.greedy:
             return torch.argmax(logits[0], dim=-1).to(torch.int32)
         s = slice(slot, slot + 1)
@@ -265,7 +300,8 @@ class ServeEngine:
         row; returns the cache and the first token, still on the device."""
         logits, cache = self.model.prefill_into(
             self.params, {"tokens": prompt[None]}, cache, slot,
-            max_len=self.max_len, cache_dtype=self.cache_dtype)
+            max_len=self.max_len, cache_dtype=self.cache_dtype,
+            mesh_ctx=self.mesh_ctx)
         tok = self._first_token(logits, slots, slot)
         self._start(slots, slot, tok, prompt.shape[0])
         return cache, tok
@@ -365,6 +401,21 @@ class ServeEngine:
             return self._tick(self.params, cache, slots)
 
         return {"admit": admit, "tick": tick}
+
+    def _now(self, t0: float) -> float:
+        """Seconds since ``t0`` on the clock the scheduler decides by.
+        Under a mesh of more than one rank every rank runs the scheduler,
+        and each decision must be the same on all of them (the collectives
+        of a tick or an admission must match), so rank 0's reading is
+        broadcast: arrivals and deadlines are judged by one clock."""
+        now = time.perf_counter() - t0
+        if self._ranks > 1:
+            import torch.distributed as dist
+
+            t = torch.tensor([now], dtype=torch.float64, device=self.device)
+            dist.broadcast(t, src=0)
+            now = float(t)
+        return now
 
     # -- the scheduler loop --------------------------------------------------
     @torch.no_grad()
@@ -620,7 +671,7 @@ class ServeEngine:
                 retire(slot, r)
 
         while pending or slot_req:
-            now = time.perf_counter() - t0
+            now = self._now(t0)
             if deadlines_on and pending:
                 # queued requests past their deadline retire unserved —
                 # admitting them would spend prefill on a dead answer
@@ -651,14 +702,14 @@ class ServeEngine:
                 else:
                     admit_dense(r)
                 pending.popleft()
-                now = time.perf_counter() - t0
+                now = self._now(t0)
             if not slot_req:
                 if pending and realtime:
                     time.sleep(min(max(pending[0].arrival_s - now, 0.0), 0.05))
                 continue
             do_tick()
             if deadlines_on and slot_req:
-                now = time.perf_counter() - t0
+                now = self._now(t0)
                 for slot in list(slot_req):
                     r = slot_req[slot]
                     exp = req_expiry(r)

@@ -31,10 +31,10 @@ from ..models import base as B
 TP_AXES = {B.HEADS, B.KV_HEADS, B.D_FF, B.VOCAB, B.D_INNER, B.CONV_DIM,
            B.D_EXPERT}
 
-#: what the rest of the parallelism item brings (sharded serving, LoRA
-#: under a plan, MLA, the hybrid, Whisper and LLaVA under a mesh, the
-#: decode-shape dryrun), after the GPipe schedule and expert parallelism
-A8B = "ROADMAP A8b (sharded serving, LoRA, MLA and the other archs under a mesh)"
+#: what the rest of the parallelism item brings (LoRA under a plan, MLA,
+#: the hybrid, Whisper and LLaVA under a mesh), after the GPipe schedule,
+#: expert parallelism and sharded serving
+A8B = "ROADMAP A8b (LoRA, MLA and the other archs under a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -432,6 +432,109 @@ def batch_shardings(plan: ShardingPlan, mesh, batch_shapes) -> Any:
         return NamedSharding(mesh, P(*s))
 
     return _map_specs(spec, batch_shapes)
+
+
+# ---------------------------------------------------------------------------
+# cache specs (serving)
+# ---------------------------------------------------------------------------
+def cache_specs(plan: ShardingPlan, mesh, cache_shapes,
+                paged: bool = False) -> Any:
+    """A :class:`PartitionSpec` per cache leaf: JAX's ``cache_shardings``
+    rule, leaf by leaf (the caches are stacked ``[L, B, ...]`` in both
+    packages).  The batch (slot, or paged block) dim goes over the plan's
+    dp axes when it divides; an attention leaf ``[L, B, S, K, dh]`` has its
+    KV-head dim over ``model`` when that divides, else its sequence dim;
+    when the batch does not divide, the sequence dim goes over ``data``
+    too (``("data", "model")`` where it already names ``model``).  A
+    ``conv`` leaf ``[L, B, W-1, conv_dim]`` shards its last dim over
+    ``model`` and an ``ssm`` leaf ``[L, B, H, P, N]`` its head dim, where
+    they divide.
+
+    ``paged``: the leaves are the port's block pool ``[L, n_blocks + 1,
+    block_len, K, dh]``, whose last block is the scratch block that takes
+    suppressed writes (``models.attention``); JAX's pool has ``n_blocks``.
+    The rule is applied to the ``n_blocks`` real pages, so they are laid
+    out as JAX lays out its pool, and the scratch block is kept on every
+    rank: see :func:`pool_zeros`."""
+    sizes = axis_sizes(mesh)
+    dp = plan.dp_axes
+    dp_size = _axes_size(sizes, dp)
+    tp = sizes.get("model", 1)
+    data = sizes.get("data", 1)
+
+    def spec(path, shape):
+        shape = list(shape)
+        if paged and len(shape) >= 2:
+            shape[1] -= 1
+        s: List[Any] = [None] * len(shape)
+        b_dim = 1 if len(shape) >= 2 else 0
+        batch_ok = shape[b_dim] % dp_size == 0
+        if batch_ok:
+            s[b_dim] = _norm_axes(dp)
+        if "conv" in path:
+            if shape[-1] % tp == 0:
+                s[-1] = "model"
+            return P(*s)
+        if "ssm" in path:
+            if len(shape) >= 3 and shape[2] % tp == 0:
+                s[2] = "model"
+            return P(*s)
+        seq_dim = 2 if len(shape) >= 3 else None
+        kv_dim = 3 if len(shape) >= 5 else None
+        if kv_dim is not None and shape[kv_dim] % tp == 0:
+            s[kv_dim] = "model"
+        elif seq_dim is not None and shape[seq_dim] % tp == 0:
+            s[seq_dim] = "model"
+        if not batch_ok and seq_dim is not None:
+            cur = s[seq_dim]
+            if shape[seq_dim] % (data * (tp if cur == "model" else 1)) == 0:
+                s[seq_dim] = ("data", "model") if cur == "model" else "data"
+        return P(*s)
+
+    leaves = _flatten(cache_shapes)
+    return _unflatten(cache_shapes,
+                      [spec(path, _shape(leaf)) for path, leaf in leaves])
+
+
+def cache_shardings(plan: ShardingPlan, mesh, cache_shapes,
+                    batch_size: int = 0, paged: bool = False) -> Any:
+    """A :class:`NamedSharding` per cache leaf (:func:`cache_specs`;
+    ``batch_size`` is JAX's argument, which its rule does not read)."""
+    return _map_specs(lambda s: NamedSharding(mesh, s),
+                      cache_specs(plan, mesh, cache_shapes, paged))
+
+
+def pool_zeros(shapes, shardings, device, paged: bool = False):
+    """A zeroed cache laid out as ``shardings`` (:func:`cache_shardings`),
+    each rank allocating only its block: DTensors whose placements stay
+    what ``shardings`` says for the life of the pool (every cache write is
+    made in place on a rank's own block, ``models.base.local_cache_call``).
+
+    ``paged``: each rank's block of the pool is its share of the
+    ``n_blocks`` real pages (the block :func:`cache_specs` gives them) and
+    then one scratch block of its own, so a split that is even over the
+    real pages stays even: with the block dim over ``dp`` ranks the
+    DTensor's global block dim is ``n_blocks + dp`` and rank ``r`` holds
+    real pages ``[r * n_blocks / dp, (r + 1) * n_blocks / dp)``; with it
+    not sharded, ``n_blocks + 1`` as with no mesh."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def make(shape_like, sh):
+        shape = list(_shape(shape_like))
+        if paged:
+            shape[1] -= 1
+        meta = torch.empty(shape, device="meta")
+        local = list(local_block(meta, sh.mesh, sh.placements).shape)
+        if paged:
+            local[1] += 1
+        t = torch.zeros(local, dtype=shape_like.dtype, device=device)
+        return DTensor.from_local(t, sh.mesh, sh.placements, run_check=False)
+
+    if isinstance(shapes, dict):
+        return {k: pool_zeros(v, shardings[k], device, paged)
+                for k, v in shapes.items()}
+    return make(shapes, shardings)
 
 
 # ---------------------------------------------------------------------------

@@ -197,18 +197,33 @@ def make_prefill_step(model, mesh_ctx=None, storage_axes=()):
     return prefill_step
 
 
-def make_serve_step(model):
-    """One decode iteration: next-token logits -> greedy token, cache."""
+def make_serve_step(model, mesh_ctx=None):
+    """One decode iteration: next-token logits -> greedy token, cache.
+    Under a mesh (``mesh_ctx``) on the plan's DTensors, the cache laid out
+    by ``plans.cache_shardings`` (what a dryrun traces for a decode shape);
+    the greedy token is drawn from the gathered logits
+    (:func:`full_logits`)."""
 
     def serve_step(params, cache, tokens, positions):
-        logits, new_cache = model.decode_step(params, cache, tokens, positions)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits, new_cache = model.decode_step(params, cache, tokens, positions,
+                                              mesh_ctx)
+        next_tok = torch.argmax(full_logits(logits), dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
 
     return serve_step
 
 
-def make_engine_step(model, greedy: bool = False, paged: bool = False):
+def full_logits(logits):
+    """The whole logits on every rank: a DTensor (under a mesh the vocab
+    dim lies over ``model`` and the slots over the dp axes) gathered once,
+    so the sampling head sees what it sees with no mesh."""
+    from ..models.base import is_dtensor
+
+    return logits.full_tensor() if is_dtensor(logits) else logits
+
+
+def make_engine_step(model, mesh_ctx=None, greedy: bool = False,
+                     paged: bool = False):
     """The continuous-batching decode tick over the whole slot pool.
 
     Decode every slot at its own position, run the sampling head (greedy /
@@ -239,10 +254,17 @@ def make_engine_step(model, greedy: bool = False, paged: bool = False):
     per-slot page tables as a fourth argument and suppresses the cache
     writes of inactive slots — a retired slot's blocks may already be freed
     and remapped, so its frozen-position write must not land there.
+
+    Under a mesh (``mesh_ctx``) the decode runs on the plan's DTensors and
+    each rank's block of the cache; the slot state and the page tables
+    stay plain tensors, the same on every rank, and the logits are
+    gathered (:func:`full_logits`) before the head, so every rank draws
+    the same tokens.
     """
     from ..serve.sampling import sample_tokens, token_key
 
     def _sample_and_advance(slots, logits, cache):
+        logits = full_logits(logits)
         if greedy:
             sampled = torch.argmax(logits, dim=-1).to(torch.int32)
         else:
@@ -264,19 +286,19 @@ def make_engine_step(model, greedy: bool = False, paged: bool = False):
     if paged:
         def engine_step(params, cache, slots, pages):
             logits, cache = model.decode_step(
-                params, cache, slots["tokens"], slots["pos"], pages=pages,
-                active=slots["active"])
+                params, cache, slots["tokens"], slots["pos"], mesh_ctx,
+                pages=pages, active=slots["active"])
             return _sample_and_advance(slots, logits, cache)
     else:
         def engine_step(params, cache, slots):
             logits, cache = model.decode_step(params, cache, slots["tokens"],
-                                              slots["pos"])
+                                              slots["pos"], mesh_ctx)
             return _sample_and_advance(slots, logits, cache)
 
     return engine_step
 
 
-def make_prefill_chunk_step(model):
+def make_prefill_chunk_step(model, mesh_ctx=None):
     """One fixed-shape chunk of a paged admission (``model.prefill_chunk``).
 
     The chunk program's shapes depend only on (chunk length, pool shape) —
@@ -286,6 +308,6 @@ def make_prefill_chunk_step(model):
 
     def chunk_step(params, cache, pages_row, tokens, start, n_valid):
         return model.prefill_chunk(params, cache, pages_row, tokens, start,
-                                   n_valid)
+                                   n_valid, mesh_ctx=mesh_ctx)
 
     return chunk_step

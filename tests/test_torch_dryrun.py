@@ -9,9 +9,10 @@
   ``sharding_warnings`` and ``mem_argument_size_in_bytes`` ``==``; the
   per-device FLOPs within ``FLOPS_TOL`` of JAX's.
 - The Whisper x ``long_500k`` skip record ``==`` JAX's, with no process
-  group started; decode shapes and the archs a mesh does not run yet
-  raise naming ROADMAP A8b; full-width DeepSeekMoE's ``train_4k`` dry-runs
-  under ``fsdp_tp_ep``.
+  group started; the archs a mesh does not run yet raise naming ROADMAP
+  A8b; full-width Qwen's ``decode_32k`` and ``long_500k`` and
+  DeepSeekMoE's ``train_4k`` dry-run on 256 fake ranks (the reduced
+  decode cases against JAX: ``tests/test_torch_dryrun_decode.py``).
 - A reduced MoE under ``fsdp_tp_ep`` against JAX's dryrun on 8 forced
   devices (keys and ``EQUAL_KEYS``) and a reduced StableLM under
   ``pp2_fsdp_tp`` on a fake world of 256 ranks (JAX's keys, plan and
@@ -147,16 +148,35 @@ def test_whisper_long_500k_skip_record_starts_no_group(tmp_path, monkeypatch):
     ("zamba2_2p7b", "prefill_32k"),
     ("whisper_tiny", "train_4k"),
 ])
-def test_later_slices_raise_naming_a8b(tmp_path, arch, shape, monkeypatch):
-    """Decode shapes (the serve step under a mesh, the cache's layout) and
-    the archs a mesh does not run yet raise naming ROADMAP A8b, after the
-    skip check and before any process group.  DeepSeekMoE's ``train_4k``
-    dry-runs under its default plan, ``fsdp_tp_ep``, on the production
-    mesh's fake world of 256 ranks (full width)."""
+def test_later_slices_raise_naming_a8b(tmp_path, arch, shape, monkeypatch,
+                                       jax_a8b):
+    """The archs a mesh does not run yet raise naming ROADMAP A8b, after
+    the skip check and before any process group.  Full-width Qwen's decode
+    shapes dry-run on the production mesh's fake world of 256 ranks under
+    its default plan, ``fsdp_tp``, with JAX's result keys (``long_500k`` on
+    the window of 8192 that ``specs.adapt_config`` sets: its cache of one
+    row has the sequence over ``data``); DeepSeekMoE's ``train_4k`` under
+    its default plan, ``fsdp_tp_ep`` (full width)."""
     doc = {"run": {"kind": "dryrun", "name": "a8b",
                    "output_dir": str(tmp_path / "a8b")},
            "arch": {"component_key": "arch_config", "variant_key": arch},
            "shape": {"component_key": "shape", "variant_key": shape}}
+    if shape in ("decode_32k", "long_500k"):
+        res = api.execute_doc(doc, device="cpu", log=_quiet)
+        missing = {"xla_cost_flops_unscaled",
+                   "mem_generated_code_size_in_bytes"}
+        assert set(res) == set(jax_a8b["moe-fsdp_tp_ep"]["keys"]) - missing
+        assert res["plan"] == "fsdp_tp(dp=data; fsdp=data; tp=model)"
+        assert res["chips"] == 256 and res["sharding_warnings"] == []
+        # the cache of 24 layers, K 16 heads of 64 in bf16: 128 rows of
+        # 32,768 over data (16) and heads over model (16), or one row of
+        # the window's 8,192 with the sequence over data
+        cache = (128 // 16 * 32768 if shape == "decode_32k" else 8192 // 16)
+        assert res["mem_argument_size_in_bytes"] > \
+            2 * 24 * cache * (16 // 16) * 64 * 2
+        assert res["collective_counts"]["all-gather"] > 0
+        assert not dist.is_initialized()
+        return
     if arch == "deepseek_moe_16b":
         res = api.execute_doc(doc, device="cpu", log=_quiet)
         assert res["plan"] == ("fsdp_tp_ep(dp=data; fsdp=data; tp=model; "

@@ -53,6 +53,16 @@ STEP_F32_TOL = 1e-4
 P, G = 64, 3          # prompt (two SSD chunks of 32), decode steps
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module (the suite's workers share the
+    host's cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x, np.float32)
 

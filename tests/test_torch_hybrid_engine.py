@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_reduced as jax_get_reduced
 from repro.models import build_model as jax_build_model
@@ -44,6 +45,16 @@ LOGIT_TOL = 3e-2
 MAX_LEN = 32
 TRACE = dict(seed=11, rate=0.0, prompt_lens=(6, 10), gen_tokens=(3, 6),
              temperature=0.8, top_k=16, top_p=0.95, max_len=MAX_LEN)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module (the suite's workers share the
+    host's cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

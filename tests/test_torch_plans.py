@@ -12,11 +12,12 @@
   (``tests/test_parallel_plans.py:31-141``); the inline plan mapping
   normalises as JAX's; the mesh providers stay lazy and a mesh larger
   than the world raises JAX's words.
-- The GPipe schedule and expert parallelism build: a pipe axis of the
-  plan's extent gives JAX's pipelined context, an ep plan's train step and
-  the MoE under a mesh build.  The parts of parallelism that come with the
-  rest of ROADMAP A8b (sharded serving, LoRA under a plan, MLA, the hybrid,
-  Whisper and LLaVA under a mesh) raise naming it.
+- The GPipe schedule, expert parallelism and sharded serving build: a
+  pipe axis of the plan's extent gives JAX's pipelined context, an ep
+  plan's train step, the MoE under a mesh and the engine under
+  ``serve_ep`` build.  The parts of parallelism that come with the rest
+  of ROADMAP A8b (LoRA under a plan, MLA, the hybrid, Whisper and LLaVA
+  under a mesh) raise naming it.
 """
 import functools
 
@@ -312,13 +313,19 @@ def _fake_ctx(**kw):
 
 def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
     """An ep plan's train step builds (expert parallelism trains:
-    ``tests/test_torch_pp_train.py``); LoRA under a plan and sharded
-    serving still raise naming A8b."""
+    ``tests/test_torch_pp_train.py``), and so does the engine under
+    ``serve_ep`` on a one-device mesh (sharded serving:
+    ``tests/test_torch_mesh_serve.py``): its params DTensors, its MoE
+    through expert parallelism.  LoRA under a plan, in training, in a
+    restore and in the engine, still raises naming A8b."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.ckpt import write_checkpoint
     from repro_torch.optim.adamw import AdamW
     from repro_torch.posttrain import lora as LO
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_leaves
 
     model = build_model(get_reduced("qwen1p5_0p5b"))
     for arch in ("qwen1p5_0p5b", "deepseek_moe_16b"):
@@ -328,10 +335,21 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
     frozen = LO.FrozenBaseOptimizer(AdamW())
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
         ST.make_train_step(model, frozen, _fake_ctx())
-    params = model.init(torch.Generator().manual_seed(0))
-    for kw in ({"mesh": object()}, {"plan": PL.make_plan("serve_ep")}):
+    moe = build_model(get_reduced("deepseek_moe_16b"))
+    plan = PL.make_plan("serve_ep")
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cpu")
+        eng = ServeEngine(moe, moe.init(torch.Generator().manual_seed(0)),
+                          n_slots=1, max_len=8, mesh=mesh, plan=plan)
+        assert all(isinstance(t, DTensor) for t in tree_leaves(eng.params))
+        assert eng.mesh_ctx.ep_enabled and eng.mesh_ctx.ep_axes == \
+            ("data", "model")
+        lora = LO.LoRAModel(model, LO.LoRAConfig())
         with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            ServeEngine(model, params, n_slots=1, max_len=8, **kw)
+            ServeEngine(lora, lora.init(torch.Generator().manual_seed(0)),
+                        n_slots=1, max_len=8, mesh=mesh, plan=plan)
+    finally:
+        MESH.shutdown()
     path = write_checkpoint(str(tmp_path), 1,
                             {f"params/{LO.ADAPTER_KEY}/a": torch.zeros(2)})
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):

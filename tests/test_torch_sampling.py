@@ -28,6 +28,16 @@ SEEDS = [0, 1, 7, 12345, 700022, 2**31 - 1, -1, -123]
 GUMBEL_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module (the suite's workers share the
+    host's cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _u32(key) -> np.ndarray:
     return np.asarray(key).astype(np.int64)
 

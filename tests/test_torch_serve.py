@@ -43,6 +43,16 @@ LOGIT_TOL = 3e-2
 CACHE_TOL = 6e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module (the suite's workers share the
+    host's cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_params(cfg, seed=0):
     """JAX's init, with random (non-zero) QKV biases so the bias path counts."""
     params = jax.tree_util.tree_map(
@@ -350,12 +360,23 @@ def test_entry_points_without_device_raise_on_a_host_without_card():
 
 
 def test_unported_paths_raise():
+    """A mesh or a plan alone serves unsharded, as in JAX (the engine
+    shards with both: ``tests/test_torch_mesh_serve.py``), its streams
+    ``==`` the plain engine's; the audio and VLM archs are refused."""
+    from repro_torch.sharding.plans import make_plan
+
     model = build_model(get_reduced("qwen1p5_0p5b"))
     params = load_params(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ServeEngine(model, params, n_slots=1, max_len=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        ServeEngine(model, params, n_slots=1, max_len=8, plan=object())
+    trace = synthetic_trace(2, model.cfg.vocab, seed=3, prompt_lens=(4,),
+                            gen_tokens=(3,), max_len=8)
+    want = [r["gen_ids"] for r in ServeEngine(
+        model, params, n_slots=1, max_len=8).run(trace, realtime=False)[
+            "requests"]]
+    for kw in ({"mesh": object()}, {"plan": make_plan("fsdp_tp")}):
+        eng = ServeEngine(model, params, n_slots=1, max_len=8, **kw)
+        assert eng.mesh_ctx is None and eng.shard_warnings == []
+        got = eng.run(trace, realtime=False)["requests"]
+        assert [r["gen_ids"] for r in got] == want
     # the engine drives text decoders, as JAX's (``serve/engine.py``)
     for arch in ("whisper_tiny", "llava_next_34b"):
         model = build_model(get_reduced(arch))
