@@ -90,8 +90,9 @@
 6. Checkpoints: the two commands in ``warmstart.yaml``'s header (the
    unchanged quickstart with ``gym.config.ckpt_every=20``, then the
    unchanged ``warmstart.yaml`` from its checkpoint); then full-width
-   Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``' document, batch
-   8 × 1024): 6 steps straight; 3 steps with an async checkpoint at step
+   Qwen1.5-0.5B at 12 of its 24 layers (``DONOR_LAYERS``) through the
+   flash kernel (``TRAIN_SLICES``' document, batch 8 × 1024): 6 steps
+   straight; 3 steps with an async checkpoint at step
    3, its ``resolved.yaml`` and ``manifest.json``; resumed in a new run to
    the budget of 6 (losses and params against the straight run within
    ``RESUME_TOL``, bit-equality printed); its params served from the
@@ -99,7 +100,7 @@
    warmstart of 2 steps from it; ``replay`` of the interrupted run's
    directory (the same fingerprint, the same losses).  Prints the
    snapshot's stall, the writer's seconds and bytes and the restore time.
-7. Resilience and run accounting: full-width Qwen1.5-0.5B at 12 of its 24
+7. Resilience and run accounting: full-width Qwen1.5-0.5B at 6 of its 24
    layers (``RESIL_LAYERS``) through the flash kernel (batch 8 x 1024, a
    checkpoint every 2 steps, 6 steps)
    straight with a ``torch.profiler`` window at step 3 (its ``flash_fwd``
@@ -112,8 +113,9 @@
    on the quickstart (exit 75, the resumed curve ``==`` a straight run's)
    and a stalled engine tick under the watchdog.  The train phases print
    ``model_flops_per_step`` (6·N·D) and ``mfu`` against the card's peak.
-8. Post-training: full-width Qwen1.5-0.5B through the flash kernel with
-   LoRA rank 8 (alpha 16, the default targets): (a) on one 1024-token
+8. Post-training: full-width Qwen1.5-0.5B at ``DONOR_LAYERS`` (the
+   checkpoint phase's depth) through the flash kernel with LoRA rank 8
+   (alpha 16, the default targets): (a) on one 1024-token
    prompt, the injected forward ``==`` the base forward, ``apply(merge(p))``
    ``==`` the on-the-fly forward, an adapter checkpoint reloaded into a
    fresh init ``==``, the merged export restacked ``==`` ``merge(p)``; (b)
@@ -148,10 +150,10 @@
    ``tokenizer/byte``.
 10. Training under sharding plans (``--only mesh``, ROADMAP A8a): a
    one-rank NCCL group over a ``(1, 1)`` ``data x model`` mesh; full-width
-   Qwen1.5-0.5B through the flash kernel (8 x 1024, ``remat: full``) 3
-   steps with no mesh and under ``ddp``, ``fsdp`` and ``fsdp_tp``, and
-   full-width Mamba2-780M through the SSD kernel 2 steps with no mesh and
-   under ``fsdp_tp``, each run through the gym its document resolves to
+   Qwen1.5-0.5B at 12 of its 24 layers through the flash kernel (8 x 1024,
+   ``remat: full``) 3 steps with no mesh and under ``ddp``, ``fsdp`` and
+   ``fsdp_tp``, and full-width Mamba2-780M at 24 of its 48 layers through
+   the SSD kernel 2 steps with no mesh and under ``fsdp_tp``, each run through the gym its document resolves to
    (``mesh_provider/local``, ``sharding_plan/<plan>``): the param and
    moment leaves DTensors with the plan's placements, the kernel's
    launches a step, losses and final params against the no-mesh run (bit
@@ -179,16 +181,40 @@
    under ``ddp`` on a ``(1, 1)`` NCCL mesh under the dryrun's counter
    beside its dryrun on a fake world (FLOPs, bytes, collectives and
    argument bytes equal); then on a ``(1, 1)`` NCCL mesh (a) Qwen's static
-   shim at 8 x 1024 x 32 through ``flash_fwd`` under ``fsdp_tp`` (streams
-   ``==``, 24 launches an admission, tok/s and peak memory), (b) Qwen's
-   paged engine under ``ddp`` on 8 requests of the engine phase's traffic
-   (streams and prefix hit rate ``==``), (c) Mamba2's shim at 8 x 1024 x
-   32 through ``ssd_scan`` under ``fsdp_tp`` (streams ``==``, 48 launches
-   an admission), (d) DeepSeekMoE-16B at depth 4 through its shim at 8 x
-   512 x 32 under ``serve_ep`` (EP degree 1: every admission's and tick's
-   T·k and dropped share, first-token logits within the bf16 MoE bound of
-   the no-mesh shim, streams equal or parted where the no-mesh logits tie
+   shim at 12 of its layers, 8 x 1024 x 32, through ``flash_fwd`` under
+   ``fsdp_tp`` (streams ``==``, 12 launches an admission, tok/s and peak
+   memory), (b) Qwen's paged engine at ``ENGINE_QWEN_LAYERS`` under
+   ``ddp`` on 8 requests of the engine phase's traffic (streams and prefix
+   hit rate ``==``), (c) Mamba2's shim at 24 of its layers, 8 x 1024 x 32,
+   through ``ssd_scan`` under ``fsdp_tp`` (streams ``==``, 24 launches an
+   admission), (d) DeepSeekMoE-16B at depth 4 through its shim at 8 x 512
+   x 32 under ``serve_ep`` (EP degree 1: every admission's and tick's T·k
+   and dropped share, first-token logits within the bf16 MoE bound of the
+   no-mesh shim, streams equal or parted where the no-mesh logits tie
    within that bound).  The group is destroyed at the end of the phase.
+10d. Post-training and DeepSeek-V3 under sharding plans (``--only
+   a8b_post``, the third part of ROADMAP A8b), each run beside the same
+   run with no mesh on a ``(1, 1)`` NCCL mesh, bit equality required:
+   (a) full-width Qwen1.5-0.5B with LoRA rank 8 through ``flash_fwd``, 3
+   ``sft`` steps of 8 x 1024 under ``fsdp_tp`` (48 launches a step, every
+   param leaf a DTensor with the plan's placements, the frozen base its
+   init); (c) that run's adapter checkpoint restored with no mesh and
+   through ``load_adapter(shardings=)`` under ``ddp``, its merged export
+   against the no-mesh export; (b) 2 ``dpo`` steps on static pairs under
+   ``fsdp`` (144 launches a step, first loss ``log 2``) and a ``dpo`` step
+   on on-policy pairs (the pairs, 0 launches while sampling); (d) the
+   engine over a LoRA model (Qwen at ``ENGINE_QWEN_LAYERS``) under
+   ``fsdp_tp`` against the engine over ``merge(params)``; (e) full-width
+   DeepSeek-V3 at ``DSV3_TRAIN_LAYERS`` with the MTP head, 2 gym steps
+   under ``fsdp_tp``, its shim with the expanded and the absorbed decode,
+   and one absorbed decode step against its dryrun (FLOPs, bytes,
+   collectives, argument bytes equal), 0 launches; (f) the full-width
+   DeepSeek-V3-671B dryruns of ``train_4k`` and ``decode_32k`` under
+   ``fsdp_tp_ep`` on 256 fake ranks, each a CLI child on the host beside
+   the card's checks: ``model_flops_global`` against 6·N·D, the plan, the
+   warnings, the collectives, and each child's word that it never
+   initialised CUDA.  Every phase's line carries ms/step or tok/s and peak
+   memory beside the no-mesh run's.
 11. The dryrun, trace and dryrun sweep (``--only dryrun``, ROADMAP A9b's
    dryrun half): (a) ``dryrun.yaml`` and ``trace.yaml`` unchanged through
    the port's CLI, each in a child process on the host from a temporary
@@ -1610,6 +1636,13 @@ def profile_train_step(key, cfg, params, batch, out_dir: str) -> None:
 # checkpoints: save, resume, serve, warmstart, replay
 # ---------------------------------------------------------------------------
 CKPT_STEPS, CKPT_AT, WARM_STEPS = 6, 3, 2
+# full-width Qwen cut to 12 of its 24 layers in the ckpt phase and in the
+# posttrain phase, which warmstarts from ckpt's checkpoint (their steps are
+# host-bound: a step's time goes with its layers), to keep the script
+# within its time with the a8b_post phase
+DONOR_LAYERS = 12
+# 6·N·D at DONOR_LAYERS, N counted on the meta device (309,785,600)
+DONOR_FLOPS = 6.0 * 309785600 * TRAIN_BATCH * TRAIN_SEQ
 # the resumed run against the straight one (JAX's bound in
 # tests/test_ckpt.py); the step is deterministic on the card, so the run
 # prints whether they are also bit-equal
@@ -1885,8 +1918,9 @@ def phase_ckpt_quickstart(data_dir: str) -> bool:
 
 
 def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
-    """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
-    document and sets, batch 8 x 1024, ``remat: full``) through the run API
+    """Full-width Qwen1.5-0.5B at ``DONOR_LAYERS`` of its 24 layers through
+    the flash kernel (``TRAIN_SLICES``' document and sets, batch 8 x 1024,
+    ``remat: full``) through the run API
     on the card: a straight run of CKPT_STEPS steps; the same document
     stopped at CKPT_AT with a checkpoint there; resumed in the same output
     directory to the total budget; its params served from the checkpoint;
@@ -1904,7 +1938,8 @@ def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
     n_tokens = (CKPT_STEPS + 2) * TRAIN_BATCH * (TRAIN_SEQ + 1)
     base = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
             f"loader.config.global_batch={TRAIN_BATCH}",
-            f"dataset.config.n_tokens={n_tokens}", *spec["sets"]]
+            f"dataset.config.n_tokens={n_tokens}", *spec["sets"],
+            f"arch.config.n_layers={DONOR_LAYERS}"]
     out_dir = os.path.join(data_dir, "ckpt_qwen_run")
     ckpt_dir = os.path.join(out_dir, "ckpt")
     step_dir = os.path.join(ckpt_dir, f"step_{CKPT_AT:08d}")
@@ -1931,7 +1966,7 @@ def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
                           losses=[h["loss"] for h in res["history"]])
         return runs[name]
 
-    layers = 24 * 2     # attention layers x (forward + remat recompute)
+    layers = DONOR_LAYERS * 2  # attention layers x (forward + recompute)
     straight = drive("straight", f"run.train.steps={CKPT_STEPS}")
     part = drive("interrupted", f"run.train.steps={CKPT_AT}",
                  f"gym.config.ckpt_every={CKPT_AT}",
@@ -1981,7 +2016,7 @@ def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
           f"{float(np.median(ms_p)):.3f})", flush=True)
     ok &= art_ok
     ok &= mfu_line("ckpt qwen: straight", straight["res"],
-                   float(np.median(ms_s)), spec["flops"], card)
+                   float(np.median(ms_s)), DONOR_FLOPS, card)
 
     # the resumed run against the straight one
     res_r = resumed["res"]
@@ -2033,12 +2068,13 @@ def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
     add_launches(results, counts)
     serve_ok = (_trees_equal(p_ckpt, p_mem) and torch.equal(l_ckpt, l_mem)
                 and bool(torch.isfinite(l_ckpt).all())
-                and counts["flash_fwd"] == 2 * 24)
+                and counts["flash_fwd"] == 2 * DONOR_LAYERS)
     print(f"ckpt qwen: load_params(ckpt=step_{CKPT_AT:08d}) in "
           f"{t_restore:.3f}s: params == step {CKPT_AT}'s "
           f"{_trees_equal(p_ckpt, p_mem)}; prefill logits (1 x "
           f"{SLICE_PROMPT}, bf16) == from memory {torch.equal(l_ckpt, l_mem)}"
-          f"; flash_fwd launches {counts['flash_fwd']} (want 48): "
+          f"; flash_fwd launches {counts['flash_fwd']} (want "
+          f"{2 * DONOR_LAYERS}): "
           f"{'ok' if serve_ok else 'FAILED'}", flush=True)
     ok &= serve_ok
     del p_ckpt, l_ckpt, l_mem
@@ -2094,10 +2130,10 @@ def phase_ckpt_qwen(data_dir: str, results: dict, card: str) -> bool:
 # resilience and run accounting: rollback, retried IO, preemption, profiler
 # ---------------------------------------------------------------------------
 RESIL_STEPS = 6
-# full-width Qwen cut to 12 of its 24 layers in the resil phase (its
+# full-width Qwen cut to 6 of its 24 layers in the resil phase (its
 # steps are host-bound: a step's time goes with its layers), to keep the
-# script within its time with the serve_mesh phase
-RESIL_LAYERS = 12
+# script within its time with the serve_mesh and a8b_post phases
+RESIL_LAYERS = 6
 # the three chaos blocks of the resil phase, each a run.train.resilience
 RESIL_ROLLBACK = {"sentinel": {"nan": True}, "max_rollbacks": 3,
                   "faults": [{"kind": "nan_loss", "at": 2},
@@ -2477,9 +2513,10 @@ def _resil_serve_stall(data_dir: str) -> bool:
 # ---------------------------------------------------------------------------
 POST_STEPS, POST_AT, DPO_STEPS, ONPOLICY_STEPS = 6, 3, 5, 2
 POST_LORA = {"rank": 8, "alpha": 16.0}
-# (trainable, total) of full-width Qwen1.5-0.5B at rank 8, default targets:
-# the JAX package's count on the CPU (tests/test_torch_posttrain.py)
-POST_TRAINABLE = (15977472, 479965184)
+# (trainable, total) of full-width Qwen1.5-0.5B at DONOR_LAYERS, rank 8,
+# default targets (``n_trainable`` on ``meta``; its 24-layer count
+# 15,977,472 / 479,965,184 is the JAX package's: tests/test_torch_posttrain.py)
+POST_TRAINABLE = (7988736, 317774336)
 # the SFT rows: packed prompt/response pairs that fill 8 rows of 1024
 POST_SFT_DATA = {"n_examples": 128, "prompt_len": [64, 256],
                  "response_len": [256, 768], "seed": 0}
@@ -2576,8 +2613,9 @@ def _lora_forward_checks(cfg, data_dir: str, counters) -> tuple:
 
 
 def phase_posttrain_qwen(data_dir: str, results: dict, card: str) -> bool:
-    """Full-width Qwen1.5-0.5B through the flash kernel (``TRAIN_SLICES``'
-    document and sets, batch 8 x 1024, ``remat: full``) with LoRA rank 8,
+    """Full-width Qwen1.5-0.5B at ``DONOR_LAYERS`` of its 24 layers through
+    the flash kernel (``TRAIN_SLICES``' document and sets, batch 8 x 1024,
+    ``remat: full``) with LoRA rank 8,
     alpha 16 and the default targets, through the run API on the card:
     (a) the LoRA algebra on one 1024-token prompt; (b) ``sft`` warmstarted
     strictly from ``ckpt qwen``'s step-3 checkpoint (fresh optimizer, the
@@ -2611,8 +2649,9 @@ def phase_posttrain_qwen(data_dir: str, results: dict, card: str) -> bool:
                          f"step_{CKPT_AT:08d}")
     base_sets = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
                  f"loader.config.global_batch={TRAIN_BATCH}", *spec["sets"],
-                 "gym.config.log_every=1"]
-    layers = 24
+                 "gym.config.log_every=1",
+                 f"arch.config.n_layers={DONOR_LAYERS}"]
+    layers = DONOR_LAYERS
     flops = 6.0 * POST_TRAINABLE[1] * TRAIN_BATCH * TRAIN_SEQ
 
     def doc_for(kind, name, settings, dataset, *sets):
@@ -3089,12 +3128,16 @@ def _sweep_cli(args: list) -> tuple:
 
 # the mesh phase (ROADMAP A8a): full-width runs under sharding plans on a
 # one-rank NCCL group, each beside the same run with no mesh
+# full width at half depth (Qwen 12 of 24 layers, Mamba2 24 of 48): the
+# steps are host-bound under DTensor, and the script keeps within its time
 MESH_SLICES = {
     "qwen": {"steps": 3, "plans": ("ddp", "fsdp", "fsdp_tp"),
              "kernel": "flash_fwd",
-             "sets": ["arch.config.use_flash_kernel=true"]},
+             "sets": ["arch.config.use_flash_kernel=true",
+                      "arch.config.n_layers=12"]},
     "mamba2": {"steps": 2, "plans": ("fsdp_tp",), "kernel": "ssd_scan",
-               "sets": ["arch.variant_key=mamba2_780m"]},
+               "sets": ["arch.variant_key=mamba2_780m",
+                        "arch.config.n_layers=24"]},
 }
 MESH_TOL = (
     0, "bit equality of every step's loss and every final param: on one "
@@ -3168,10 +3211,11 @@ def _meta_like(tree):
 def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
     """Training under sharding plans on the card (ROADMAP A8a).  A one-rank
     NCCL group (``launch.mesh`` starts it on a ``FileStore``) carries a
-    ``(1, 1)`` ``data x model`` mesh: full-width Qwen1.5-0.5B through
-    ``flash_fwd`` (8 x 1024, ``remat: full``) 3 steps under ``ddp``,
-    ``fsdp`` and ``fsdp_tp``, and full-width Mamba2-780M through
-    ``ssd_scan`` 2 steps under ``fsdp_tp``, each beside the same run with
+    ``(1, 1)`` ``data x model`` mesh: full-width Qwen1.5-0.5B at 12 of its
+    24 layers through ``flash_fwd`` (8 x 1024, ``remat: full``) 3 steps
+    under ``ddp``, ``fsdp`` and ``fsdp_tp``, and full-width Mamba2-780M at
+    24 of its 48 layers through ``ssd_scan`` 2 steps under ``fsdp_tp``
+    (``MESH_SLICES``), each beside the same run with
     no mesh: every param and moment leaf a DTensor with the plan's
     placements, the kernel's launches a step, losses and final params
     against the no-mesh run (bit equality required, ``MESH_TOL``; the
@@ -3351,11 +3395,14 @@ def _timed_steps(step, state, batch, steps):
 # shim's no-mesh run therefore mirrors those drops (moe_dense with the
 # dropped assignments' gates zeroed, as the pp phase's reference), so the
 # two differ only in bf16 summation order
+# Qwen at 12 of its 24 layers, Mamba2 at 24 of 48: a decode tick under a
+# plan is host-bound, and the script keeps within its time
 SERVE_MESH_SHIMS = {
-    "qwen": {"arch": "qwen1p5_0p5b", "with": {"use_flash_kernel": True},
+    "qwen": {"arch": "qwen1p5_0p5b",
+             "with": {"use_flash_kernel": True, "n_layers": 12},
              "plan": "fsdp_tp", "kernel": "flash_fwd", "prompt": 1024},
-    "mamba2": {"arch": "mamba2_780m", "with": {}, "plan": "fsdp_tp",
-               "kernel": "ssd_scan", "prompt": 1024},
+    "mamba2": {"arch": "mamba2_780m", "with": {"n_layers": 24},
+               "plan": "fsdp_tp", "kernel": "ssd_scan", "prompt": 1024},
     "moe16b": {"arch": "deepseek_moe_16b",
                "with": {"n_layers": 4, "use_flash_kernel": True},
                "plan": "serve_ep", "kernel": "flash_fwd", "prompt": 512},
@@ -3554,9 +3601,10 @@ def _serve_mesh_moe_checks(cfg, model, params, mesh, spec, got, ref, tally,
 
 
 def _serve_mesh_engine(mesh, results: dict, card: str) -> bool:
-    """(b): full-width Qwen's paged engine under ``ddp`` beside the engine
-    with no mesh, on 8 requests of the engine phase's traffic (2 shared
-    512-token prefixes, 32 tokens each, every fourth greedy)."""
+    """(b): full-width Qwen's paged engine at ``ENGINE_QWEN_LAYERS`` (the
+    engine phase's depth) under ``ddp`` beside the engine with no mesh, on
+    8 requests of the engine phase's traffic (2 shared 512-token prefixes,
+    32 tokens each, every fourth greedy)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3565,7 +3613,8 @@ def _serve_mesh_engine(mesh, results: dict, card: str) -> bool:
     from repro_torch.serve.workload import shared_prefix_trace
     from repro_torch.sharding import plans as PL
 
-    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True)
+    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True,
+                                           n_layers=ENGINE_QWEN_LAYERS)
     model = build_model(cfg)
     params = load_params(model, seed=0, device="cuda")
     t = SERVE_MESH_ENGINE_TRACE
@@ -3598,8 +3647,9 @@ def _serve_mesh_engine(mesh, results: dict, card: str) -> bool:
     ok = (streams == want and m["completed"] == t["n_requests"]
           and m["prefill_cache_hit_rate"] == b["prefill_cache_hit_rate"] > 0
           and mc == bc == {name: 0 for name in _counters()})
-    print(f"serve_mesh (b) qwen engine: paged (block_len "
-          f"{ENGINE_QWEN['block_len']}, chunk {ENGINE_QWEN['prefill_chunk']}"
+    print(f"serve_mesh (b) qwen engine: {cfg.n_layers} layers, paged "
+          f"(block_len {ENGINE_QWEN['block_len']}, chunk "
+          f"{ENGINE_QWEN['prefill_chunk']}"
           f"), {t['n_requests']} requests on {t['n_prefixes']} prefixes of "
           f"{t['prefix_len']}, {t['gen_tokens'][0]} tokens each, "
           f"{SAMPLING}, every fourth greedy; under ddp on "
@@ -5291,6 +5341,599 @@ def phase_mm_train(key: str, results: dict, card: str,
     return bool(ok)
 
 
+# ---------------------------------------------------------------------------
+# post-training and DeepSeek-V3 under sharding plans (ROADMAP A8b's third
+# part), each run beside the same run with no mesh on a (1, 1) NCCL mesh
+# ---------------------------------------------------------------------------
+A8B_SFT_STEPS, A8B_DPO_STEPS, A8B_DSV3_STEPS = 3, 2, 2
+# on-policy pairs: a smaller draw than the posttrain phase's (the sampler
+# and the engine are the same code with and without the plan)
+A8B_ONPOLICY = {"n_prompts": 4, "prompt_len": 64, "gen_tokens": 32,
+                "temperature": 0.9, "n_slots": 4, "seed": 0}
+# DeepSeek-V3's shim at DSV3_TRAIN_LAYERS: batch SLICE_BATCH, this prompt
+A8B_DSV3_PROMPT = 256
+A8B_DECODE = {"batch": 8, "cache": 1024, "timed": 3}
+A8B_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+# the full-width DeepSeek-V3-671B dryruns, each a CLI child on the host
+A8B_DRYRUN_SETS = ["arch.variant_key=deepseek_v3_671b",
+                   "arch.config.scan_block_size=1",
+                   "plan.variant_key=fsdp_tp_ep"]
+
+
+def _plan_sets(plan: str) -> list:
+    """The document sets that put a gym under ``plan`` on a ``local``
+    ``(1, 1)`` mesh."""
+    return ["mesh={component_key: mesh_provider, variant_key: local, "
+            "config: {dp: 1, tp: 1}}",
+            "gym.config.mesh_provider={instance_key: mesh}",
+            f"gym.config.sharding_plan={{component_key: sharding_plan, "
+            f"variant_key: {plan}}}"]
+
+
+def _a8b_drive(doc, results):
+    """One run-API call on the card with every launch counter set to 0 just
+    before it: (result, final state, launches, peak GiB, ms/step, wall s,
+    logs)."""
+    import gc
+
+    import torch
+
+    from repro_torch.run import api
+
+    logs = []
+    gc.collect()
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with _RunCapture() as cap:
+        res = api.execute_doc(doc, device="cuda", write_result=True,
+                              log=logs.append)
+    torch.cuda.synchronize()
+    counts = {n: c.launches for n, c in counters.items()}
+    add_launches(results, counts)
+    return (res, cap.out["state"], counts,
+            torch.cuda.max_memory_allocated() / 2**30,
+            _step_ms(res["history"]), time.perf_counter() - t0, logs, cap.gym)
+
+
+def _host(tree):
+    """A param tree's full tensors on the host (a DTensor gathered)."""
+    from repro_torch.models.base import is_dtensor
+
+    return {k: (v.full_tensor() if is_dtensor(v) else v).detach().cpu()
+            for k, v in _flat(tree)}
+
+
+def _same(a: dict, b: dict) -> tuple:
+    """(bit-equal, max |d|) of two trees of the same leaves."""
+    bit = _trees_equal(a, b)
+    return bit, 0.0 if bit else _max_diff(a, b)
+
+
+def _ms(ms) -> str:
+    import statistics
+
+    med = statistics.median(ms) if ms else float("nan")
+    return f"ms/step {json.dumps([round(x, 3) for x in ms])} (median {med:.3f})"
+
+
+def _a8b_post_qwen(data_dir: str, results: dict, card: str) -> bool:
+    """(a) ``sft`` under ``fsdp_tp``, (c) its adapters across layouts and
+    its merged export, (b) ``dpo`` under ``fsdp`` on static and on-policy
+    pairs: full-width Qwen1.5-0.5B through ``flash_fwd`` (8 x 1024,
+    ``remat: full``), LoRA rank 8 on a fresh init, each run beside the run
+    with no mesh."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import build_model
+    from repro_torch.posttrain import dpo as DPO
+    from repro_torch.posttrain import lora as LO
+    from repro_torch.sharding import plans as PL
+
+    tag = f"[{card}]"
+    base_sets = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
+                 f"loader.config.global_batch={TRAIN_BATCH}",
+                 *TRAIN_SLICES["qwen"]["sets"], "gym.config.log_every=1",
+                 "gym.config.prefetch=0"]
+    layers = 24
+
+    def doc_for(kind, name, settings, dataset, plan, *sets):
+        doc = train_doc(data_dir, "a8b_qwen", *base_sets, *sets,
+                        *(_plan_sets(plan) if plan else ()))
+        doc["dataset"] = {"component_key": "dataset", "variant_key": dataset[0],
+                          "config": {"seq_len": "${seq_len}",
+                                     "vocab": "${vocab}", **dataset[1]}}
+        doc["run"] = {"kind": kind, "name": name,
+                      "output_dir": os.path.join(data_dir, name),
+                      kind: {"lora": dict(POST_LORA), **settings}}
+        return doc
+
+    ok = True
+    # (a) sft: 3 steps with no mesh, then under fsdp_tp
+    sft_data = ("sft_synthetic", POST_SFT_DATA)
+    runs = {}
+    for plan in (None, "fsdp_tp"):
+        name = f"a8b_sft_{plan or 'nomesh'}"
+        res, state, counts, peak, ms, wall, logs, gym = _a8b_drive(doc_for(
+            "sft", name, {"steps": A8B_SFT_STEPS, "export_merged": True},
+            sft_data, plan), results)
+        layout = True
+        if plan:
+            sh = dict(_flat(gym._state_sh["params"]))
+            layout = all(isinstance(v, DTensor) and list(v.placements)
+                         == list(sh[k].placements)
+                         for k, v in _flat(state["params"]))
+        runs[plan] = dict(res=res, params=_host(state["params"]),
+                          counts=counts, peak=peak, ms=ms, wall=wall,
+                          layout=layout, warnings=getattr(
+                              gym, "shard_warnings", []))
+        del state, gym
+        _free()
+    b, m = runs[None], runs["fsdp_tp"]
+    init = LO.LoRAModel(build_model(get_config("qwen1p5_0p5b")),
+                        LO.LoRAConfig(**POST_LORA))
+    p0 = _host(init.init(torch.Generator(device="cuda").manual_seed(0)))
+    base_bit = _trees_equal(
+        *({k: v for k, v in t.items() if not LO.is_adapter_path(k)}
+          for t in (m["params"], p0)))
+    bit, dmax = _same(m["params"], b["params"])
+    bl, ml = ([h["loss"] for h in r["res"]["history"]] for r in (b, m))
+    want = {"flash_fwd": 2 * layers * A8B_SFT_STEPS, "ssd_scan": 0}
+    a_ok = (bit and base_bit and bl == ml and m["layout"]
+            and m["counts"] == b["counts"] == want
+            and all(map(math.isfinite, ml)))
+    print(f"a8b_post (a) qwen sft under fsdp_tp on a (1, 1) mesh: {layers} "
+          f"layers, LoRA rank "
+          f"{POST_LORA['rank']}, {A8B_SFT_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; losses {json.dumps([round(x, 5) for x in ml])} vs "
+          f"no mesh {json.dumps([round(x, 5) for x in bl])} bit-equal "
+          f"{bl == ml}; params (adapters and base) bit-equal {bit} (max |d| "
+          f"{dmax:.3g}, tol {MESH_TOL[0]}); {len(p0)} leaves, the frozen base "
+          f"== its init {base_bit}; every param leaf a DTensor with the "
+          f"plan's placements {m['layout']}; launches {m['counts']} (want "
+          f"{want}: {2 * layers} a step); {_ms(m['ms'])} vs no mesh "
+          f"{_ms(b['ms'])}; "
+          f"peak {m['peak']:.3f} vs {b['peak']:.3f} GiB; shard warnings "
+          f"{len(m['warnings'])} {tag}: {'ok' if a_ok else 'FAILED'}",
+          flush=True)
+    ok &= a_ok
+
+    # (c) the adapter checkpoint written under fsdp_tp, with no mesh and
+    # under ddp; the merged export under the plan against no mesh's
+    adir = os.path.dirname(m["res"]["adapter_ckpt"])
+    lm = init
+    fresh = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    got = _host(LO.load_adapter(fresh, adir))
+    nomesh_ok, _ = _same(got, m["params"])
+    mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+    ddp = PL.make_plan("ddp")
+    sh, _ = PL.param_shardings(ddp, mesh, fresh, lm.param_axes())
+    dgot = LO.load_adapter(PL.distribute(fresh, sh), adir, shardings=sh)
+    shd = dict(_flat(sh))
+    ddp_layout = all(isinstance(v, DTensor) and list(v.placements)
+                     == list(shd[k].placements)
+                     for k, v in _flat(dgot) if LO.is_adapter_path(k))
+    ddp_ok, _ = _same(_host(dgot), m["params"])
+    del fresh, dgot, got
+    ea, eb = (np.load(r["res"]["merged_export"]) for r in (m, b))
+    export_ok = sorted(ea.files) == sorted(eb.files) and all(
+        np.array_equal(ea[k], eb[k]) for k in ea.files)
+    n_export = len(ea.files)
+    del ea, eb
+    c_ok = nomesh_ok and ddp_ok and ddp_layout and export_ok
+    print(f"a8b_post (c) adapters across layouts: the fsdp_tp run's adapter "
+          f"checkpoint {adir} restored with no mesh == {nomesh_ok}, through "
+          f"load_adapter(shardings=) under ddp == {ddp_ok} (the plan's "
+          f"placements {ddp_layout}); export_merged under fsdp_tp (rank 0 "
+          f"writes, each leaf gathered) == the no-mesh export, {n_export} "
+          f"arrays: {export_ok} {tag}: {'ok' if c_ok else 'FAILED'}",
+          flush=True)
+    ok &= c_ok
+    del runs, b, m, p0, init, lm
+    _free()
+
+    # (b) dpo under fsdp: static pairs, then on-policy pairs
+    dpo_data = ("preference_synthetic", POST_DPO_DATA)
+    per_dpo = 2 * layers * 2 + 2 * layers
+    rows = {}
+    for plan in (None, "fsdp"):
+        res, state, counts, peak, ms, wall, _, _ = _a8b_drive(doc_for(
+            "dpo", f"a8b_dpo_{plan or 'nomesh'}",
+            {"steps": A8B_DPO_STEPS, "beta": 0.1}, dpo_data, plan,
+            f"loader.config.global_batch={POST_DPO_BATCH}", *POST_DPO_OPT),
+            results)
+        rows[plan] = (res, _host(state["params"]), counts, peak, ms)
+        del state
+        _free()
+    (br, bp, bc, bpk, bms), (mr, mp, mc, mpk, mms) = rows[None], rows["fsdp"]
+    hist = [(h["loss"], h["margin"]) for h in mr["history"]]
+    first = hist[0][0] if hist else math.nan
+    bit, dmax = _same(mp, bp)
+    want = {"flash_fwd": per_dpo * A8B_DPO_STEPS, "ssd_scan": 0}
+    b_ok = (hist == [(h["loss"], h["margin"]) for h in br["history"]]
+            and bit and abs(first - math.log(2)) <= 1e-6
+            and mc == bc == want)
+    print(f"a8b_post (b) qwen dpo under fsdp: {A8B_DPO_STEPS} steps of "
+          f"{POST_DPO_BATCH} static pairs of {TRAIN_SEQ} tokens; (loss, "
+          f"margin) {json.dumps([[round(x, 6) for x in r] for r in hist])} "
+          f"== no mesh {hist == [(h['loss'], h['margin']) for h in br['history']]}"
+          f", first loss {first!r} (log 2 within 1e-6); params bit-equal "
+          f"{bit} (max |d| {dmax:.3g}); launches {mc} (want {want}: "
+          f"{per_dpo} a step); {_ms(mms)} vs no mesh {_ms(bms)}; peak {mpk:.3f} vs "
+          f"{bpk:.3f} GiB {tag}: {'ok' if b_ok else 'FAILED'}", flush=True)
+    ok &= b_ok
+    del rows, bp, mp
+    _free()
+    flash = _counters()["flash_fwd"]
+    drawn = {}
+    real = DPO.sample_onpolicy_pairs
+
+    def recorded(*a, **kw):
+        before = flash.launches
+        pairs = real(*a, **kw)
+        drawn[key] = (pairs, flash.launches - before)
+        return pairs
+
+    for key in (None, "fsdp"):
+        with mock.patch.object(DPO, "sample_onpolicy_pairs", recorded):
+            res, state, *_ = _a8b_drive(doc_for(
+                "dpo", f"a8b_dpo_onpolicy_{key or 'nomesh'}",
+                {"steps": 1, "beta": 0.1, "onpolicy": dict(A8B_ONPOLICY)},
+                dpo_data, key, *POST_DPO_OPT), results)
+        drawn[key] = drawn[key] + (res["history"][0]["loss"],)
+        del state
+        _free()
+    (pb, nb, lb), (pm, nm, lm_) = drawn[None], drawn["fsdp"]
+    same_pairs = len(pb) == len(pm) == A8B_ONPOLICY["n_prompts"] and all(
+        np.array_equal(x, y) for p, q in zip(pb, pm) for x, y in zip(p, q))
+    o_ok = same_pairs and nb == nm == 0 and lb == lm_
+    print(f"a8b_post (b) on-policy: {A8B_ONPOLICY['n_prompts']} prompts x 2 "
+          f"samples of {A8B_ONPOLICY['prompt_len']} + "
+          f"{A8B_ONPOLICY['gen_tokens']} tokens (the merged params gathered, "
+          f"an engine with no mesh): pairs under fsdp == no mesh's "
+          f"{same_pairs}, flash_fwd while sampling {nm} and {nb}; the step's "
+          f"loss {lm_!r} == {lb!r} {tag}: {'ok' if o_ok else 'FAILED'}",
+          flush=True)
+    ok &= o_ok
+    _free()
+    return bool(ok)
+
+
+def _a8b_engine(mesh, results: dict, card: str) -> bool:
+    """(d) the engine over the LoRA model under ``fsdp_tp`` beside the
+    engine over ``merge(params)`` with no mesh: full-width Qwen at
+    ``ENGINE_QWEN_LAYERS``, paged, 8 requests of the Engines cell's
+    traffic (``SERVE_MESH_ENGINE_TRACE``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.posttrain import lora as LO
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.workload import shared_prefix_trace
+    from repro_torch.sharding import plans as PL
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("qwen1p5_0p5b").with_(use_flash_kernel=True,
+                                           n_layers=ENGINE_QWEN_LAYERS)
+    lm = LO.LoRAModel(build_model(cfg), LO.LoRAConfig(**POST_LORA))
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params[LO.ADAPTER_KEY] = tree_map(
+        lambda t: t + 0.02 * torch.randn(t.shape, generator=gen,
+                                         device="cuda"),
+        params[LO.ADAPTER_KEY])
+    with torch.no_grad():
+        merged = lm.merge(params)
+    t = SERVE_MESH_ENGINE_TRACE
+    rows = {}
+    for label, model, p, kw in (
+            ("no mesh", lm.base, merged, {}),
+            ("fsdp_tp", lm, params,
+             {"mesh": mesh, "plan": PL.make_plan("fsdp_tp")})):
+        trace = shared_prefix_trace(
+            t["n_requests"], cfg.vocab, prefix_len=t["prefix_len"],
+            n_prefixes=t["n_prefixes"], seed=0, prompt_lens=t["prompt_lens"],
+            gen_tokens=t["gen_tokens"], max_len=ENGINE_QWEN["max_len"],
+            **SAMPLING)
+        for r in trace[::4]:
+            r.temperature = 0.0
+        engine = ServeEngine(model, p, **ENGINE_QWEN, **kw)
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        res = engine.run(trace, realtime=False)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        rows[label] = (res, counts, torch.cuda.max_memory_allocated() / 2**30)
+        del engine
+        _free()
+    (b, bc, bp), (m, mc, mp) = rows["no mesh"], rows["fsdp_tp"]
+    streams = [r["gen_ids"] for r in m["requests"]]
+    same = streams == [r["gen_ids"] for r in b["requests"]]
+    ok = (same and m["completed"] == t["n_requests"]
+          and m["prefill_cache_hit_rate"] == b["prefill_cache_hit_rate"] > 0
+          and mc == bc == {n: 0 for n in _counters()})
+    print(f"a8b_post (d) the engine over the LoRA model (rank "
+          f"{POST_LORA['rank']}, b perturbed) under fsdp_tp: Qwen at "
+          f"{ENGINE_QWEN_LAYERS} of 24 layers, paged, {t['n_requests']} "
+          f"requests of the Engines cell's traffic, {t['gen_tokens'][0]} "
+          f"tokens, every fourth greedy; {m['tok_s']} tok/s, decode "
+          f"{m['decode_tok_s']} tok/s, tpot p50 {m['tpot_ms']['p50']:.3f} ms, "
+          f"hit rate {m['prefill_cache_hit_rate']}, peak {mp:.3f} GiB; the "
+          f"engine over merge(params) with no mesh: {b['tok_s']} tok/s, "
+          f"decode {b['decode_tok_s']} tok/s, tpot p50 "
+          f"{b['tpot_ms']['p50']:.3f} ms, hit rate "
+          f"{b['prefill_cache_hit_rate']}, peak {bp:.3f} GiB; streams equal "
+          f"{same}; launches {mc} [{card}]: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    del params, merged, lm
+    _free()
+    return bool(ok)
+
+
+def _a8b_dsv3(data_dir: str, mesh, results: dict, card: str) -> bool:
+    """(e) full-width DeepSeek-V3 at ``DSV3_TRAIN_LAYERS`` (the dense MLA
+    layers) with the MTP head: 2 gym steps under ``fsdp_tp`` beside the
+    no-mesh run, then its shim under ``fsdp_tp`` with the expanded and the
+    absorbed decode beside the shim with no mesh."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import load_params
+
+    spec = {"steps": A8B_DSV3_STEPS, "sets": TRAIN_SLICES["dsv3"]["sets"]}
+    runs = {}
+    for plan in (None, "fsdp_tp"):
+        gym, out, counts, peak, med, ms = _mesh_run(data_dir, "a8b_dsv3",
+                                                    spec, plan)
+        add_launches(results, counts)
+        hist = out["history"]
+        runs[plan] = ([{k: h[k] for k in ("ce", "mtp", "router_lb")}
+                       for h in hist], _host(out["state"]["params"]), counts,
+                      peak, ms, gym.model.cfg)
+        del gym, out
+        _free()
+    (bh, bp, bc, bpk, bms, cfg), (mh, mp, mc, mpk, mms, _) = \
+        runs[None], runs["fsdp_tp"]
+    bit, dmax = _same(mp, bp)
+    zero = {n: 0 for n in _counters()}
+    ok = (mh == bh and bit and mc == bc == zero
+          and all(math.isfinite(h["mtp"]) and h["mtp"] > 0 for h in mh))
+    print(f"a8b_post (e) dsv3 train: {cfg.name} full width, "
+          f"{cfg.n_layers} MLA layers + the MTP head, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {A8B_DSV3_STEPS} gym steps under fsdp_tp on a (1, 1) "
+          f"mesh: (ce, mtp, router_lb) {json.dumps(mh)} == no mesh "
+          f"{mh == bh}; final params bit-equal {bit} (max |d| {dmax:.3g}); "
+          f"launches {mc} (want {zero}: MLA is einsums); {_ms(mms)} vs no "
+          f"mesh {_ms(bms)}; peak {mpk:.3f} vs {bpk:.3f} GiB [{card}]: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    del runs, bp, mp
+    _free()
+    shim = {"plan": "fsdp_tp", "prompt": A8B_DSV3_PROMPT}
+    params = None
+    for absorb in (False, True):
+        c = get_config("deepseek_v3_671b").with_(n_layers=DSV3_TRAIN_LAYERS,
+                                                 mla_absorb=absorb)
+        model = build_model(c)
+        if params is None:     # the absorbed decode reads the same params
+            params = load_params(model, seed=0, device="cuda")
+        b, bc, bpk, bw = _shim_run(model, params, shim)
+        m, mc, mpk, mw = _shim_run(model, params, shim, mesh)
+        add_launches(results, bc)
+        add_launches(results, mc)
+        same = m["generated_ids"] == b["generated_ids"]
+        s_ok = same and mc == bc == zero
+        print(f"a8b_post (e) dsv3 shim, {'absorbed' if absorb else 'expanded'}"
+              f" decode, {c.n_layers} layers, {SLICE_BATCH} x "
+              f"{A8B_DSV3_PROMPT} x {SLICE_GEN} under fsdp_tp: "
+              f"{_shim_line(m, mc, mpk, mw)}; no mesh: "
+              f"{_shim_line(b, bc, bpk, bw)}; streams equal {same} "
+              f"[{card}]: {'ok' if s_ok else 'FAILED'}", flush=True)
+        ok &= s_ok
+        del model
+        _free()
+    del params
+    _free()
+    return bool(ok)
+
+
+def _a8b_dsv3_decode(results: dict, card: str) -> bool:
+    """(e) one absorbed DeepSeek-V3 decode step at ``DSV3_TRAIN_LAYERS``
+    (``A8B_DECODE``'s slots and cache) under ``fsdp_tp`` on a ``(1, 1)``
+    mesh under the dryrun's counter, beside its dryrun on a fake world of
+    one: FLOPs, bytes, collectives and argument bytes equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.models import build_model
+    from repro_torch.sharding import plans as PL
+
+    d = A8B_DECODE
+    cfg = get_config("deepseek_v3_671b").with_(n_layers=DSV3_TRAIN_LAYERS,
+                                               mla_absorb=True)
+    shape = InputShape("card", d["cache"], d["batch"], "decode")
+    plan = PL.make_plan("fsdp_tp")
+    dry = DR.compile_run(cfg, shape, MESH.LocalMesh(1, 1), plan)
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        setup = DR.build_step(build_model(cfg), shape, mesh, plan,
+                              device="cuda")
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        with CostCounter(arguments=setup.args) as counter:
+            out = setup.fn(*setup.args)
+            torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        add_launches(results, launches)
+        ana, mem = counter.analyze(), counter.memory(setup.args, out)
+        ms = []
+        for _ in range(d["timed"]):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            setup.fn(*setup.args)
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        tok = out[0]
+        ok = (ana["flops"] == dry["hlo_flops_per_dev"]
+              and ana["bytes"] == dry["hlo_bytes_per_dev"]
+              and ana["collective_counts"] == dry["collective_counts"]
+              and mem["mem_argument_size_in_bytes"]
+              == dry["mem_argument_size_in_bytes"]
+              and tok.shape == (d["batch"],) and 0 <= int(tok.min())
+              and int(tok.max()) < cfg.vocab
+              and all(n == 0 for n in launches.values()))
+        roofline = max(dry["compute_term_s"], dry["memory_term_s"],
+                       dry["collective_term_s"])
+        print(f"a8b_post (e) dsv3 absorbed decode step, {cfg.n_layers} "
+              f"layers, batch {d['batch']} x cache {d['cache']} under "
+              f"fsdp_tp: flops/device card {ana['flops']!r} vs dryrun "
+              f"{dry['hlo_flops_per_dev']!r}; bytes/device card "
+              f"{ana['bytes']!r} vs dryrun {dry['hlo_bytes_per_dev']!r}; "
+              f"collectives card {ana['collective_counts']} vs dryrun "
+              f"{dry['collective_counts']}; arguments card "
+              f"{mem['mem_argument_size_in_bytes']} B vs dryrun "
+              f"{dry['mem_argument_size_in_bytes']} B; launches {launches};"
+              f" ms/step {json.dumps([round(x, 3) for x in ms])} vs "
+              f"max(terms) {roofline * 1e3:.4f} ms (dominant "
+              f"{dry['dominant_term']}) [{card}]: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        del setup, out
+    finally:
+        MESH.shutdown()
+        _free()
+    return bool(ok)
+
+
+def _a8b_dryrun_start(out_dir: str) -> dict:
+    """(f) the full-width DeepSeek-V3-671B dryruns of ``A8B_DRYRUN_SHAPES``
+    under ``fsdp_tp_ep`` on the production mesh's 256 fake ranks: each
+    ``dryrun.yaml`` with ``A8B_DRYRUN_SETS`` through the CLI in a child on
+    the host, started here while the card runs the rest of the phase."""
+    cfgs = os.path.join(ROOT, "examples", "configs")
+    procs = {}
+    for shape in A8B_DRYRUN_SHAPES:
+        cwd = os.path.join(out_dir, f"dsv3_{shape}")
+        os.makedirs(cwd)
+        argv = ["dryrun", "--config", os.path.join(cfgs, "dryrun.yaml"),
+                "--json", os.path.join(cwd, "result.json")]
+        for s in A8B_DRYRUN_SETS + [f"shape.variant_key={shape}"]:
+            argv += ["--set", s]
+        procs[shape] = (time.perf_counter(), _dryrun_cli(argv, cwd), cwd)
+    return procs
+
+
+def _a8b_dryrun_check(procs: dict, card: str) -> bool:
+    """(f)'s checks once its children end: the plan, no sharding warning,
+    the collectives counted, ``model_flops_global`` == 6·N·D of the active
+    params, and each child's word that it never initialised CUDA."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.telemetry.accounting import model_flops
+
+    ok = True
+    for shape, (t0, proc, cwd) in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        res = {}
+        path = os.path.join(cwd, "result.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                res = json.load(f)
+        clean = "cuda_initialized=False" in text
+        want = model_flops(get_config("deepseek_v3_671b"), SHAPES[shape])[0]
+        d_ok = (proc.returncode == 0 and clean and res.get("chips") == 256
+                and res.get("model_flops_global") == want
+                and res.get("plan", "").startswith("fsdp_tp_ep(")
+                and res.get("sharding_warnings") == []
+                and res.get("collective_counts", {}).get("all-gather", 0) > 0)
+        line = (f"a8b_post (f) dsv3 671B dryrun {shape}: exit "
+                f"{proc.returncode}, {wall:.1f} s wall; card untouched "
+                f"{clean}")
+        if res.get("chips"):
+            line += (f"; on {res['mesh']} ({res['plan']}), warnings "
+                     f"{res['sharding_warnings']}; {_terms(res)}; "
+                     f"collectives {res['collective_counts']}; arguments "
+                     f"{res['mem_argument_size_in_bytes']} B/device; "
+                     f"n_params {res['n_params']}, active "
+                     f"{res['n_params_active']}; model_flops_global "
+                     f"{res['model_flops_global']} == 6·N·D {want}: "
+                     f"{res['model_flops_global'] == want}")
+        print(f"{line} [{card}]: {'ok' if d_ok else 'FAILED'}", flush=True)
+        if not d_ok:
+            print(f"a8b_post (f) {shape} child's output, its end: "
+                  f"{text[-3000:]}", flush=True)
+        ok &= d_ok
+    return bool(ok)
+
+
+def phase_a8b_post(data_dir: str, results: dict, card: str) -> bool:
+    """Post-training and DeepSeek-V3 under sharding plans on the card (the
+    third part of ROADMAP A8b): (f)'s dryrun children start first, on the
+    host, and run beside the rest; on a one-rank NCCL group's ``(1, 1)``
+    mesh (a) LoRA ``sft``
+    under ``fsdp_tp``, (c) its adapters across layouts and merged export,
+    (b) ``dpo`` under ``fsdp`` (static and on-policy pairs), (d) the engine
+    over the LoRA model under ``fsdp_tp``, (e) DeepSeek-V3 (MLA and MTP)
+    training and shims under ``fsdp_tp`` and one absorbed decode step
+    against its dryrun; each run beside the same run with no mesh, bit
+    equality required (``MESH_TOL``).  The group is destroyed at the end
+    of the phase."""
+    from repro_torch.launch import mesh as MESH
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(data_dir, "a8b_post")
+    os.makedirs(out_dir)
+    dry = _a8b_dryrun_start(out_dir)
+    ok = True
+
+    def lap(what):
+        print(f"a8b_post: {what} done at {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
+    try:
+        ok &= _a8b_post_qwen(data_dir, results, card)
+        lap("(a)-(c)")
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        ok &= _a8b_engine(mesh, results, card)
+        lap("(d)")
+        ok &= _a8b_dsv3(data_dir, mesh, results, card)
+        lap("(e) train and shims")
+        MESH.shutdown()
+        ok &= _a8b_dsv3_decode(results, card)
+        lap("(e) decode step")
+        ok &= _a8b_dryrun_check(dry, card)
+        lap("(f)")
+    finally:
+        # no child outlives the phase, whatever the checks did
+        for _, proc, _ in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        MESH.shutdown()
+        _free()
+    return bool(ok)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR",
@@ -5300,8 +5943,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, mesh, pp, serve_mesh, sweep, dryrun, "
-                         "engine "
+                         "posttrain, mesh, pp, serve_mesh, a8b_post, sweep, "
+                         "dryrun, engine "
                          "(default: "
                          "all); a partial run prints no result line")
     args = ap.parse_args()
@@ -5348,6 +5991,20 @@ def main() -> int:
                 print(f"build:   {line.strip()}", flush=True)
 
     results: dict = {}
+    ok = _phases(args, want, results, card)
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s, the "
+          f"kernels' build included", flush=True)
+    if not ok:
+        return 1
+    if only:
+        print(f"chip_smoke: phases {sorted(only)} ok; a partial run prints "
+              f"no result line", flush=True)
+        return 0
+    return _result_lines(results, card, torch)
+
+
+def _phases(args, want, results: dict, card: str) -> bool:
+    """Every phase ``want`` accepts, in order; True when all are ok."""
     ok = True
 
     def run(label: str, *checks) -> None:
@@ -5394,6 +6051,8 @@ def main() -> int:
             run("pp", lambda: phase_pp(data_dir, results, card))
         if want("serve_mesh"):
             run("serve_mesh", lambda: phase_serve_mesh(results, card))
+        if want("a8b_post"):
+            run("a8b_post", lambda: phase_a8b_post(data_dir, results, card))
         if want("sweep"):
             run("sweep", lambda: phase_sweep(data_dir, results, card))
         if want("dryrun"):
@@ -5404,15 +6063,11 @@ def main() -> int:
         run("engine qwen", lambda: phase_engine_qwen(results, args.profile))
     for key in ENGINE_SLICES if want("engine") else ():
         run(f"engine {key}", lambda: phase_engine_model(key, results))
-    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s, the "
-          f"kernels' build included", flush=True)
-    if not ok:
-        return 1
-    if only:
-        print(f"chip_smoke: phases {sorted(only)} ok; a partial run prints "
-              f"no result line", flush=True)
-        return 0
+    return ok
 
+
+def _result_lines(results: dict, card: str, torch) -> int:
+    """The ``kernels`` line, the card's line and the result line."""
     kernels = []
     for name, cases, src, replaces in (
             ("flash_fwd", "flash_cases",

@@ -745,18 +745,58 @@ def _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, valid, dtype):
 
 
 def mla_forward(cfg: B.ArchConfig, p, x, positions, return_latent: bool = False):
-    """Training/prefill MLA self-attention (blockwise over KV for long S)."""
+    """Training/prefill MLA self-attention (blockwise over KV for long S).
+
+    Under a mesh (DTensors laid out by a plan) the latent ``c_kv`` and
+    ``k_rope`` are replicated over ``model`` (``wkv_a`` carries no TP
+    axis, and the per-layer FSDP gather leaves ``q_norm``/``kv_norm`` whole)
+    while ``wq_b``/``wkv_b`` put the heads there: the heads part runs on
+    each rank's rows and heads (:func:`_mla_local_heads`), and ``wo``'s
+    heads over ``model`` give a partial sum the block reduces."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
-    if x.shape[1] <= _BLOCKWISE_AT:
-        causal = (positions[:, None] - positions[None, :]) >= 0     # [S, T]
-        o = _mla_attend(cfg, p, q_nope, q_rope, c_kv, k_rope, causal, x.dtype)
-    else:
-        o = _mla_blockwise(cfg, p, q_nope, q_rope, c_kv, k_rope, positions,
-                           _mla_scale(cfg))
+    S = x.shape[1]
+
+    def attend(qn, qr, ckv, kr, w):
+        # contiguous gradients on both paths, as ``gqa_forward``'s
+        qn, qr, ckv, kr, w = (B.contiguous_grad(t)
+                              for t in (qn, qr, ckv, kr, w))
+        pw = {"wkv_b": w}
+        if S <= _BLOCKWISE_AT:
+            causal = (positions[:, None] - positions[None, :]) >= 0  # [S, T]
+            return _mla_attend(cfg, pw, qn, qr, ckv, kr, causal, x.dtype)
+        return _mla_blockwise(cfg, pw, qn, qr, ckv, kr, positions,
+                              _mla_scale(cfg))
+
+    args = (q_nope, q_rope, c_kv, k_rope, p["wkv_b"])
+    o = _mla_local_heads(attend, *args) if B.is_dtensor(q_nope) \
+        else attend(*args)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
     if return_latent:
         return out, (c_kv, k_rope)
     return out
+
+
+def _mla_local_heads(attend, q_nope, q_rope, c_kv, k_rope, wkv_b):
+    """``attend(q_nope, q_rope, c_kv, k_rope, wkv_b)`` on each rank's rows
+    and query heads (``B.local_call``), as :func:`_local_heads` runs GQA's:
+    the latent rows are whole on every rank that holds their batch rows,
+    ``wkv_b`` cut over the heads as the queries are.  The latent's
+    gradient is a partial sum over the heads' mesh dims, ``wkv_b``'s over
+    the rows'."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    qp, lp, wp, lg, wg = [], [], [], [], []
+    for pq in q_nope.placements:
+        if isinstance(pq, Shard) and pq.dim == 0:          # batch rows
+            rows = (Shard(0), Shard(0), Replicate(), Shard(0), Partial())
+        elif isinstance(pq, Shard) and pq.dim == 2:        # query heads
+            rows = (Shard(2), Replicate(), Shard(1), Partial(), Shard(1))
+        else:
+            rows = (Replicate(),) * 5
+        for out, pl in zip((qp, lp, wp, lg, wg), rows):
+            out.append(pl)
+    return B.local_call(attend, (q_nope, q_rope, c_kv, k_rope, wkv_b),
+                        (qp, qp, lp, lp, wp), (qp, qp, lg, lg, wg), qp)
 
 
 def _mla_blockwise(cfg, p, q_nope, q_rope, c_kv, k_rope, positions, scale,
@@ -845,18 +885,26 @@ def _wo(p, x, o):
 def mla_decode(cfg: B.ArchConfig, p, cache, x, positions, absorb: bool = False):
     """Single-token MLA decode against the latent cache: x [B,1,D],
     positions [B]; the cache is updated in place (every slot writes at its
-    own position, as ``gqa_decode``)."""
+    own position, as ``gqa_decode``).  Under a mesh on each rank's block of
+    the latent cache (:func:`_mla_mesh_attend`)."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions[:, None])
-    cc, cr = cache["c_kv"], cache["k_rope"]
-    bidx = torch.arange(x.shape[0], device=x.device)
-    cc[bidx, positions] = c_kv[:, 0].to(cc.dtype)
-    cr[bidx, positions] = k_rope[:, 0].to(cr.dtype)
-    L = cc.shape[1]
-    valid = torch.arange(L, device=x.device)[None, :] <= positions[:, None]
-    o = _mla_decode_attend(cfg, p, q_nope, q_rope, cc, cr, valid, x.dtype,
-                           absorb)
+    o = _mla_decode_core_call("dense", cfg, p, x.dtype, absorb, q_nope,
+                              q_rope, c_kv, k_rope, cache, positions)
     out = torch.einsum("bshk,hkd->bsd", o, _wo(p, x, o))
     return out, cache
+
+
+def _mla_dense_core(cfg, w, qn, qr, ckv, kr, cc, cr, positions, dtype,
+                    absorb):
+    """The dense latent decode's write and attention on plain tensors:
+    ``o`` ``[B, 1, H, dv]``."""
+    bidx = torch.arange(qn.shape[0], device=qn.device)
+    cc[bidx, positions] = ckv[:, 0].to(cc.dtype)
+    cr[bidx, positions] = kr[:, 0].to(cr.dtype)
+    L = cc.shape[1]
+    valid = torch.arange(L, device=qn.device)[None, :] <= positions[:, None]
+    return _mla_decode_attend(cfg, {"wkv_b": w}, qn, qr, cc, cr, valid, dtype,
+                              absorb)
 
 
 def mla_init_paged_cache(cfg: B.ArchConfig, n_blocks: int, block_len: int,
@@ -874,42 +922,255 @@ def mla_init_paged_cache(cfg: B.ArchConfig, n_blocks: int, block_len: int,
 def mla_decode_paged(cfg: B.ArchConfig, p, cache, x, positions, pages,
                      active=None, absorb: bool = False):
     """Single-token MLA decode against the paged latent cache (the page
-    conventions of ``gqa_decode_paged``)."""
+    conventions of ``gqa_decode_paged``; under a mesh as ``mla_decode``)."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions[:, None])
-    cc, cr = cache["c_kv"], cache["k_rope"]
-    bl = cc.shape[1]
-    phys = _page_of(pages, positions, bl)
-    if active is not None:
-        phys = torch.where(active, phys, scratch_block(cc))
-    _paged_write(cc, phys, positions % bl, c_kv[:, 0])
-    _paged_write(cr, phys, positions % bl, k_rope[:, 0])
-    vc = paged_view(cc, pages)                                   # [B,T,r]
-    vr = paged_view(cr, pages)
-    T = vc.shape[1]
-    valid = torch.arange(T, device=x.device)[None, :] <= positions[:, None]
-    o = _mla_decode_attend(cfg, p, q_nope, q_rope, vc, vr, valid, x.dtype,
-                           absorb)
+    o = _mla_decode_core_call("paged", cfg, p, x.dtype, absorb, q_nope,
+                              q_rope, c_kv, k_rope, cache, positions,
+                              pages=pages, active=active)
     out = torch.einsum("bshk,hkd->bsd", o, _wo(p, x, o))
     return out, cache
 
 
+def _mla_paged_core(cfg, w, qn, qr, ckv, kr, cc, cr, positions, pages, active,
+                    dtype, absorb):
+    """The paged latent decode's write and attention on plain tensors."""
+    bl = cc.shape[1]
+    phys = _page_of(pages, positions, bl)
+    if active is not None:
+        phys = torch.where(active, phys, scratch_block(cc))
+    _paged_write(cc, phys, positions % bl, ckv[:, 0])
+    _paged_write(cr, phys, positions % bl, kr[:, 0])
+    vc = paged_view(cc, pages)                                   # [B,T,r]
+    vr = paged_view(cr, pages)
+    T = vc.shape[1]
+    valid = torch.arange(T, device=qn.device)[None, :] <= positions[:, None]
+    return _mla_decode_attend(cfg, {"wkv_b": w}, qn, qr, vc, vr, valid, dtype,
+                              absorb)
+
+
 def mla_prefill_chunk(cfg: B.ArchConfig, p, cache, x, positions, pages_row,
                       n_valid: int):
-    """One fixed-shape MLA prefill chunk (see ``gqa_prefill_chunk``)."""
+    """One fixed-shape MLA prefill chunk (see ``gqa_prefill_chunk``; under
+    a mesh as ``mla_decode``)."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
-    cc, cr = cache["c_kv"], cache["k_rope"]
+    o = _mla_decode_core_call("chunk", cfg, p, x.dtype, False, q_nope,
+                              q_rope, c_kv, k_rope, cache, positions,
+                              pages=pages_row, n_valid=n_valid)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def _mla_chunk_core(cfg, w, qn, qr, ckv, kr, cc, cr, positions, pages_row,
+                    n_valid, dtype):
+    """The latent prefill chunk's writes and attention on plain tensors."""
     bl = cc.shape[1]
-    row_idx = torch.arange(positions.shape[0], device=x.device)
+    row_idx = torch.arange(positions.shape[0], device=qn.device)
     phys = torch.where(row_idx < n_valid, _page_of(pages_row, positions, bl),
                        scratch_block(cc))
-    _paged_write(cc, phys, positions % bl, c_kv[0])
-    _paged_write(cr, phys, positions % bl, k_rope[0])
+    _paged_write(cc, phys, positions % bl, ckv[0])
+    _paged_write(cr, phys, positions % bl, kr[0])
     vc = paged_view(cc, pages_row[None])                         # [1,T,r]
     vr = paged_view(cr, pages_row[None])
     T = vc.shape[1]
     causal = (positions[:, None]
-              >= torch.arange(T, device=x.device)[None, :])      # [C,T]
-    o = _mla_attend(cfg, p, q_nope, q_rope, vc.to(x.dtype), vr.to(x.dtype),
-                    causal, x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return out, cache
+              >= torch.arange(T, device=qn.device)[None, :])     # [C,T]
+    return _mla_attend(cfg, {"wkv_b": w}, qn, qr, vc.to(dtype), vr.to(dtype),
+                       causal, dtype)
+
+
+def _mla_decode_core_call(mode, cfg, p, dtype, absorb, q_nope, q_rope, c_kv,
+                          k_rope, cache, positions, pages=None, active=None,
+                          n_valid=None):
+    """The latent cores (``mode``: ``"dense"``, ``"paged"``, ``"chunk"``)
+    on plain tensors, or under a mesh on each rank's block of the cache
+    (:func:`_mla_mesh_attend`)."""
+    cc, cr, w = cache["c_kv"], cache["k_rope"], p["wkv_b"]
+    if B.is_dtensor(q_nope):
+        return _mla_mesh_attend(mode, cfg, w, dtype, absorb, q_nope, q_rope,
+                                c_kv, k_rope, cc, cr, positions, pages,
+                                active, n_valid)
+    return _mla_core(mode, cfg, w, dtype, absorb, q_nope, q_rope, c_kv,
+                     k_rope, cc, cr, positions, pages, active, n_valid)
+
+
+def _mla_core(mode, cfg, w, dtype, absorb, qn, qr, ckv, kr, cc, cr,
+              positions, pages, active, n_valid):
+    """The ``mode`` core on plain tensors (or on each rank's blocks)."""
+    args = (cfg, w, qn, qr, ckv, kr, cc, cr, positions)
+    if mode == "dense":
+        return _mla_dense_core(*args, dtype, absorb)
+    if mode == "paged":
+        return _mla_paged_core(*args, pages, active, dtype, absorb)
+    return _mla_chunk_core(*args, pages, n_valid, dtype)
+
+
+def _mla_mesh_attend(mode, cfg, w, dtype, absorb, q_nope, q_rope, c_kv,
+                     k_rope, cc, cr, positions, pages, active, n_valid):
+    """The latent cores on each rank's block of a cache laid out by
+    ``plans.cache_shardings`` (``base.local_cache_call``): ``o`` ``[B, Sq,
+    H, dv]`` as a DTensor.
+
+    The latent ``[B | n_blocks, S | block_len, r]`` has no heads dim, so
+    per mesh dim a rank holds its slots (``rows``: the dense slot dim) or
+    a part of every stream's key positions (``part``: the paged block dim,
+    or the sequence dim, which ``cache_specs`` puts over ``model``).  The
+    queries come in cut as the rows are and whole over the rest (their
+    heads gathered over ``model``), ``wkv_b`` whole.  With no ``part``
+    dim the plain core runs on the blocks.  With one, each rank scores its
+    own key positions (the others ``NEG_INF``), the scores meet in a
+    ``Partial("max")`` (a block dim) or are gathered (an offset dim), the
+    softmax is the plain one over the whole row, and each rank's share of
+    P·V (absorbed: of P·``c_kv``, in the latent, before ``wkv_b``'s value
+    half) is summed over the ``part`` dims in f32, as :func:`_mesh_attend`
+    does for GQA."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = cc.device_mesh
+    lead = "rows" if mode == "dense" else "part"
+    roles = B.shard_roles(cc, {0: lead, 1: "part"})
+    pos = B.replicate_like(positions, q_nope)
+    extra = () if mode == "dense" else (B.replicate_like(pages, q_nope),)
+    if mode == "paged" and active is not None:
+        extra += (B.replicate_like(active, q_nope),)
+    args = (q_nope, q_rope, c_kv, k_rope, pos, w) + extra
+
+    if "part" not in roles:
+        # each rank's slots, every head: a mesh dim that does not cut the
+        # cache replicates the arguments, one of size 1 keeps them
+        def keep(t, rows):
+            return [rows if r == "rows" else
+                    (Replicate() if mesh.size(i) > 1 else pl)
+                    for i, (r, pl) in enumerate(zip(roles, t.placements))]
+
+        pls = [keep(t, Shard(0)) for t in args[:5]] + \
+            [keep(t, Replicate()) for t in args[5:]]
+
+        def core(ccl, crl, qn, qr, ckv, kr, pl, wl, *ex):
+            return _mla_core(mode, cfg, wl, dtype, absorb, qn, qr, ckv, kr,
+                             ccl, crl, pl, ex[0] if ex else None,
+                             ex[1] if len(ex) > 1 else None, n_valid)
+
+        return B.local_cache_call(core, (cc, cr), args, pls,
+                                  keep(q_nope, Shard(0)))
+
+    # the key positions span ranks: this rank's share of the pool
+    m = cfg.mla
+    lead_dims = [i for i in range(mesh.ndim) if roles[i] == "part"
+                 and cc.placements[i].dim % cc.ndim == 0]
+    off_dims = [i for i in range(mesh.ndim) if roles[i] == "part"
+                and cc.placements[i].dim % cc.ndim == 1]
+    lc, _ = B.mesh_coord(mesh, lead_dims)
+    oc, n_off = B.mesh_coord(mesh, off_dims)
+    local = cc.to_local()
+    span = local.shape[1]                # key positions a block holds here
+    o0 = oc * span
+    n_pool = local.shape[0] - (0 if mode == "dense" else 1)
+    b0 = lc * n_pool if lead_dims else 0
+    rows_in = [Shard(0) if r == "rows" else Replicate() for r in roles]
+    rep = [Replicate()] * mesh.ndim
+    scale = _mla_scale(cfg)
+
+    def owned_pages(pg):
+        """Page ids on this rank as local ids (the rest: the scratch block)
+        and which of them are this rank's."""
+        tab = pg if pg.dim() == 2 else pg[None]
+        mine = (tab >= b0) & (tab < b0 + n_pool)
+        return torch.where(mine, tab - b0, n_pool).long(), mine
+
+    def views(ccl, crl, pg):
+        """This rank's latent rows ``[b, T_local, r]`` and their global
+        positions ``[b | 1, T_local]`` with which of them it holds."""
+        if mode == "dense":
+            gpos = (o0 + torch.arange(span, device=ccl.device))[None]
+            return ccl, crl, gpos, torch.ones_like(gpos, dtype=torch.bool)
+        lp, mine = owned_pages(pg)
+        n_pages = lp.shape[-1]
+        gpos = (torch.arange(n_pages, device=ccl.device)[:, None] * span
+                * n_off + o0
+                + torch.arange(span, device=ccl.device)[None, :]).reshape(-1)
+        return (paged_view(ccl, lp), paged_view(crl, lp), gpos[None],
+                mine.repeat_interleave(span, dim=-1))
+
+    def scores_fn(ccl, crl, qn, qr, ckv, kr, pl, wl, *ex):
+        if mode == "dense":
+            L = span * n_off
+            own = (pl >= o0) & (pl < o0 + span)
+            idx = torch.clamp(pl - o0, 0, span - 1)
+            b = torch.arange(qn.shape[0], device=qn.device)
+            for c, new in ((ccl, ckv), (crl, kr)):
+                c[b, idx] = torch.where(own[:, None], new[:, 0].to(c.dtype),
+                                        c[b, idx])
+            n_pages = 1
+        else:
+            bl = span * n_off
+            phys = _page_of(ex[0], pl, bl)
+            if mode == "paged":
+                rows_c, rows_r = ckv[:, 0], kr[:, 0]
+                live = ex[1] if len(ex) > 1 else torch.ones_like(
+                    pl, dtype=torch.bool)
+            else:
+                rows_c, rows_r = ckv[0], kr[0]
+                live = torch.arange(pl.shape[0], device=pl.device) < n_valid
+            off = pl % bl
+            own = (live & (phys >= b0) & (phys < b0 + n_pool)
+                   & (off >= o0) & (off < o0 + span))
+            _paged_write(ccl, torch.where(own, phys - b0, n_pool),
+                         torch.where(own, off - o0, 0), rows_c)
+            _paged_write(crl, torch.where(own, phys - b0, n_pool),
+                         torch.where(own, off - o0, 0), rows_r)
+            n_pages = ex[0].shape[-1]
+        vc, vr, gpos, mine = views(ccl, crl, ex[0] if ex else None)
+        if mode == "chunk":
+            ok = (pl[:, None] >= gpos) & mine                 # [C, T]
+            ok = ok[None, None]
+        else:
+            ok = (gpos <= pl[:, None]) & mine                 # [b, T]
+            ok = ok[:, None, None, :]
+        if absorb:
+            wk, _ = torch.split(wl.to(dtype), [m.head_dim_nope, m.head_dim_v],
+                                -1)
+            dt = torch.promote_types(dtype, vc.dtype)
+            q_lat = torch.einsum("bshk,rhk->bshr", qn, wk)
+            sc = torch.einsum("bshr,btr->bhst", q_lat.to(dt), vc.to(dt))
+            sc = sc + torch.einsum("bshk,btk->bhst", qr.to(dt), vr.to(dt))
+        else:
+            k_nope, _ = _mla_expand_kv(cfg, {"wkv_b": wl}, vc.to(dtype))
+            sc = torch.einsum("bshk,bthk->bhst", qn, k_nope)
+            sc = sc + torch.einsum("bshk,btk->bhst", qr, vr.to(dtype))
+        sc = (sc.float() * scale).masked_fill(~ok, NEG_INF)
+        return sc.reshape(sc.shape[:3] + (n_pages, span))
+
+    def pv_fn(ccl, pr, wl, *ex):
+        vc, _, _, mine = views(ccl, ccl, ex[0] if ex else None)
+        p = pr.reshape(pr.shape[:3] + (-1,)).float()
+        if mode != "dense":
+            p = p * mine[:, None, None, :]
+        if absorb:
+            return torch.einsum("bhst,btr->bshr", p, vc.float())
+        _, v = _mla_expand_kv(cfg, {"wkv_b": wl}, vc.to(dtype))
+        return torch.einsum("bhst,bthk->bshk", p, v.float())
+
+    sc_pl = [Shard(0) if r == "rows" else
+             (Partial("max") if i in lead_dims else Shard(4))
+             if r == "part" else Replicate() for i, r in enumerate(roles)]
+    pls = [rows_in] * 5 + [rep] * (1 + len(extra))
+    sc = B.local_cache_call(scores_fn, (cc, cr), args, pls, sc_pl)
+    full = [Replicate() if r == "part" else p for r, p in zip(roles, sc_pl)]
+    sc = sc.redistribute(mesh, full)
+    shp = sc.shape
+    probs = torch.softmax(sc.reshape(shp[:3] + (-1,)), dim=-1).to(dtype)
+    probs = probs.reshape(shp)
+    pr_pl = [Replicate() if i in lead_dims else p
+             for i, p in enumerate(sc_pl)]
+    o_pl = [Shard(0) if r == "rows" else Partial() if r == "part"
+            else Replicate() for r in roles]
+    pv_args = (probs, w) + (extra[:1] if mode != "dense" else ())
+    o = B.local_cache_call(pv_fn, (cc,), pv_args,
+                           [pr_pl] + [rep] * (len(pv_args) - 1), o_pl)
+    o = o.redistribute(mesh, [Replicate() if r == "part" else p
+                              for r, p in zip(roles, o_pl)])
+    if not absorb:
+        return o.to(dtype)
+    _, wv = torch.split(w.to(dtype), [m.head_dim_nope, m.head_dim_v], -1)
+    dt = torch.promote_types(dtype, cc.dtype)
+    return torch.einsum("bshr,rhk->bshk", o.to(dt), wv.to(dt))

@@ -263,6 +263,13 @@ def replicate_like(t, ref):
                               run_check=False)
 
 
+def replicate(t):
+    """The DTensor ``t`` whole on every rank (a partial sum reduced)."""
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def contiguous_grad(t):
     """``t``, whose gradient leaves contiguous: a DTensor takes a local
     tensor's layout on trust (``local_call``'s ``from_local``), so a later
@@ -352,6 +359,8 @@ def put_slot(c, n, slot: int) -> None:
     a mesh (``c`` a DTensor laid out by ``plans.cache_shardings``) the rank
     whose block holds the slot writes it into its block, the request's rows
     cut as the pool's other dims are; the others write nothing."""
+    if c.shape[0] == 0:
+        return              # a stack with no layers holds no rows
     if not is_dtensor(c):
         c[:, slot] = n[:, 0].to(c.dtype)
         return

@@ -34,7 +34,7 @@ from . import moe as MOE
 from . import ssm as S
 from . import stacked as ST
 from .common import (apply_norm, embed_init, embed_lookup, norm_axes,
-                     norm_params, softmax_cross_entropy)
+                     norm_params, sharded_cross_entropy)
 
 
 # ---------------------------------------------------------------------------
@@ -303,17 +303,17 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
 
 def refuse_mesh(cfg: B.ArchConfig) -> None:
     """The archs a mesh runs: the dense decoders, Mamba2 and the MoE (with
-    expert parallelism where the plan has it).  MLA, the hybrid's
-    weight-shared stack, the encoder-decoder and the VLM under a mesh come
-    with ROADMAP A8b."""
-    if cfg.arch_type in ("dense", "ssm", "moe") and not cfg.mla:
+    expert parallelism where the plan has it), MLA among them.  The
+    hybrid's weight-shared stack, the encoder-decoder and the VLM under a
+    mesh come with ROADMAP A8b."""
+    if cfg.arch_type in ("dense", "ssm", "moe"):
         return
     from ..sharding.plans import A8B
 
-    what = "MLA" if cfg.mla else f"the {cfg.arch_type} arch"
     raise NotImplementedError(
-        f"{cfg.name}: {what} under a mesh comes with {A8B}; the dense "
-        f"decoders, Mamba2 and the MoE train under every plan")
+        f"{cfg.name}: the {cfg.arch_type} arch under a mesh comes with "
+        f"{A8B}; the dense decoders, Mamba2, the MoE and MLA train under "
+        f"every plan")
 
 
 class DecoderLM(B.Model):
@@ -553,9 +553,8 @@ class DecoderLM(B.Model):
         """
         if mesh_ctx is not None and mesh_ctx.mesh is not None:
             refuse_mesh(self.cfg)
-            stacks = {name for name, _, _ in self._stacks()}
-            params = {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
-                      for k, v in params.items()}
+            params = self._gathered(params, mesh_ctx,
+                                    mtp="labels" in batch)
         x = self._with_patches(batch, self.embed_tokens(
             params, batch["tokens"].long()))
         x = B.constrain(x, mesh_ctx)
@@ -563,29 +562,50 @@ class DecoderLM(B.Model):
         x, aux = self.backbone(params, x, positions, mesh_ctx, storage_axes)
         aux_d = {"router_lb": aux}
         if self.cfg.mtp and "labels" in batch:
-            aux_d["mtp"] = self._mtp_loss(params, x, batch, positions)
+            aux_d["mtp"] = self._mtp_loss(params, x, batch, positions,
+                                          mesh_ctx)
         return self.logits(params, x, mesh_ctx), aux_d
 
-    def _mtp_loss(self, params, h, batch, positions):
+    def _mtp_loss(self, params, h, batch, positions, mesh_ctx=None):
         """DeepSeek-V3's depth-1 MTP head (JAX's ``_mtp_loss``): the
         backbone's output normed by the head's own norm (before the final
         norm), beside the embeddings of ``labels`` (token t+1), projected
         and run through one dense block; the shared logits head predicts
-        token t+2, ``roll(labels, -1)``, its last column masked."""
+        token t+2, ``roll(labels, -1)``, its last column masked.  Under a
+        mesh the block and the logits run as the backbone's do (the head's
+        leaves gathered with the other unstacked ones in ``apply``), the
+        logits' vocab over ``model``, and the loss is
+        ``sharded_cross_entropy``'s (``softmax_cross_entropy`` where the
+        vocab is whole), replicated."""
         cfg = self.cfg
         mp = params["mtp"]
         labels = batch["labels"].long()
         emb_next = self.embed_tokens(params, labels)
         z = torch.cat([apply_norm(cfg, mp["norm"], h), emb_next], dim=-1)
         z = torch.einsum("bse,ed->bsd", z, mp["proj"].to(h.dtype))
-        z, _ = apply_block(cfg, "dense_block", mp["block"], z, positions)
-        labels2 = torch.roll(labels, -1, dims=1)
-        mask = torch.ones(labels2.shape, dtype=torch.float32,
-                          device=labels2.device)
+        z, _ = apply_block(cfg, "dense_block", mp["block"], z, positions,
+                           mesh_ctx)
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
         mask[:, -1] = 0.0
+        if B.is_dtensor(labels):
+            # the roll as the two slices it is (the sequence is whole on
+            # every rank), the mask laid out as the labels
+            labels2 = torch.cat([labels[:, 1:], labels[:, :1]], dim=1)
+            mask = B.replicate_like(mask, labels).redistribute(
+                labels.device_mesh, labels.placements)
+        else:
+            labels2 = torch.roll(labels, -1, dims=1)
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"]
-        return softmax_cross_entropy(self.logits(params, z), labels2, mask)
+        loss = sharded_cross_entropy(self.logits(params, z, mesh_ctx),
+                                     labels2, mask)
+        if B.is_dtensor(loss):
+            # the masked mean comes back a partial sum where ``ce`` (no
+            # mask) is a partial mean, and DTensor adds the two only once
+            # one of them is whole
+            loss = B.replicate(loss)
+        return loss
 
     # -- forward pieces ------------------------------------------------------
     def _with_patches(self, batch, x):
@@ -611,18 +631,26 @@ class DecoderLM(B.Model):
 
     # -- serving -------------------------------------------------------------
     def _serve_inputs(self, params, tokens, mesh_ctx):
-        """Under a mesh: the params with their unstacked leaves gathered,
-        a gather for each layer's, and ``tokens`` a DTensor (replicated
-        when the caller's are plain: the engine keeps its slot state on
-        every rank).  With no mesh: the params, no gather, the tokens."""
+        """Under a mesh: the params with their unstacked leaves gathered
+        (:meth:`_gathered`, no MTP head), a gather for each layer's, and
+        ``tokens`` a DTensor (replicated when the caller's are plain: the
+        engine keeps its slot state on every rank).  With no mesh: the
+        params, no gather, the tokens."""
         if mesh_ctx is None or mesh_ctx.mesh is None:
             return params, None, tokens
         refuse_mesh(self.cfg)
-        stacks = {name for name, _, _ in self._stacks()}
-        params = {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
-                  for k, v in params.items()}
+        params = self._gathered(params, mesh_ctx, mtp=False)
         return (params, lambda lp: B.gather_fsdp(lp, mesh_ctx),
                 B.replicate_like(tokens, params["embed"]))
+
+    def _gathered(self, params, mesh_ctx, mtp: bool):
+        """The params with their unstacked leaves gathered
+        (``B.gather_fsdp``), the stacks left for the layer loop's gather;
+        the MTP head only where it runs (``mtp``), as a step that never
+        reads it never gathers it (``jax.jit`` prunes such an argument)."""
+        stacks = {name for name, _, _ in self._stacks()}
+        return {k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
+                for k, v in params.items() if mtp or k != "mtp"}
 
     @torch.no_grad()
     def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16,
@@ -658,6 +686,13 @@ class DecoderLM(B.Model):
                                      cache_dtype, mesh_ctx, storage_axes)
 
             x, cache[name] = ST.layer_loop(body, params[name], x, len(idxs))
+            if not idxs:
+                # a stack cut to no layers (DeepSeek-V3 at its dense
+                # depth): its cache has no rows, as JAX's scan gives it
+                one = init_cache_block(cfg, kind, x.shape[0], max_len,
+                                       cache_dtype, x.device)
+                cache[name] = {k: v.new_zeros((0,) + tuple(v.shape))
+                               for k, v in one.items()}
         logits = self.logits(params, x[:, -1:], mesh_ctx)[:, 0]
         return logits, cache
 

@@ -210,7 +210,8 @@ def sample_onpolicy_pairs(model, params, *, vocab: int, n_prompts: int = 8,
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
-def make_dpo_step(model, optimizer, beta: float = 0.1):
+def make_dpo_step(model, optimizer, mesh_ctx=None, storage_axes=(),
+                  beta: float = 0.1):
     """Returns ``dpo_step(state, batch, ref_params) -> (state, metrics)``.
 
     Metrics (0-d tensors on the device): ``loss``, implicit-reward
@@ -218,16 +219,38 @@ def make_dpo_step(model, optimizer, beta: float = 0.1):
     pairs with positive margin), and the raw chosen/rejected policy logprob
     means.  Gradients flow only into the policy's params (its trainable
     leaves where the optimizer has a ``trainable`` predicate); like the
-    train step, the state is updated in place."""
-    from ..train.steps import value_and_grad
+    train step, the state is updated in place.
+
+    Under a mesh (``mesh_ctx``; the state, the reference and the batch
+    DTensors laid out by a sharding plan) the forwards run on DTensors as
+    the train step's do.  The f32 log-softmax needs the whole vocabulary:
+    the logits, whose vocab dim lies over ``model`` under TP, are gathered
+    over it and each rank takes its rows' gold logprobs on plain tensors
+    (``base.local_call``), the same ops on the same values as with no
+    mesh.  Gradients are laid out like their params and the metrics come
+    back plain, as in ``train.steps.make_train_step``."""
+    from ..models.base import is_dtensor
+    from ..train.steps import laid_out, refuse_mesh_model, value_and_grad
 
     trainable = getattr(optimizer, "trainable", None)
+    if mesh_ctx is not None:
+        refuse_mesh_model(model)
 
-    def seq_logp(params, tokens, labels, mask):
-        logits, _ = model.apply(params, {"tokens": tokens})
+    def dpo_loss(margin):
+        return -torch.mean(F.logsigmoid(beta * margin))
+
+    def gold_logp(logits, labels, mask):
         lp = torch.log_softmax(logits.float(), dim=-1)
         gold = torch.gather(lp, -1, labels.long()[..., None])[..., 0]
         return torch.sum(gold * mask.float(), dim=-1)          # [B]
+
+    def seq_logp(params, tokens, labels, mask):
+        if mesh_ctx is None:
+            logits, _ = model.apply(params, {"tokens": tokens})
+            return gold_logp(logits, labels, mask)
+        logits, _ = model.apply(params, {"tokens": tokens}, mesh_ctx,
+                                storage_axes)
+        return _rows_call(gold_logp, logits, labels, mask)
 
     def loss_fn(params, batch, ref_params):
         pol_c = seq_logp(params, batch["chosen_tokens"],
@@ -240,7 +263,12 @@ def make_dpo_step(model, optimizer, beta: float = 0.1):
             ref_r = seq_logp(ref_params, batch["rejected_tokens"],
                              batch["rejected_labels"], batch["rejected_mask"])
         margin = (pol_c - ref_c) - (pol_r - ref_r)
-        loss = -torch.mean(F.logsigmoid(beta * margin))
+        if is_dtensor(margin):
+            # DTensor has no rule for log-sigmoid's backward: the loss of
+            # the whole batch on every rank
+            loss = _whole(dpo_loss, margin)
+        else:
+            loss = dpo_loss(margin)
         metrics = {
             "loss": loss,
             "margin": torch.mean(margin),
@@ -253,6 +281,7 @@ def make_dpo_step(model, optimizer, beta: float = 0.1):
     def dpo_step(state, batch, ref_params):
         metrics, grads = value_and_grad(loss_fn, state["params"], batch,
                                         ref_params, trainable=trainable)
+        grads, metrics = laid_out(mesh_ctx, grads, state["params"], metrics)
         new_params, new_opt = optimizer.update(grads, state["opt"],
                                                state["params"])
         new_state = {"params": new_params, "opt": new_opt,
@@ -262,28 +291,53 @@ def make_dpo_step(model, optimizer, beta: float = 0.1):
     return dpo_step
 
 
+def _whole(fn, t):
+    """``fn(t)`` on the whole of the DTensor ``t``, replicated on every
+    rank (so is its gradient)."""
+    from torch.distributed.tensor import Replicate
+
+    from ..models.base import local_call
+
+    rep = [Replicate()] * t.device_mesh.ndim
+    return local_call(fn, (t,), (rep,), (rep,), rep)
+
+
+def _rows_call(fn, logits, labels, mask):
+    """``fn(logits, labels, mask) -> [B]`` on each rank's rows of plain
+    tensors: the batch dim cut as the logits' is, every other dim whole
+    (the vocab gathered where it lay over ``model``).  A mesh dim that cuts
+    no rows computes the same values on each of its ranks, so the logits'
+    gradient is replicated there."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..models.base import local_call, replicate_like
+
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim % logits.ndim == 0
+            else Replicate() for p in logits.placements]
+    labels, mask = (replicate_like(t, logits) for t in (labels, mask))
+    return local_call(fn, (logits, labels, mask), (rows, rows, rows),
+                      (rows, rows, rows), rows)
+
+
 @dataclasses.dataclass
 class DPOGym(Gym):
     """The shared gym loop with the DPO step swapped in via the step hooks.
 
     ``ref_params`` must be assigned (a *copy*: the loop updates the state's
     tensors in place, and the reference must not follow them) after
-    setup/warmstart and before the first step."""
+    setup/warmstart and before the first step.  Under a mesh the copy is
+    laid out as the params (JAX's ``_extra_step_shardings``): a DTensor
+    copy of each leaf holds a copy of its rank's block."""
 
     beta: float = 0.1
     ref_params: Any = None
 
-    def _build_step(self, mesh_ctx=None, storage_axes=()):
+    def _build_step(self, mesh_ctx, storage_axes):
         if self.grad_accum > 1:
             raise NotImplementedError(
                 "DPO does not support grad_accum > 1 yet; raise the batch")
-        if mesh_ctx is not None:
-            from ..sharding.plans import A8B
-
-            raise NotImplementedError(
-                f"dpo under a mesh: post-training under a plan comes with "
-                f"{A8B}")
-        return make_dpo_step(self.model, self.optimizer, beta=self.beta)
+        return make_dpo_step(self.model, self.optimizer, mesh_ctx,
+                             storage_axes, beta=self.beta)
 
     def _step_extra_args(self):
         if self.ref_params is None:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import math
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -139,15 +140,57 @@ def _delta(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _IEEEMatmul.apply(a, flat).reshape(a.shape[:-1] + out)
 
 
+def _mesh_delta(w, a, b):
+    """:func:`_delta` of DTensor factors, laid out as the base leaf ``w``.
+
+    Each rank computes its own block of ``w`` in ``local_map``
+    (``base.local_call``; DTensor does not dispatch the custom
+    ``_IEEEMatmul``): ``a`` comes in cut as ``w`` cuts its leading (layer,
+    ``d_in``) dims and ``b`` as ``w`` cuts its output dims, the rank dim of
+    both whole, so no rank contracts over part of the rank dim and every
+    element is the one-device product.  A factor's gradient is a partial
+    sum over the mesh dims that cut ``w`` along the other factor's dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..models.base import local_call
+
+    lead = a.dim() - 1     # w's dims that a carries, (L,) d_in; b its others
+    a_in, b_in, a_g, b_g = [], [], [], []
+    for p in w.placements:
+        d = p.dim % w.dim() if isinstance(p, Shard) else None
+        if d is None:
+            a_in.append(Replicate())
+            b_in.append(Replicate())
+            a_g.append(Replicate())
+            b_g.append(Replicate())
+        elif d < lead:     # the layer dim (both factors) or d_in (a's)
+            a_in.append(Shard(d))
+            b_in.append(Shard(d) if d < lead - 1 else Replicate())
+            a_g.append(Shard(d))
+            b_g.append(Shard(d) if d < lead - 1 else Partial())
+        else:
+            a_in.append(Replicate())
+            b_in.append(Shard(d))
+            a_g.append(Partial())
+            b_g.append(Shard(d))
+    return local_call(_delta, (a, b), (a_in, b_in), (a_g, b_g),
+                      list(w.placements))
+
+
 def merge_tree(base_params: Dict[str, Any], adapters: Dict[str, Any],
                scale: float) -> Dict[str, Any]:
     """Fold ``W + scale * a @ b`` into a copy of the base tree (f32 math,
-    cast back to the leaf dtype)."""
+    cast back to the leaf dtype).  DTensor leaves (a sharding plan's
+    layout) merge on each rank's block (:func:`_mesh_delta`): each merged
+    leaf keeps its base leaf's placements."""
+    from ..models.base import is_dtensor
+
     out = dict(base_params)
     for key, node in adapters.items():
         if _is_pair(node):
             w = base_params[key]
-            d = _delta(node["a"].float(), node["b"].float())
+            a, b = node["a"].float(), node["b"].float()
+            d = _mesh_delta(w, a, b) if is_dtensor(w) else _delta(a, b)
             out[key] = (w.float() + scale * d).to(w.dtype)
         else:
             out[key] = merge_tree(base_params[key], node, scale)
@@ -235,8 +278,9 @@ class LoRAModel(B.Model):
         return merge_tree(base_params, params[ADAPTER_KEY], self.lora.scale)
 
     # -- forward: merge then delegate --------------------------------------
-    def apply(self, params, batch):
-        return self.base.apply(self.merge(params), batch)
+    def apply(self, params, batch, mesh_ctx=None, storage_axes=()):
+        return self.base.apply(self.merge(params), batch, mesh_ctx,
+                               storage_axes)
 
     def prefill(self, params, *args, **kw):
         return self.base.prefill(self.merge(params), *args, **kw)
@@ -346,12 +390,17 @@ def save_adapter(ckpt_dir: str, step: int, params: Dict[str, Any],
     """Write an adapter-only checkpoint (just the ``params/lora/...``
     leaves) in the checkpoint format: :func:`load_adapter` and plain
     ``elastic.restore(..., strict=False)`` both read it back, in either
-    package."""
-    from ..ckpt.format import flatten_with_paths, write_checkpoint
+    package.  The leaves come to the host one at a time
+    (:func:`_gathered`: under a plan each is gathered on every rank) and
+    rank 0 alone writes; every rank returns the committed directory's
+    path."""
+    from ..ckpt.format import step_dirname, write_checkpoint
+    from ..launch.mesh import process_rank
 
     sub = {ADAPTER_KEY: params[ADAPTER_KEY]}
-    arrays = {f"params/{path}": leaf.detach()
-              for path, leaf in flatten_with_paths(sub)}
+    arrays = {f"params/{k}": v for k, v in _gathered(sub).items()}
+    if process_rank() != 0:
+        return os.path.join(ckpt_dir, step_dirname(step))
     return write_checkpoint(ckpt_dir, step, arrays,
                             extra={"adapter_only": True, **(extra or {})})
 
@@ -361,28 +410,58 @@ def load_adapter(params: Dict[str, Any], path: str,
                  ) -> Dict[str, Any]:
     """Restore the adapter subtree from an adapter(-or-full) checkpoint
     into ``params`` (onto its adapters' device), leaving the base
-    untouched.  ``shardings`` raises: LoRA under a plan comes with ROADMAP
-    A8b."""
+    untouched.  ``shardings`` (a params-shaped tree of
+    ``plans.NamedSharding``, as ``plans.param_shardings`` gives it) lays
+    the adapters out as DTensors, each rank cutting its block of the
+    leaf it read on the host (``ckpt.elastic``)."""
     from ..ckpt import elastic as EL
 
-    if shardings is not None:
-        from ..sharding.plans import A8B
-
-        raise NotImplementedError(
-            f"load_adapter(shardings=...): LoRA under a plan comes with {A8B}")
     like = {ADAPTER_KEY: params[ADAPTER_KEY]}
-    sub = EL.restore(like, path, prefix="params")
+    sh = ({ADAPTER_KEY: shardings[ADAPTER_KEY]}
+          if shardings is not None else None)
+    sub = EL.restore(like, path, sh, prefix="params")
     return dict(params, **{ADAPTER_KEY: sub[ADAPTER_KEY]})
+
+
+def _gathered(tree) -> Dict[str, Any]:
+    """``tree`` on the host, a DTensor leaf gathered to its full tensor one
+    leaf at a time (``ckpt.engine``'s snapshot): rank 0 keeps each copy,
+    the other ranks take part in the gathers and keep nothing (``{}``)."""
+    from ..ckpt.format import flatten_with_paths
+    from ..launch.mesh import process_rank
+    from ..models.base import is_dtensor
+
+    keep = process_rank() == 0
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_with_paths(tree):
+        leaf = leaf.detach()
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if keep:
+            out[path] = leaf.cpu()
+        del leaf
+    return out
 
 
 @torch.no_grad()
 def export_merged(model: LoRAModel, params: Dict[str, Any],
                   out_dir: str) -> str:
     """Merge adapters into the base weights and write the flat per-layer
-    export (the deploy artifact: serve it like any base checkpoint)."""
+    export (the deploy artifact: serve it like any base checkpoint).
+    Under a plan every rank merges its blocks, the merged leaves are
+    gathered one at a time and rank 0 alone writes: the files equal the
+    one-device run's."""
     from ..ckpt.export import export_flat
+    from ..ckpt.format import unflatten_paths
+    from ..launch.mesh import process_rank
 
-    return export_flat(model.merge(params), out_dir)
+    merged = model.merge(params)
+    like = tree_map(lambda _: None, merged)
+    host = _gathered(merged)
+    del merged
+    if process_rank() != 0:
+        return os.path.join(out_dir, "export.npz")
+    return export_flat(unflatten_paths(like, host), out_dir)
 
 
 __all__: List[str] = [

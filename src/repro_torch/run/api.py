@@ -102,6 +102,7 @@ def execute(cfg: RunConfig, *, device=None, write_result: bool = False,
     from ..launch.mesh import process_rank
 
     log = log or (lambda msg: print(msg, flush=True))
+    run_writes = write_result
     if process_rank() != 0:
         # under torchrun rank 0 alone logs and writes the run's files
         write_result, log = False, (lambda msg: None)
@@ -113,6 +114,8 @@ def execute(cfg: RunConfig, *, device=None, write_result: bool = False,
         write_artifacts(cfg.output_dir, resolved, cfg.name, cfg.kind)
     ctx_options = dict(options or {})
     ctx_options.setdefault("_write_files", write_result)
+    # what rank 0 writes: the files a gather on every rank must join
+    ctx_options.setdefault("_run_writes", run_writes)
     ctx = RunContext(cfg=cfg, resolved_doc=resolved, fingerprint=fp,
                      registry=reg, options=ctx_options, log=log,
                      device=device)

@@ -423,6 +423,10 @@ def _drive_gym(ctx, s, gym, before_run=None) -> Dict[str, Any]:
     gym.device = ctx.device
     _prepare_gym(ctx, s, gym)
     state = gym.setup()
+    for w in getattr(gym, "shard_warnings", []):
+        # an adapter's rank need not divide the plan's FSDP extent
+        if w.startswith("['lora']"):
+            log(f"lora: shard warning {w}")
     resumed_from = None
     if s.warmstart is not None:
         state = _apply_warmstart(state, s.warmstart, cfg, log)
@@ -622,12 +626,15 @@ def _inject_lora(gym, lora_settings, log):
 
 
 def _save_adapter_artifacts(ctx, s, gym, lora_model, state, result) -> None:
-    """Adapter-only checkpoint + optional merged export (post-run)."""
+    """Adapter-only checkpoint + optional merged export (post-run).  Under
+    a plan every rank takes part in the gathers and rank 0 alone writes
+    (``posttrain.lora``)."""
     if lora_model is None:
         return
     from ..posttrain import lora as LO
 
-    cfg, write_files = ctx.cfg, _writes(ctx)
+    cfg = ctx.cfg
+    write_files = bool(ctx.options.get("_run_writes", _writes(ctx)))
     adapter_dir = s.adapter_dir or (
         os.path.join(cfg.output_dir, "adapter") if cfg.output_dir else "")
     if adapter_dir and write_files:
@@ -672,6 +679,7 @@ def execute_dpo(ctx) -> Dict[str, Any]:
     import torch
 
     from ..core.gym import Gym
+    from ..models.base import is_dtensor
     from ..posttrain import lora as LO
     from ..posttrain.dpo import (DPOGym, PreferencePairDataset,
                                  sample_onpolicy_pairs)
@@ -710,6 +718,12 @@ def execute_dpo(ctx) -> Dict[str, Any]:
                     sample_params = lora_model.merge(state["params"])
             else:
                 sample_model, sample_params = gym.model, state["params"]
+            # under a plan the (merged) params are gathered to plain
+            # tensors on every rank, and every rank samples the same pairs
+            # with an engine with no mesh, as JAX's does
+            sample_params = tree_map(
+                lambda t: t.full_tensor() if is_dtensor(t) else t,
+                sample_params)
             pairs = sample_onpolicy_pairs(
                 sample_model, sample_params, vocab=gym.model.cfg.vocab,
                 n_prompts=op.n_prompts, prompt_len=op.prompt_len,

@@ -146,14 +146,9 @@ class ServeEngine:
             mesh = mesh.build(self.device.type)
         self.mesh, self.plan = mesh, plan
         if mesh is not None and plan is not None:
-            from ..models.transformer import DecoderLM, refuse_mesh
             from ..sharding import plans as PL
 
-            if not isinstance(model, DecoderLM):
-                raise NotImplementedError(
-                    f"{type(model).__name__} under a plan comes with "
-                    f"{PL.A8B}")
-            refuse_mesh(cfg)
+            ST.refuse_mesh_model(model)
             self.mesh_ctx = PL.mesh_context(plan, mesh)
             psh, self.shard_warnings = PL.param_shardings(
                 plan, mesh, params, model.param_axes())

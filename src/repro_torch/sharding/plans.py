@@ -31,10 +31,10 @@ from ..models import base as B
 TP_AXES = {B.HEADS, B.KV_HEADS, B.D_FF, B.VOCAB, B.D_INNER, B.CONV_DIM,
            B.D_EXPERT}
 
-#: what the rest of the parallelism item brings (LoRA under a plan, MLA,
-#: the hybrid, Whisper and LLaVA under a mesh), after the GPipe schedule,
-#: expert parallelism and sharded serving
-A8B = "ROADMAP A8b (LoRA, MLA and the other archs under a mesh)"
+#: what the rest of the parallelism item brings (the hybrid, Whisper and
+#: LLaVA under a mesh), after the GPipe schedule, expert parallelism,
+#: sharded serving, post-training under a plan and MLA under a mesh
+A8B = "ROADMAP A8b (the hybrid, Whisper and LLaVA under a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -568,7 +568,13 @@ def spec_from_json(obj: Optional[List[Any]]) -> PartitionSpec:
 def train_state_shardings(plan: ShardingPlan, mesh, model,
                           optimizer, seed: int = 0) -> Tuple[Any, List[str]]:
     """``({"params", "opt", "step"} sharding tree, warnings)``; shapes come
-    from the model and optimizer on ``meta`` (JAX's ``eval_shape``)."""
+    from the model and optimizer on ``meta`` (JAX's ``eval_shape``).  A
+    ``LoRAModel``'s ``lora`` subtree is laid out by its ``param_axes``
+    (the rank dims ``LORA``: never over ``model``, over the FSDP axes
+    where they are the largest dim that divides), and a
+    ``FrozenBaseOptimizer``'s moments mirror the whole param tree, as
+    JAX's do (the frozen ones stay zero).  A DPO reference copied from the
+    params keeps their layout (JAX's ``_extra_step_shardings``)."""
     from ..device import MetaGenerator
     from ..train import steps as ST
 

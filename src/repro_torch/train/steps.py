@@ -103,13 +103,15 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
     the stages that use it (the embedding on stage 0), as a partial sum over
     the pipe axis that the redistribution to the leaf's layout reduces, so
     every rank updates it alike.  A context with ``pp > 1`` and no mesh runs
-    every stage on this device.  LoRA under a plan is ROADMAP A8b and raises
-    here.
+    every stage on this device.  A ``LoRAModel`` over the decoder trains
+    under a plan the same way: the merge runs on each rank's blocks
+    (``posttrain.lora``) and the gradients of the trainable leaves alone
+    are laid out like their params.
     """
 
     trainable = getattr(optimizer, "trainable", None)
     if mesh_ctx is not None:
-        _refuse_a8b(model, trainable, mesh_ctx)
+        refuse_mesh_model(model)
 
     def loss_fn(params, batch):
         return compute_loss(model, params, batch, mesh_ctx, storage_axes)
@@ -132,12 +134,7 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
         else:
             metrics, grads = value_and_grad(loss_fn, state["params"], batch,
                                             trainable=trainable)
-        if mesh_ctx is not None and mesh_ctx.mesh is not None:
-            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
-                                                         p.placements),
-                             grads, state["params"])
-            metrics = {k: v.full_tensor() if is_dtensor(v) else v
-                       for k, v in metrics.items()}
+        grads, metrics = laid_out(mesh_ctx, grads, state["params"], metrics)
         new_params, new_opt = optimizer.update(grads, state["opt"],
                                                state["params"])
         new_state = {"params": new_params, "opt": new_opt,
@@ -151,18 +148,31 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
     return train_step
 
 
-def _refuse_a8b(model, trainable, mesh_ctx) -> None:
-    """What a mesh does not train yet: LoRA under a plan, models other than
-    the decoder, and the archs ``refuse_mesh`` names."""
+def laid_out(mesh_ctx, grads, params, metrics):
+    """Under a mesh: each gradient laid out like its param (the
+    data-parallel all-reduce or the FSDP reduce-scatter) and the metrics
+    plain replicated tensors; with no mesh, both as they are."""
+    if mesh_ctx is None or mesh_ctx.mesh is None:
+        return grads, metrics
+    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                     grads, params)
+    return grads, {k: v.full_tensor() if is_dtensor(v) else v
+                   for k, v in metrics.items()}
+
+
+def refuse_mesh_model(model) -> None:
+    """Raise naming ROADMAP A8b for a model a mesh does not run yet: one
+    that is not a ``DecoderLM`` or a ``LoRAModel`` over one, or an arch
+    ``refuse_mesh`` names."""
     from ..models.transformer import DecoderLM, refuse_mesh
+    from ..posttrain.lora import LoRAModel
     from ..sharding.plans import A8B
 
-    if trainable is not None:
-        raise NotImplementedError(f"LoRA under a plan comes with {A8B}")
-    if not isinstance(model, DecoderLM):
+    base = model.base if isinstance(model, LoRAModel) else model
+    if not isinstance(base, DecoderLM):
         raise NotImplementedError(
-            f"{type(model).__name__} under a mesh comes with {A8B}")
-    refuse_mesh(model.cfg)
+            f"{type(base).__name__} under a mesh comes with {A8B}")
+    refuse_mesh(base.cfg)
 
 
 def opt_state_shardings(opt_shapes, pspecs, rep):

@@ -193,12 +193,13 @@ def test_dpo_step_matches_jax(qwen):
 
 
 def test_dpo_gym_refusals_equal_jax():
-    """``grad_accum > 1`` and an unset reference raise JAX's errors."""
+    """``grad_accum > 1`` and an unset reference raise JAX's errors
+    (``_build_step`` called with JAX's signature)."""
     ours = DPO.DPOGym(model=None, optimizer=None, loader=None, grad_accum=2)
     theirs = JDPO.DPOGym(model=None, optimizer=None, loader=None,
                          grad_accum=2)
     with pytest.raises(NotImplementedError) as a:
-        ours._build_step()
+        ours._build_step(None, ())
     with pytest.raises(NotImplementedError) as b:
         theirs._build_step(None, ())
     assert str(a.value) == str(b.value)

@@ -10,9 +10,10 @@
   per-device FLOPs within ``FLOPS_TOL`` of JAX's.
 - The Whisper x ``long_500k`` skip record ``==`` JAX's, with no process
   group started; the archs a mesh does not run yet raise naming ROADMAP
-  A8b; full-width Qwen's ``decode_32k`` and ``long_500k`` and
-  DeepSeekMoE's ``train_4k`` dry-run on 256 fake ranks (the reduced
-  decode cases against JAX: ``tests/test_torch_dryrun_decode.py``).
+  A8b; full-width Qwen's ``decode_32k`` and ``long_500k``, DeepSeekMoE's
+  and DeepSeek-V3's ``train_4k`` dry-run on 256 fake ranks (the reduced
+  decode cases against JAX: ``tests/test_torch_dryrun_decode.py``;
+  reduced DeepSeek-V3's: ``tests/test_torch_mla_mesh.py``).
 - A reduced MoE under ``fsdp_tp_ep`` against JAX's dryrun on 8 forced
   devices (keys and ``EQUAL_KEYS``) and a reduced StableLM under
   ``pp2_fsdp_tp`` on a fake world of 256 ranks (JAX's keys, plan and
@@ -145,6 +146,7 @@ def test_whisper_long_500k_skip_record_starts_no_group(tmp_path, monkeypatch):
     ("qwen1p5_0p5b", "decode_32k"),
     ("qwen1p5_0p5b", "long_500k"),
     ("deepseek_moe_16b", "train_4k"),
+    ("deepseek_v3_671b", "train_4k"),
     ("zamba2_2p7b", "prefill_32k"),
     ("whisper_tiny", "train_4k"),
 ])
@@ -155,8 +157,10 @@ def test_later_slices_raise_naming_a8b(tmp_path, arch, shape, monkeypatch,
     shapes dry-run on the production mesh's fake world of 256 ranks under
     its default plan, ``fsdp_tp``, with JAX's result keys (``long_500k`` on
     the window of 8192 that ``specs.adapt_config`` sets: its cache of one
-    row has the sequence over ``data``); DeepSeekMoE's ``train_4k`` under
-    its default plan, ``fsdp_tp_ep`` (full width)."""
+    row has the sequence over ``data``); DeepSeekMoE's and DeepSeek-V3's
+    (MLA, 256 experts, the MTP head) ``train_4k`` under their default
+    plan, ``fsdp_tp_ep`` (full width), DeepSeek-V3's ``model_flops_global``
+    JAX's 6·N·D of its active params."""
     doc = {"run": {"kind": "dryrun", "name": "a8b",
                    "output_dir": str(tmp_path / "a8b")},
            "arch": {"component_key": "arch_config", "variant_key": arch},
@@ -177,12 +181,15 @@ def test_later_slices_raise_naming_a8b(tmp_path, arch, shape, monkeypatch,
         assert res["collective_counts"]["all-gather"] > 0
         assert not dist.is_initialized()
         return
-    if arch == "deepseek_moe_16b":
+    if arch in ("deepseek_moe_16b", "deepseek_v3_671b"):
         res = api.execute_doc(doc, device="cpu", log=_quiet)
         assert res["plan"] == ("fsdp_tp_ep(dp=data; fsdp=data; tp=model; "
                                "ep=model+storage=data)")
         assert res["chips"] == 256 and res["sharding_warnings"] == []
         assert res["collective_counts"]["all-gather"] > 0
+        if arch == "deepseek_v3_671b":
+            assert res["model_flops_global"] == \
+                6 * res["n_params_active"] * 256 * 4096
         assert not dist.is_initialized()
         return
     monkeypatch.setattr(MESH, "fake_world", None)

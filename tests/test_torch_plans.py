@@ -12,12 +12,13 @@
   (``tests/test_parallel_plans.py:31-141``); the inline plan mapping
   normalises as JAX's; the mesh providers stay lazy and a mesh larger
   than the world raises JAX's words.
-- The GPipe schedule, expert parallelism and sharded serving build: a
-  pipe axis of the plan's extent gives JAX's pipelined context, an ep
-  plan's train step, the MoE under a mesh and the engine under
-  ``serve_ep`` build.  The parts of parallelism that come with the rest
-  of ROADMAP A8b (LoRA under a plan, MLA, the hybrid, Whisper and LLaVA
-  under a mesh) raise naming it.
+- The GPipe schedule, expert parallelism, sharded serving and
+  post-training under a plan build: a pipe axis of the plan's extent
+  gives JAX's pipelined context, an ep plan's train step, the MoE and MLA
+  under a mesh, the engine under ``serve_ep``, LoRA's train step, its
+  engine and ``load_adapter(shardings=)`` build.  The parts of
+  parallelism that come with the rest of ROADMAP A8b (the hybrid, Whisper
+  and LLaVA under a mesh) raise naming it.
 """
 import functools
 
@@ -316,11 +317,15 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
     ``tests/test_torch_pp_train.py``), and so does the engine under
     ``serve_ep`` on a one-device mesh (sharded serving:
     ``tests/test_torch_mesh_serve.py``): its params DTensors, its MoE
-    through expert parallelism.  LoRA under a plan, in training, in a
-    restore and in the engine, still raises naming A8b."""
+    through expert parallelism.  LoRA under a plan builds too
+    (``tests/test_torch_lora_mesh.py``): its train step, its engine (the
+    adapters DTensors beside the base) and ``load_adapter(shardings=)``
+    (the adapter a DTensor with the given placements).  A model that is
+    not a decoder, nor a LoRA model over one, still raises naming A8b."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.ckpt import write_checkpoint
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.optim.adamw import AdamW
     from repro_torch.posttrain import lora as LO
     from repro_torch.serve.engine import ServeEngine
@@ -333,8 +338,13 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
             build_model(get_reduced(arch)), AdamW(),
             _fake_ctx(tp_axis="model", ep_enabled=True)))
     frozen = LO.FrozenBaseOptimizer(AdamW())
+    lora = LO.LoRAModel(model, LO.LoRAConfig())
+    assert callable(ST.make_train_step(lora, frozen, _fake_ctx()))
+    whisper = build_model(get_reduced("whisper_tiny"))
+    assert isinstance(whisper, EncDecLM)
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        ST.make_train_step(model, frozen, _fake_ctx())
+        ST.make_train_step(LO.LoRAModel(whisper, LO.LoRAConfig()), frozen,
+                           _fake_ctx())
     moe = build_model(get_reduced("deepseek_moe_16b"))
     plan = PL.make_plan("serve_ep")
     try:
@@ -344,24 +354,30 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
         assert all(isinstance(t, DTensor) for t in tree_leaves(eng.params))
         assert eng.mesh_ctx.ep_enabled and eng.mesh_ctx.ep_axes == \
             ("data", "model")
-        lora = LO.LoRAModel(model, LO.LoRAConfig())
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            ServeEngine(lora, lora.init(torch.Generator().manual_seed(0)),
-                        n_slots=1, max_len=8, mesh=mesh, plan=plan)
+        eng = ServeEngine(lora, lora.init(torch.Generator().manual_seed(0)),
+                          n_slots=1, max_len=8, mesh=mesh, plan=plan)
+        assert all(isinstance(t, DTensor) for t in tree_leaves(
+            eng.params[LO.ADAPTER_KEY]))
+        path = write_checkpoint(str(tmp_path), 1,
+                                {f"params/{LO.ADAPTER_KEY}/a":
+                                 torch.arange(2.0)})
+        sh = PL.NamedSharding(mesh, PL.P("data"))
+        got = LO.load_adapter({LO.ADAPTER_KEY: {"a": torch.zeros(2)}}, path,
+                              shardings={LO.ADAPTER_KEY: {"a": sh}})
+        a = got[LO.ADAPTER_KEY]["a"]
+        assert isinstance(a, DTensor) and list(a.placements) == \
+            sh.placements
+        assert torch.equal(a.full_tensor(), torch.arange(2.0))
     finally:
         MESH.shutdown()
-    path = write_checkpoint(str(tmp_path), 1,
-                            {f"params/{LO.ADAPTER_KEY}/a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        LO.load_adapter({LO.ADAPTER_KEY: {"a": torch.zeros(2)}}, path,
-                        shardings={LO.ADAPTER_KEY: {"a": None}})
 
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v3_671b",
                                   "zamba2_2p7b", "whisper_tiny",
                                   "llava_next_34b"])
 def test_non_dense_archs_under_a_mesh_name_a8b(arch):
-    """The MoE trains under a mesh (its step builds); MLA, the hybrid,
+    """The MoE and MLA (DeepSeek-V3, its MTP head too) train under a mesh
+    (their steps build: ``tests/test_torch_mla_mesh.py``); the hybrid,
     Whisper and LLaVA still raise naming A8b."""
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train import steps as ST
@@ -370,7 +386,7 @@ def test_non_dense_archs_under_a_mesh_name_a8b(arch):
         return ST.make_train_step(build_model(get_reduced(arch)), AdamW(),
                                   _fake_ctx(tp_axis="model"))
 
-    if arch == "deepseek_moe_16b":
+    if arch in ("deepseek_moe_16b", "deepseek_v3_671b"):
         assert callable(build())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
