@@ -136,13 +136,14 @@
    the serial baseline (the files byte-equal; each one's tok/s, host
    numbers of the card's machine), a BPE tokenizer of 256 merges trained
    on 2,048 documents and the corpus tokenized with it by the pipeline;
-   full-width Qwen1.5-0.5B through the flash kernel (batch 8 x 1024,
-   ``remat: full``) trained 3 steps on those BPE tokens
+   full-width Qwen1.5-0.5B at 12 of its 24 layers (``SWEEP_LAYERS``)
+   through the flash kernel (batch 8 x 1024, ``remat: full``) trained 3
+   steps on those BPE tokens
    (``dataset/packed_chunked``) through the ``train`` kind; then the same
    document as the base of a sweep (a ``zip`` axis over
    ``optimizer.config.lr`` x ``seeds: [0, 1]``, 4 trials of 3 steps) run
    through the CLI with ``--max-trials 2``, again (the 2 missing trials),
-   and a third time (4 resumed, no launch): 4 x 3 x 48 launches, the
+   and a third time (4 resumed, no launch): 4 x 3 x 24 launches, the
    report's ranking, the trial equal to the train run ``==`` its loss, the
    card's memory back within 1 GiB after every trial, each trial's ms/step
    and peak; then ``lr_sweep.yaml`` unchanged but for its directories (6
@@ -150,9 +151,9 @@
    ``tokenizer/byte``.
 10. Training under sharding plans (``--only mesh``, ROADMAP A8a): a
    one-rank NCCL group over a ``(1, 1)`` ``data x model`` mesh; full-width
-   Qwen1.5-0.5B at 12 of its 24 layers through the flash kernel (8 x 1024,
+   Qwen1.5-0.5B at 6 of its 24 layers through the flash kernel (8 x 1024,
    ``remat: full``) 3 steps with no mesh and under ``ddp``, ``fsdp`` and
-   ``fsdp_tp``, and full-width Mamba2-780M at 24 of its 48 layers through
+   ``fsdp_tp``, and full-width Mamba2-780M at 12 of its 48 layers through
    the SSD kernel 2 steps with no mesh and under ``fsdp_tp``, each run through the gym its document resolves to
    (``mesh_provider/local``, ``sharding_plan/<plan>``): the param and
    moment leaves DTensors with the plan's placements, the kernel's
@@ -162,11 +163,12 @@
    and with no mesh, equal to the saved state, its manifest's specs the
    plan's.  The group is destroyed at the end of the phase.
 10b. The GPipe schedule and expert parallelism (``--only pp``, ROADMAP
-   A8b's training half): full-width Qwen1.5-0.5B through ``flash_fwd`` (8 x
-   1024, ``remat: full``) 3 AdamW steps through the pipelined backbone
-   stage-local (a ``MeshContext`` with ``pp`` 2, 4 microbatches, no pipe
-   group) beside 3 unpipelined steps: 192 launches a step (24 layers x 4
-   microbatches x 2), one step's loss and per-leaf gradients against the
+   A8b's training half): full-width Qwen1.5-0.5B at 12 of its 24 layers
+   through ``flash_fwd`` (8 x 1024, ``remat: full``) 3 AdamW steps through
+   the pipelined backbone stage-local (a ``MeshContext`` with ``pp`` 2, 4
+   microbatches, no pipe group) beside 3 unpipelined steps: 96 launches a
+   step (12 layers x 4 microbatches x 2), one step's loss and per-leaf
+   gradients against the
    unpipelined step within ``TRAIN_SLICES['qwen']``'s bf16 tolerances,
    both curves, ms/step and peak memory; then full-width DeepSeekMoE-16B at
    depth 4 under ``fsdp_tp_ep`` on a ``(1, 1)`` NCCL mesh (EP degree 1,
@@ -181,12 +183,12 @@
    under ``ddp`` on a ``(1, 1)`` NCCL mesh under the dryrun's counter
    beside its dryrun on a fake world (FLOPs, bytes, collectives and
    argument bytes equal); then on a ``(1, 1)`` NCCL mesh (a) Qwen's static
-   shim at 12 of its layers, 8 x 1024 x 32, through ``flash_fwd`` under
-   ``fsdp_tp`` (streams ``==``, 12 launches an admission, tok/s and peak
+   shim at 6 of its layers, 8 x 1024 x 32, through ``flash_fwd`` under
+   ``fsdp_tp`` (streams ``==``, 6 launches an admission, tok/s and peak
    memory), (b) Qwen's paged engine at ``ENGINE_QWEN_LAYERS`` under
    ``ddp`` on 8 requests of the engine phase's traffic (streams and prefix
-   hit rate ``==``), (c) Mamba2's shim at 24 of its layers, 8 x 1024 x 32,
-   through ``ssd_scan`` under ``fsdp_tp`` (streams ``==``, 24 launches an
+   hit rate ``==``), (c) Mamba2's shim at 12 of its layers, 8 x 1024 x 32,
+   through ``ssd_scan`` under ``fsdp_tp`` (streams ``==``, 12 launches an
    admission), (d) DeepSeekMoE-16B at depth 4 through its shim at 8 x 512
    x 32 under ``serve_ep`` (EP degree 1: every admission's and tick's T·k
    and dropped share, first-token logits within the bf16 MoE bound of the
@@ -195,13 +197,14 @@
 10d. Post-training and DeepSeek-V3 under sharding plans (``--only
    a8b_post``, the third part of ROADMAP A8b), each run beside the same
    run with no mesh on a ``(1, 1)`` NCCL mesh, bit equality required:
-   (a) full-width Qwen1.5-0.5B with LoRA rank 8 through ``flash_fwd``, 3
-   ``sft`` steps of 8 x 1024 under ``fsdp_tp`` (48 launches a step, every
+   (a) full-width Qwen1.5-0.5B at 12 of its 24 layers (``A8B_POST_LAYERS``)
+   with LoRA rank 8 through ``flash_fwd``, 3
+   ``sft`` steps of 8 x 1024 under ``fsdp_tp`` (24 launches a step, every
    param leaf a DTensor with the plan's placements, the frozen base its
    init); (c) that run's adapter checkpoint restored with no mesh and
    through ``load_adapter(shardings=)`` under ``ddp``, its merged export
    against the no-mesh export; (b) 2 ``dpo`` steps on static pairs under
-   ``fsdp`` (144 launches a step, first loss ``log 2``) and a ``dpo`` step
+   ``fsdp`` (72 launches a step, first loss ``log 2``) and a ``dpo`` step
    on on-policy pairs (the pairs, 0 launches while sampling); (d) the
    engine over a LoRA model (Qwen at ``ENGINE_QWEN_LAYERS``) under
    ``fsdp_tp`` against the engine over ``merge(params)``; (e) full-width
@@ -215,6 +218,24 @@
    warnings, the collectives, and each child's word that it never
    initialised CUDA.  Every phase's line carries ms/step or tok/s and peak
    memory beside the no-mesh run's.
+10e. The hybrid, Whisper and LLaVA under sharding plans (``--only
+   a8b_rest``, the rest of ROADMAP A8b), each run beside the same run with
+   no mesh on a ``(1, 1)`` NCCL mesh, bit equality required: (a)
+   full-width Zamba2-2.7B at ``A8B_ZAMBA_GROUPS`` of its 9 groups (5
+   Mamba2 layers and one use of the shared block each) through both
+   kernels, 2 gym steps of 8 x 1024 under ``fsdp_tp`` (``flash_fwd`` uses
+   x 2 x steps, ``ssd_scan`` Mamba2 layers x 2 x steps), then its
+   checkpoint restored under ``ddp`` and with no mesh; (b) the Zamba2
+   engine at that depth under ``fsdp_tp`` (dense pool, 4 greedy requests
+   of 256 + 32 tokens), both kernels in every admission; (c) full-size
+   Whisper-tiny's shim (the ``mm`` slice's 8 x 416 x 32) under
+   ``fsdp_tp`` and one train step under ``fsdp``; (d) full-width
+   LLaVA-NeXT-34B at ``A8B_LLAVA_LAYERS`` layers, its shim (4 x (576 +
+   448) x 32) under ``fsdp_tp``, and one train step at depth 2; (e) one
+   Zamba2 decode step (8 slots, a cache of 1024) under ``ddp`` against
+   its dryrun: FLOPs, bytes, collectives and argument bytes equal.  Each
+   line carries ms/step, tok/s or tpot and peak memory beside the no-mesh
+   run's.
 11. The dryrun, trace and dryrun sweep (``--only dryrun``, ROADMAP A9b's
    dryrun half): (a) ``dryrun.yaml`` and ``trace.yaml`` unchanged through
    the port's CLI, each in a child process on the host from a temporary
@@ -2994,6 +3015,10 @@ SWEEP_WORDS = (
 # the train run and the trial of the same patches and seed: one process,
 # the same inputs and kernels, so the losses are equal
 SWEEP_LR, SWEEP_SEED = 3e-4, 0
+# the sweep's Qwen (its train run and its trials) at 12 of 24 layers, for
+# the script's time (PR 30): 2 x 12 = 24 flash_fwd a step
+SWEEP_LAYERS = 12
+SWEEP_FLASH = 2 * SWEEP_LAYERS
 SWEEP_MEM_SLACK = 2**30     # bytes the card may hold after a trial
 
 
@@ -3077,14 +3102,16 @@ def _sweep_pipeline(data_dir: str, card: str) -> tuple:
 
 
 def _sweep_base(data_dir: str, prefix: str) -> dict:
-    """Full-width Qwen through the flash kernel at 8 x 1024 on the BPE
-    tokens, ``SWEEP_STEPS`` steps, lr ``SWEEP_LR``, seed ``SWEEP_SEED``."""
+    """Full-width Qwen at ``SWEEP_LAYERS`` layers through the flash kernel
+    at 8 x 1024 on the BPE tokens, ``SWEEP_STEPS`` steps, lr ``SWEEP_LR``,
+    seed ``SWEEP_SEED``."""
     doc = train_doc(
         data_dir, "sweep_unused", "arch.config.reduced=false",
         f"variables.seq_len={TRAIN_SEQ}",
         f"loader.config.global_batch={TRAIN_BATCH}",
         f"run.train.steps={SWEEP_STEPS}", f"optimizer.config.lr={SWEEP_LR}",
-        f"gym.config.seed={SWEEP_SEED}", *TRAIN_SLICES["qwen"]["sets"])
+        f"gym.config.seed={SWEEP_SEED}", *TRAIN_SLICES["qwen"]["sets"],
+        f"arch.config.n_layers={SWEEP_LAYERS}")
     doc["dataset"] = {"component_key": "dataset",
                       "variant_key": "packed_chunked",
                       "config": {"prefix": prefix, "seq_len": "${seq_len}"}}
@@ -3128,16 +3155,17 @@ def _sweep_cli(args: list) -> tuple:
 
 # the mesh phase (ROADMAP A8a): full-width runs under sharding plans on a
 # one-rank NCCL group, each beside the same run with no mesh
-# full width at half depth (Qwen 12 of 24 layers, Mamba2 24 of 48): the
-# steps are host-bound under DTensor, and the script keeps within its time
+# full width at a quarter of the depth since PR 30 (Qwen 6 of 24 layers,
+# Mamba2 12 of 48; half depth in PR 29): the steps are host-bound under
+# DTensor, and the script keeps within its time
 MESH_SLICES = {
     "qwen": {"steps": 3, "plans": ("ddp", "fsdp", "fsdp_tp"),
              "kernel": "flash_fwd",
              "sets": ["arch.config.use_flash_kernel=true",
-                      "arch.config.n_layers=12"]},
+                      "arch.config.n_layers=6"]},
     "mamba2": {"steps": 2, "plans": ("fsdp_tp",), "kernel": "ssd_scan",
                "sets": ["arch.variant_key=mamba2_780m",
-                        "arch.config.n_layers=24"]},
+                        "arch.config.n_layers=12"]},
 }
 MESH_TOL = (
     0, "bit equality of every step's loss and every final param: on one "
@@ -3211,10 +3239,10 @@ def _meta_like(tree):
 def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
     """Training under sharding plans on the card (ROADMAP A8a).  A one-rank
     NCCL group (``launch.mesh`` starts it on a ``FileStore``) carries a
-    ``(1, 1)`` ``data x model`` mesh: full-width Qwen1.5-0.5B at 12 of its
+    ``(1, 1)`` ``data x model`` mesh: full-width Qwen1.5-0.5B at 6 of its
     24 layers through ``flash_fwd`` (8 x 1024, ``remat: full``) 3 steps
     under ``ddp``, ``fsdp`` and ``fsdp_tp``, and full-width Mamba2-780M at
-    24 of its 48 layers through ``ssd_scan`` 2 steps under ``fsdp_tp``
+    12 of its 48 layers through ``ssd_scan`` 2 steps under ``fsdp_tp``
     (``MESH_SLICES``), each beside the same run with
     no mesh: every param and moment leaf a DTensor with the plan's
     placements, the kernel's launches a step, losses and final params
@@ -3311,10 +3339,12 @@ def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
     return bool(ok)
 
 
-def _mesh_elastic(data_dir: str, gym, state) -> bool:
-    """A checkpoint saved under the gym's plan (``fsdp_tp``) restores under
-    ``ddp`` on the same mesh and with no mesh, each leaf ``==`` the saved
-    one; the manifest's specs are the plan's (JAX's strings)."""
+def _mesh_elastic(data_dir: str, gym, state, name: str = "mesh_ckpt",
+                  leaf: str = "params/blocks/attn/wq") -> bool:
+    """A checkpoint saved under the gym's plan (``fsdp_tp``) into
+    ``data_dir/name`` restores under ``ddp`` on the same mesh and with no
+    mesh, each leaf ``==`` the saved one; the manifest's specs are the
+    plan's (JAX's strings), ``leaf``'s printed."""
     import torch
     from torch.distributed.tensor import DTensor
 
@@ -3322,7 +3352,7 @@ def _mesh_elastic(data_dir: str, gym, state) -> bool:
     from repro_torch.ckpt import elastic as EL
     from repro_torch.sharding import plans as PL
 
-    ck_dir = os.path.join(data_dir, "mesh_ckpt")
+    ck_dir = os.path.join(data_dir, name)
     step = int(state["step"])
     t0 = time.perf_counter()
     ck = AsyncCheckpointer(ck_dir)
@@ -3353,8 +3383,8 @@ def _mesh_elastic(data_dir: str, gym, state) -> bool:
     print(f"mesh elastic: step-{step} checkpoint of the fsdp_tp state "
           f"({len(saved)} leaves, {sharded} with a sharded spec, saved and "
           f"committed in {save_s:.2f}s): manifest specs == the plan's "
-          f"spec_to_json {spec_ok} (e.g. blocks/attn/wq "
-          f"{manifest['params/blocks/attn/wq']['spec']}); restored under "
+          f"spec_to_json {spec_ok} (e.g. {leaf} "
+          f"{manifest[leaf]['spec']}); restored under "
           f"ddp (replicated DTensors) == saved {ddp_ok}; restored with no "
           f"mesh (plain tensors) == saved {plain_ok}: "
           f"{'ok' if ok else 'FAILED'}", flush=True)
@@ -3365,7 +3395,9 @@ def _mesh_elastic(data_dir: str, gym, state) -> bool:
 # the pp phase (ROADMAP A8b's training half): full-width Qwen through the
 # pipelined backbone, stage-local (2 stages of 12 layers, 4 microbatches),
 # and full-width DeepSeekMoE-16B at depth 4 through expert parallelism
-PP_SLICE = {"steps": 3, "pp": 2, "n_micro": 4}
+# Qwen at 12 of its 24 layers (2 stages of 6) since PR 30, for the
+# script's time
+PP_SLICE = {"steps": 3, "pp": 2, "n_micro": 4, "n_layers": 12}
 EP_SLICE = {"steps": 2, "plan": "fsdp_tp_ep"}
 
 
@@ -3395,13 +3427,14 @@ def _timed_steps(step, state, batch, steps):
 # shim's no-mesh run therefore mirrors those drops (moe_dense with the
 # dropped assignments' gates zeroed, as the pp phase's reference), so the
 # two differ only in bf16 summation order
-# Qwen at 12 of its 24 layers, Mamba2 at 24 of 48: a decode tick under a
-# plan is host-bound, and the script keeps within its time
+# Qwen at 6 of its 24 layers, Mamba2 at 12 of 48 (since PR 30; 12 and 24
+# in PR 29): a decode tick under a plan is host-bound, and the script
+# keeps within its time
 SERVE_MESH_SHIMS = {
     "qwen": {"arch": "qwen1p5_0p5b",
-             "with": {"use_flash_kernel": True, "n_layers": 12},
+             "with": {"use_flash_kernel": True, "n_layers": 6},
              "plan": "fsdp_tp", "kernel": "flash_fwd", "prompt": 1024},
-    "mamba2": {"arch": "mamba2_780m", "with": {"n_layers": 24},
+    "mamba2": {"arch": "mamba2_780m", "with": {"n_layers": 12},
                "plan": "fsdp_tp", "kernel": "ssd_scan", "prompt": 1024},
     "moe16b": {"arch": "deepseek_moe_16b",
                "with": {"n_layers": 4, "use_flash_kernel": True},
@@ -3764,12 +3797,13 @@ def phase_pp(data_dir: str, results: dict, card: str) -> bool:
     """The GPipe schedule and expert parallelism on the card (ROADMAP
     A8b's training half).
 
-    (a) Full-width Qwen1.5-0.5B through ``flash_fwd`` (8 x 1024, ``remat:
-    full``) through the pipelined backbone, stage-local (a ``MeshContext``
-    with ``pp`` 2, 4 microbatches and no pipe group: both stages of 12
-    layers on this card), ``PP_SLICE['steps']`` AdamW steps beside the same
-    steps unpipelined: ``flash_fwd`` launches 24 layers x 4 microbatches x
-    2 (forward and remat recompute) = 192 a step, each at batch 2; one
+    (a) Full-width Qwen1.5-0.5B at ``PP_SLICE['n_layers']`` (12) of its
+    24 layers through ``flash_fwd`` (8 x 1024, ``remat: full``) through the
+    pipelined backbone, stage-local (a ``MeshContext`` with ``pp`` 2, 4
+    microbatches and no pipe group: both stages of 6 layers on this card),
+    ``PP_SLICE['steps']`` AdamW steps beside the same steps unpipelined:
+    ``flash_fwd`` launches 12 layers x 4 microbatches x 2 (forward and
+    remat recompute) = 96 a step, each at batch 2; one
     step's loss and per-leaf gradients, pipelined against unpipelined,
     within ``TRAIN_SLICES['qwen']``'s bf16 tolerances; both curves,
     ms/step and peak memory.
@@ -3803,7 +3837,8 @@ def phase_pp(data_dir: str, results: dict, card: str) -> bool:
     # (a) the pipelined Qwen step, stage-local
     spec = TRAIN_SLICES["qwen"]
     loss_tol, grad_tol = spec["tols"]["bfloat16"]
-    cfg = get_config(spec["arch"]).with_(use_flash_kernel=True)
+    cfg = get_config(spec["arch"]).with_(use_flash_kernel=True,
+                                         n_layers=PP_SLICE["n_layers"])
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     tok = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
@@ -4096,12 +4131,12 @@ def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
     total += launches
     losses = [h["loss"] for h in res["history"]]
     ms = _step_ms(res["history"])
-    run_ok = (len(losses) == SWEEP_STEPS and launches == 48 * SWEEP_STEPS
+    run_ok = (len(losses) == SWEEP_STEPS and launches == SWEEP_FLASH * SWEEP_STEPS
               and all(math.isfinite(x) for x in losses))
     print(f"sweep qwen train: full width on the bpe tokens, batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}, lr {SWEEP_LR}, seed {SWEEP_SEED}, "
           f"losses {json.dumps(losses)}, flash_fwd {launches} (want "
-          f"{48 * SWEEP_STEPS}), ms/step {json.dumps([round(x, 3) for x in ms])}, "
+          f"{SWEEP_FLASH * SWEEP_STEPS}), ms/step {json.dumps([round(x, 3) for x in ms])}, "
           f"peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.3f} "
           f"{tag}: {'ok' if run_ok else 'FAILED'}", flush=True)
     ok &= run_ok
@@ -4138,8 +4173,8 @@ def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
     sweep_ok = ([rc for rc, _, _ in runs] == [0, 0, 0]
                 and [len(rows) for _, rows, _ in runs] == [2, 2, 0]
                 and runs[2][2] == 0
-                and trial_launches == [48 * SWEEP_STEPS] * 4
-                and sweep_launches == 4 * SWEEP_STEPS * 48
+                and trial_launches == [SWEEP_FLASH * SWEEP_STEPS] * 4
+                and sweep_launches == 4 * SWEEP_STEPS * SWEEP_FLASH
                 and report["by_status"] == {"ok": 4}
                 and len(values) == 4 and values == sorted(values)
                 and all(math.isfinite(v) for v in values)
@@ -4162,7 +4197,7 @@ def phase_sweep(data_dir: str, results: dict, card: str) -> bool:
                   f"{tag}", flush=True)
     print(f"sweep qwen: 3 invocations ran {[len(r) for _, r, _ in runs]} "
           f"trials (want [2, 2, 0]), exit codes {[rc for rc, _, _ in runs]}, "
-          f"flash_fwd {sweep_launches} (want {4 * SWEEP_STEPS * 48}); report "
+          f"flash_fwd {sweep_launches} (want {4 * SWEEP_STEPS * SWEEP_FLASH}); report "
           f"by_status {report['by_status']}, ranking "
           f"{[(r['trial_id'], r['value']) for r in report['ranking']]}; "
           f"trial {mine} final_loss "
@@ -5346,6 +5381,8 @@ def phase_mm_train(key: str, results: dict, card: str,
 # part), each run beside the same run with no mesh on a (1, 1) NCCL mesh
 # ---------------------------------------------------------------------------
 A8B_SFT_STEPS, A8B_DPO_STEPS, A8B_DSV3_STEPS = 3, 2, 2
+# (a)-(c)'s Qwen at 12 of its 24 layers since PR 30, for the script's time
+A8B_POST_LAYERS = 12
 # on-policy pairs: a smaller draw than the posttrain phase's (the sampler
 # and the engine are the same code with and without the plan)
 A8B_ONPOLICY = {"n_prompts": 4, "prompt_len": 64, "gen_tokens": 32,
@@ -5443,8 +5480,9 @@ def _a8b_post_qwen(data_dir: str, results: dict, card: str) -> bool:
     base_sets = ["arch.config.reduced=false", f"variables.seq_len={TRAIN_SEQ}",
                  f"loader.config.global_batch={TRAIN_BATCH}",
                  *TRAIN_SLICES["qwen"]["sets"], "gym.config.log_every=1",
-                 "gym.config.prefetch=0"]
-    layers = 24
+                 "gym.config.prefetch=0",
+                 f"arch.config.n_layers={A8B_POST_LAYERS}"]
+    layers = A8B_POST_LAYERS
 
     def doc_for(kind, name, settings, dataset, plan, *sets):
         doc = train_doc(data_dir, "a8b_qwen", *base_sets, *sets,
@@ -5479,8 +5517,8 @@ def _a8b_post_qwen(data_dir: str, results: dict, card: str) -> bool:
         del state, gym
         _free()
     b, m = runs[None], runs["fsdp_tp"]
-    init = LO.LoRAModel(build_model(get_config("qwen1p5_0p5b")),
-                        LO.LoRAConfig(**POST_LORA))
+    init = LO.LoRAModel(build_model(get_config("qwen1p5_0p5b").with_(
+        n_layers=layers)), LO.LoRAConfig(**POST_LORA))
     p0 = _host(init.init(torch.Generator(device="cuda").manual_seed(0)))
     base_bit = _trees_equal(
         *({k: v for k, v in t.items() if not LO.is_adapter_path(k)}
@@ -5753,12 +5791,24 @@ def _a8b_dsv3(data_dir: str, mesh, results: dict, card: str) -> bool:
 
 def _a8b_dsv3_decode(results: dict, card: str) -> bool:
     """(e) one absorbed DeepSeek-V3 decode step at ``DSV3_TRAIN_LAYERS``
-    (``A8B_DECODE``'s slots and cache) under ``fsdp_tp`` on a ``(1, 1)``
-    mesh under the dryrun's counter, beside its dryrun on a fake world of
-    one: FLOPs, bytes, collectives and argument bytes equal."""
+    (``A8B_DECODE``'s slots and cache) under ``fsdp_tp`` beside its
+    dryrun (:func:`_decode_vs_dryrun`)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek_v3_671b").with_(n_layers=DSV3_TRAIN_LAYERS,
+                                               mla_absorb=True)
+    return _decode_vs_dryrun("a8b_post (e) dsv3 absorbed decode step", cfg,
+                             "fsdp_tp", results, card)
+
+
+def _decode_vs_dryrun(label: str, cfg, plan_name: str, results: dict,
+                      card: str) -> bool:
+    """One decode step of ``cfg`` (``A8B_DECODE``'s slots and cache) under
+    ``plan_name`` on a ``(1, 1)`` mesh under the dryrun's counter, beside
+    its dryrun on a fake world of one: FLOPs, bytes, collectives and
+    argument bytes equal, no kernel launched (a decode step has none)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as MESH
@@ -5767,10 +5817,8 @@ def _a8b_dsv3_decode(results: dict, card: str) -> bool:
     from repro_torch.sharding import plans as PL
 
     d = A8B_DECODE
-    cfg = get_config("deepseek_v3_671b").with_(n_layers=DSV3_TRAIN_LAYERS,
-                                               mla_absorb=True)
     shape = InputShape("card", d["cache"], d["batch"], "decode")
-    plan = PL.make_plan("fsdp_tp")
+    plan = PL.make_plan(plan_name)
     dry = DR.compile_run(cfg, shape, MESH.LocalMesh(1, 1), plan)
     try:
         mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
@@ -5804,12 +5852,12 @@ def _a8b_dsv3_decode(results: dict, card: str) -> bool:
               and all(n == 0 for n in launches.values()))
         roofline = max(dry["compute_term_s"], dry["memory_term_s"],
                        dry["collective_term_s"])
-        print(f"a8b_post (e) dsv3 absorbed decode step, {cfg.n_layers} "
-              f"layers, batch {d['batch']} x cache {d['cache']} under "
-              f"fsdp_tp: flops/device card {ana['flops']!r} vs dryrun "
-              f"{dry['hlo_flops_per_dev']!r}; bytes/device card "
-              f"{ana['bytes']!r} vs dryrun {dry['hlo_bytes_per_dev']!r}; "
-              f"collectives card {ana['collective_counts']} vs dryrun "
+        print(f"{label}, {cfg.n_layers} layers, batch {d['batch']} x cache "
+              f"{d['cache']} under {plan_name}: flops/device card "
+              f"{ana['flops']!r} vs dryrun {dry['hlo_flops_per_dev']!r}; "
+              f"bytes/device card {ana['bytes']!r} vs dryrun "
+              f"{dry['hlo_bytes_per_dev']!r}; collectives card "
+              f"{ana['collective_counts']} vs dryrun "
               f"{dry['collective_counts']}; arguments card "
               f"{mem['mem_argument_size_in_bytes']} B vs dryrun "
               f"{dry['mem_argument_size_in_bytes']} B; launches {launches};"
@@ -5934,6 +5982,304 @@ def phase_a8b_post(data_dir: str, results: dict, card: str) -> bool:
     return bool(ok)
 
 
+# the a8b_rest phase (the rest of ROADMAP A8b): the Zamba2 hybrid, Whisper
+# and LLaVA under sharding plans on a (1, 1) NCCL mesh.  Zamba2 full width
+# at A8B_ZAMBA_GROUPS of its 9 groups (5 Mamba2 layers, then one use of the
+# shared block), for the phase's 100 s
+A8B_ZAMBA_GROUPS = 3
+A8B_ZAMBA_STEPS = 2
+A8B_ZAMBA_ENGINE = {"n_requests": 4, "prompt": 256, "gen": 32}
+A8B_LLAVA_LAYERS = 8
+A8B_LLAVA_TRAIN_LAYERS = 2
+
+
+def _zamba2_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2_2p7b")
+    return cfg.with_(use_flash_kernel=True,
+                     n_layers=A8B_ZAMBA_GROUPS * cfg.attn_every)
+
+
+def _a8b_zamba2_train(data_dir: str, results: dict, card: str) -> bool:
+    """(a) full-width Zamba2 at ``A8B_ZAMBA_GROUPS`` groups, ``remat:
+    full``, 8 x 1024, ``A8B_ZAMBA_STEPS`` gym steps under ``fsdp_tp``
+    beside the no-mesh run: losses and final params bit-equal, ``flash_fwd``
+    uses x 2 x steps and ``ssd_scan`` Mamba2 layers x 2 x steps in each;
+    then the ``fsdp_tp`` checkpoint restored under ``ddp`` and with no
+    mesh (``_mesh_elastic``)."""
+    cfg = _zamba2_cfg()
+    spec = {"steps": A8B_ZAMBA_STEPS,
+            "sets": ["arch.variant_key=zamba2_2p7b",
+                     "arch.config.use_flash_kernel=true",
+                     f"arch.config.n_layers={cfg.n_layers}"]}
+    uses = A8B_ZAMBA_GROUPS
+    mamba = uses * (cfg.attn_every - 1)
+    want = {"flash_fwd": uses * 2 * spec["steps"],
+            "ssd_scan": mamba * 2 * spec["steps"]}
+    runs = {}
+    for plan in (None, "fsdp_tp"):
+        gym, out, counts, peak, med, ms = _mesh_run(data_dir, "a8b_zamba2",
+                                                    spec, plan)
+        add_launches(results, counts)
+        runs[plan] = ([h["loss"] for h in out["history"]],
+                      _host(out["state"]["params"]), counts, peak, ms)
+        if plan is None:
+            del gym, out
+            _free()
+    (bl, bp, bc, bpk, bms), (ml, mp, mc, mpk, mms) = \
+        runs[None], runs["fsdp_tp"]
+    bit, dmax = _same(mp, bp)
+    tok_s = [TRAIN_BATCH * TRAIN_SEQ / (x / 1e3) for x in mms]
+    ok = ml == bl and bit and mc == bc == want
+    print(f"a8b_rest (a) zamba2 train: {cfg.name} full width, "
+          f"{cfg.n_layers} of 54 layers ({mamba} Mamba2 + {uses} uses of "
+          f"the shared block), {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{spec['steps']} gym steps under fsdp_tp on a (1, 1) mesh: "
+          f"losses {json.dumps(ml)} == no mesh {ml == bl}; final params "
+          f"bit-equal {bit} (max |d| {dmax:.3g}); launches {mc} (want "
+          f"{want}); {_ms(mms)}, tok/s {json.dumps([round(x) for x in tok_s])}"
+          f" vs no mesh {_ms(bms)}; peak {mpk:.3f} vs {bpk:.3f} GiB [{card}]: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    ok &= _mesh_elastic(data_dir, gym, out["state"], "a8b_zamba2_ckpt",
+                        "params/shared_attn/attn/wq")
+    del gym, out, runs, bp, mp
+    _free()
+    return bool(ok)
+
+
+def _a8b_zamba2_engine(mesh, results: dict, card: str) -> bool:
+    """(b) the Zamba2 engine (dense pool, greedy) at (a)'s depth under
+    ``fsdp_tp`` beside the no-mesh engine: ``A8B_ZAMBA_ENGINE``'s requests,
+    streams ``==``, both kernels in every admission (the engine's warm-up
+    admission among them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, load_params
+    from repro_torch.serve.workload import static_trace
+    from repro_torch.sharding import plans as PL
+
+    cfg = _zamba2_cfg()
+    e = A8B_ZAMBA_ENGINE
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cuda")
+    prompts = np.random.default_rng(5).integers(
+        3, cfg.vocab, size=(e["n_requests"], e["prompt"]), dtype=np.int32)
+    uses = A8B_ZAMBA_GROUPS
+    admissions = e["n_requests"] + 1
+    want = {"flash_fwd": uses * admissions,
+            "ssd_scan": uses * (cfg.attn_every - 1) * admissions}
+    rows = {}
+    for label, kw in (("no mesh", {}),
+                      ("fsdp_tp", {"mesh": mesh,
+                                   "plan": PL.make_plan("fsdp_tp")})):
+        engine = ServeEngine(model, params, n_slots=e["n_requests"],
+                             max_len=e["prompt"] + e["gen"], greedy=True,
+                             block_len=0, **kw)
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        res = engine.run(static_trace(prompts, e["gen"]), realtime=False)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        rows[label] = (res, counts, torch.cuda.max_memory_allocated() / 2**30)
+        del engine
+        _free()
+    (b, bc, bp), (m, mc, mp) = rows["no mesh"], rows["fsdp_tp"]
+    same = ([r["gen_ids"] for r in m["requests"]]
+            == [r["gen_ids"] for r in b["requests"]])
+    ok = same and m["completed"] == e["n_requests"] and mc == bc == want
+    print(f"a8b_rest (b) zamba2 engine, {cfg.n_layers} layers, dense pool, "
+          f"{e['n_requests']} greedy requests of {e['prompt']} + "
+          f"{e['gen']} tokens under fsdp_tp: {m['tok_s']} tok/s, decode "
+          f"{m['decode_tok_s']} tok/s, tpot p50 {m['tpot_ms']['p50']:.3f} "
+          f"ms, peak {mp:.3f} GiB; no mesh: {b['tok_s']} tok/s, decode "
+          f"{b['decode_tok_s']} tok/s, tpot p50 {b['tpot_ms']['p50']:.3f} "
+          f"ms, peak {bp:.3f} GiB; streams equal {same}; launches {mc} "
+          f"(want {want}: {admissions} admissions) [{card}]: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    del params, model
+    _free()
+    return bool(ok)
+
+
+def _a8b_mm_shim(key: str, n_layers: int, mesh, results: dict,
+                 card: str) -> bool:
+    """The ``mm`` slice's shim (``serve_benchmark``: zero frames or
+    patches, the slice's batch x prompt x gen) under ``fsdp_tp`` beside
+    the shim with no mesh: streams ``==``, ``flash_fwd`` once a decoder
+    layer in each prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_benchmark
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import load_params
+    from repro_torch.sharding import plans as PL
+
+    spec = MM_SLICES[key]
+    cfg = get_config(spec["arch"]).with_(**{**spec["with"],
+                                            "n_layers": n_layers})
+    model = build_model(cfg)
+    params = load_params(model, seed=0, device="cuda")
+    rows = {}
+    for label, kw in (("no mesh", {}),
+                      ("fsdp_tp", {"mesh": mesh,
+                                   "plan": PL.make_plan("fsdp_tp")})):
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = serve_benchmark(model, batch=spec["batch"],
+                              prompt_len=spec["prompt"], gen=spec["gen"],
+                              seed=0, params=params, device="cuda",
+                              log=_quiet, **kw)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        rows[label] = (res, counts, torch.cuda.max_memory_allocated() / 2**30,
+                       time.perf_counter() - t0)
+    (b, bc, bpk, bw), (m, mc, mpk, mw) = rows["no mesh"], rows["fsdp_tp"]
+    want = {"flash_fwd": cfg.n_layers, "ssd_scan": 0}
+    same = m["generated_ids"] == b["generated_ids"]
+    ok = same and mc == bc == want
+
+    def tpot(r):
+        return 1e3 * r["decode_s"] / max(r["decode_steps"], 1)
+
+    print(f"a8b_rest ({'c' if key == 'whisper' else 'd'}) {key} shim: "
+          f"{cfg.name} full width, {cfg.n_layers} decoder layers, "
+          f"{spec['batch']} x ({cfg.n_patches} + {spec['prompt']}) x "
+          f"{spec['gen']} under fsdp_tp: {_shim_line(m, mc, mpk, mw)}, tpot "
+          f"{tpot(m):.3f} ms; no mesh: {_shim_line(b, bc, bpk, bw)}, tpot "
+          f"{tpot(b):.3f} ms; streams equal {same} (want launches {want}) "
+          f"[{card}]: {'ok' if ok else 'FAILED'}", flush=True)
+    del params, model
+    _free()
+    return bool(ok)
+
+
+def _a8b_mm_train(key: str, n_layers: int, plan_name: str, mesh,
+                  results: dict, card: str) -> bool:
+    """One ``make_train_step`` step of the ``mm`` slice's training batch
+    (seeded frames or patches) under ``plan_name`` beside the step with
+    no mesh: loss and params bit-equal, ``flash_fwd`` twice a decoder
+    layer (forward and remat recompute)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding import plans as PL
+    from repro_torch.train import steps as ST
+
+    spec = MM_SLICES[key]
+    tr = spec["train"]
+    B, S = tr["batch"], tr["seq"]
+    cfg = get_config(spec["arch"]).with_(**{**spec["with"], **tr["with"],
+                                            "n_layers": n_layers})
+    model = build_model(cfg)
+    toks = np.random.default_rng(3).integers(3, cfg.vocab, size=(B, S),
+                                             dtype=np.int64)
+    rows = {}
+    for label in ("no mesh", plan_name):
+        batch = {"tokens": torch.as_tensor(toks, device="cuda"),
+                 "labels": torch.as_tensor(np.roll(toks, -1, axis=1),
+                                           device="cuda"),
+                 **mm_extra(cfg, B, "cuda", seed=4)}
+        opt = AdamW(lr=tr["lr"], weight_decay=0.1, grad_clip=1.0)
+        state = ST.init_train_state(
+            model, opt, torch.Generator(device="cuda").manual_seed(0))
+        ctx = None
+        if label != "no mesh":
+            plan = PL.make_plan(plan_name)
+            sh, _ = PL.train_state_shardings(plan, mesh, model, opt)
+            state = PL.distribute(state, sh)
+            batch = PL.distribute(batch, PL.batch_shardings(plan, mesh,
+                                                            batch))
+            ctx = PL.mesh_context(plan, mesh)
+        step = ST.make_train_step(model, opt, ctx)
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        add_launches(results, counts)
+        rows[label] = (loss, _host(state["params"]), counts,
+                       torch.cuda.max_memory_allocated() / 2**30,
+                       1e3 * (time.perf_counter() - t0))
+        del state, opt, step, batch
+        _free()
+    (bl, bp, bc, bpk, bms), (ml, mp, mc, mpk, mms) = \
+        rows["no mesh"], rows[plan_name]
+    bit, dmax = _same(mp, bp)
+    want = {"flash_fwd": 2 * cfg.n_layers, "ssd_scan": 0}
+    ok = ml == bl and bit and mc == bc == want
+    print(f"a8b_rest ({'c' if key == 'whisper' else 'd'}) {key} train step:"
+          f" {cfg.n_layers} decoder layers, {B} x ({cfg.n_patches} + {S}) "
+          f"under {plan_name}: loss {ml!r} == no mesh {ml == bl}; params "
+          f"bit-equal {bit} (max |d| {dmax:.3g}); launches {mc} (want "
+          f"{want}); {mms:.1f} ms (the first step) vs {bms:.1f}; peak "
+          f"{mpk:.3f} vs {bpk:.3f} GiB [{card}]: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    return bool(ok)
+
+
+def phase_a8b_rest(data_dir: str, results: dict, card: str) -> bool:
+    """The Zamba2 hybrid, Whisper and LLaVA under sharding plans on the
+    card (the rest of ROADMAP A8b), on a one-rank NCCL group's ``(1, 1)``
+    mesh, each run beside the same run with no mesh, bit equality
+    required (``MESH_TOL``): (a) Zamba2 training under ``fsdp_tp`` and its
+    checkpoint across layouts, (b) the Zamba2 engine under ``fsdp_tp``,
+    (c) Whisper-tiny's shim under ``fsdp_tp`` and a train step under
+    ``fsdp``, (d) LLaVA-NeXT-34B's shim under ``fsdp_tp`` and a train
+    step at depth 2, (e) one Zamba2 decode step under ``ddp`` against its
+    dryrun.  The group is destroyed at the end of the phase."""
+    from repro_torch.launch import mesh as MESH
+
+    t0 = time.perf_counter()
+    ok = True
+
+    def lap(what):
+        print(f"a8b_rest: {what} done at {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
+    try:
+        ok &= _a8b_zamba2_train(data_dir, results, card)
+        lap("(a)")
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        ok &= _a8b_zamba2_engine(mesh, results, card)
+        lap("(b)")
+        ok &= _a8b_mm_shim("whisper", 4, mesh, results, card)
+        ok &= _a8b_mm_train("whisper", 4, "fsdp", mesh, results, card)
+        lap("(c)")
+        ok &= _a8b_mm_shim("llava", A8B_LLAVA_LAYERS, mesh, results, card)
+        ok &= _a8b_mm_train("llava", A8B_LLAVA_TRAIN_LAYERS, "fsdp_tp", mesh,
+                            results, card)
+        lap("(d)")
+        MESH.shutdown()
+        ok &= _decode_vs_dryrun("a8b_rest (e) zamba2 decode step",
+                                _zamba2_cfg(), "ddp", results, card)
+        lap("(e)")
+    finally:
+        MESH.shutdown()
+        _free()
+    return bool(ok)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR",
@@ -5943,7 +6289,8 @@ def main() -> int:
     ap.add_argument("--only", default="", metavar="PHASES",
                     help="comma-separated phases to run after the build: "
                          "kernels, slices, mm, train, bench, ckpt, resil, "
-                         "posttrain, mesh, pp, serve_mesh, a8b_post, sweep, "
+                         "posttrain, mesh, pp, serve_mesh, a8b_post, "
+                         "a8b_rest, sweep, "
                          "dryrun, engine "
                          "(default: "
                          "all); a partial run prints no result line")
@@ -6053,6 +6400,8 @@ def _phases(args, want, results: dict, card: str) -> bool:
             run("serve_mesh", lambda: phase_serve_mesh(results, card))
         if want("a8b_post"):
             run("a8b_post", lambda: phase_a8b_post(data_dir, results, card))
+        if want("a8b_rest"):
+            run("a8b_rest", lambda: phase_a8b_rest(data_dir, results, card))
         if want("sweep"):
             run("sweep", lambda: phase_sweep(data_dir, results, card))
         if want("dryrun"):

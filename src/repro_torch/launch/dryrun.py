@@ -29,9 +29,9 @@ The result has JAX's keys but two that torch cannot give:
 the traced step's.  A decode shape traces ``make_serve_step`` under the
 mesh: the params (cast to bf16 under ``serve_bf16``) laid out by the plan,
 the cache of ``shape.global_batch`` rows by ``plans.cache_shardings``, the
-tokens and positions by ``plans.batch_shardings``.  The archs that do not
-run under a mesh yet raise ``NotImplementedError`` naming ROADMAP A8b,
-after the skip check.
+tokens and positions by ``plans.batch_shardings``.  A train or prefill
+batch's ``frames`` (Whisper) and ``patch_embeds`` (LLaVA) are laid out
+with its tokens, and counted as argument bytes as JAX counts them.
 """
 from __future__ import annotations
 
@@ -201,15 +201,12 @@ def compile_run(cfg, shape, mesh, plan=None, *, grad_accum: int = 1,
     (``bf16_params`` applies to a train shape, ``serve_bf16`` to a decode
     shape, as in JAX).
     """
-    from ..models.transformer import refuse_mesh
-
     arch_label = arch_label or cfg.name
     shape_label = shape_label or shape.name
     cfg = SP.adapt_config(cfg, shape)
     ok, why = SP.supports_shape(cfg, shape)
     if not ok:
         return {"arch": arch_label, "shape": shape_label, "skipped": why}
-    refuse_mesh(cfg)
     kw = dict(grad_accum=grad_accum, bf16_params=bf16_params,
               serve_bf16=serve_bf16, verbose=verbose, keep_messages=keep_messages,
               arch_label=arch_label, shape_label=shape_label)

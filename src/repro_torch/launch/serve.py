@@ -33,8 +33,9 @@ def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
     is the card unless the caller asks for the CPU.  ``mesh``/``plan``
     shard the serve exactly like the engine path (JAX's), so an
     engine-vs-shim comparison stays equal-footing.  The audio and VLM
-    archs take ``_multimodal_benchmark`` instead of the engine (under a
-    plan they raise naming ROADMAP A8b).
+    archs take ``_multimodal_benchmark`` instead of the engine, under a
+    plan sharded as the engine is (where JAX's shim drops ``mesh`` and
+    ``plan`` and serves unsharded: ROADMAP C9).
     """
     from ..device import resolve_device
     from ..serve.engine import ServeEngine, load_params
@@ -49,11 +50,8 @@ def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
     prompts = np.random.default_rng(seed + 1).integers(
         3, cfg.vocab, size=(B, P), dtype=np.int32)
     if cfg.arch_type == "audio" or cfg.n_patches:
-        if mesh is not None and plan is not None:
-            from ..models.transformer import refuse_mesh
-
-            refuse_mesh(cfg)
-        return _multimodal_benchmark(model, params, prompts, G, dev, log)
+        return _multimodal_benchmark(model, params, prompts, G, dev, log,
+                                     mesh=mesh, plan=plan)
     # block_len=0 pins the dense slot pool, as in JAX
     engine = ServeEngine(model, params, n_slots=B, max_len=P + G,
                          mesh=mesh, plan=plan, greedy=True, block_len=0)
@@ -87,7 +85,8 @@ def serve_benchmark(model, *, batch: int = 4, prompt_len: int = 32,
 
 
 def _multimodal_benchmark(model, params, prompts, gen: int, device,
-                          log: Callable[[str], None]) -> Dict[str, Any]:
+                          log: Callable[[str], None], mesh: Any = None,
+                          plan: Any = None) -> Dict[str, Any]:
     """The audio and VLM archs' static path (JAX's
     ``_multimodal_benchmark``): the engine's slot scheduler carries no
     modality extras, so one prefill of the whole batch, on zero frames or
@@ -99,7 +98,15 @@ def _multimodal_benchmark(model, params, prompts, gen: int, device,
     ticks decode at positions ``n_patches + P + i``: a VLM's prefill covers
     the patches and the prompt, and JAX's ``P + gen`` rows keep only the
     patches' and decode over them, losing the prompt (ROADMAP C).  Whisper
-    has no patches, so for it the two are the same."""
+    has no patches, so for it the two are the same.
+
+    With ``mesh`` and ``plan`` the shim runs sharded, as the engine does:
+    the params laid out by the plan (its ``param_shardings``), the batch
+    (tokens, frames, patches) by ``batch_shardings``, the prefill and each
+    tick (``make_serve_step(model, mesh_ctx)``) on DTensors, the cache laid
+    out by ``cache_shardings`` after the prefill, and the greedy token drawn
+    from the gathered logits.  JAX's shim drops both and serves unsharded
+    (ROADMAP C9); the streams are the same function of the params."""
     import time
 
     import torch
@@ -119,6 +126,17 @@ def _multimodal_benchmark(model, params, prompts, gen: int, device,
     if n_pre:
         batch_in["patch_embeds"] = torch.zeros((B, n_pre, cfg.d_model),
                                                device=device)
+    mesh_ctx = None
+    if mesh is not None and plan is not None:
+        from ..sharding import plans as PL
+
+        if hasattr(mesh, "build"):
+            mesh = mesh.build(device.type)
+        mesh_ctx = PL.mesh_context(plan, mesh)
+        psh, _ = PL.param_shardings(plan, mesh, params, model.param_axes())
+        params = PL.distribute(params, psh)
+        batch_in = PL.distribute(batch_in,
+                                 PL.batch_shardings(plan, mesh, batch_in))
 
     def sync():
         if device.type == "cuda":
@@ -126,12 +144,15 @@ def _multimodal_benchmark(model, params, prompts, gen: int, device,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, batch_in, max_len=max_len)
-    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    logits, cache = model.prefill(params, batch_in, max_len=max_len,
+                                  mesh_ctx=mesh_ctx)
+    if mesh_ctx is not None:
+        cache = _laid_out(cache, PL.cache_shardings(plan, mesh, cache, B))
+    tokens = torch.argmax(ST.full_logits(logits), dim=-1).to(torch.int32)
     sync()
     t_prefill = time.perf_counter() - t0
 
-    serve_step = ST.make_serve_step(model)
+    serve_step = ST.make_serve_step(model, mesh_ctx)
     generated = [tokens]
     t0 = time.perf_counter()
     for i in range(G - 1):
@@ -163,3 +184,13 @@ def _multimodal_benchmark(model, params, prompts, gen: int, device,
     log(f"decode:  {B}x{G - 1} tokens in {t_decode:.3f}s "
         f"({res['decode_tok_s']} tok/s)")
     return res
+
+
+def _laid_out(cache, shardings):
+    """Each cache leaf (a DTensor cut from the prefill's activations)
+    redistributed to its :class:`~repro_torch.sharding.plans.NamedSharding`
+    (``cache_shardings``), once a request, as the engine's pool is laid
+    out."""
+    if isinstance(cache, dict):
+        return {k: _laid_out(v, shardings[k]) for k, v in cache.items()}
+    return cache.redistribute(shardings.mesh, shardings.placements)

@@ -236,24 +236,61 @@ def _local_heads(attend, q, k, v):
 
 def bidir_forward(cfg: B.ArchConfig, p, x):
     """Bidirectional (encoder) self-attention, no rope (Whisper's positions
-    are learned).  The plain path, as in JAX: no kernel."""
+    are learned).  The plain path, as in JAX: no kernel; under a mesh on
+    each rank's rows and heads (:func:`_local_heads`)."""
     q, k, v = _project_qkv(p, x, cfg)
-    pos = torch.arange(x.shape[1], device=x.device)
-    o = _full_attn(q, k, v, pos, pos, window=0, causal=False)
+    o = _plain_heads(_cross_core, q, k, v)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
 
 
 def cross_forward(cfg: B.ArchConfig, p, x, enc_kv):
     """Cross-attention: q from x, k/v precomputed from the encoder's output
-    (``cross_kv``)."""
+    (``cross_kv``); under a mesh on each rank's rows and heads."""
+    q = _cross_q(cfg, p, x)
+    k, v = enc_kv
+    o = _plain_heads(_cross_core, q, k, v)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def cross_decode(cfg: B.ArchConfig, p, x, ck, cv):
+    """The cross-attention of one decode step over a request's cached
+    encoder K/V ``ck``/``cv`` ``[B, F, K, dh]``.  Under a mesh (the cache
+    laid out by ``plans.cache_shardings``: the frames over ``model`` where
+    the KV heads do not divide it) each rank attends over its own block of
+    the cache, the softmax spanning ranks where the frames do
+    (:func:`_cross_mesh_attend`)."""
+    if not B.is_dtensor(ck):
+        return cross_forward(cfg, p, x, (ck, cv))
+    q = _cross_q(cfg, p, x)
+    o = _cross_mesh_attend(q, ck, cv, x.dtype)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def _cross_q(cfg, p, x):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
-    k, v = enc_kv
-    pos_q = torch.arange(x.shape[1], device=x.device)
-    pos_k = torch.arange(k.shape[1], device=x.device)
-    o = _full_attn(q, k, v, pos_q, pos_k, window=0, causal=False)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return q
+
+
+def _cross_core(q, k, v):
+    """Attention with no mask (every query sees every key): the encoder's
+    and the cross-attention's plain core."""
+    pos_q = torch.arange(q.shape[1], device=q.device)
+    pos_k = torch.arange(k.shape[1], device=q.device)
+    return _full_attn(q, k, v, pos_q, pos_k, window=0, causal=False)
+
+
+def _plain_heads(core, q, k, v):
+    """``core(q, k, v)``; under a mesh on each rank's local rows and heads
+    (:func:`_local_heads`).  The gradients leave contiguous on every path,
+    as :func:`gqa_forward`'s do, so the run with no mesh sums them in the
+    same order as the run under a mesh."""
+    def attend(q, k, v):
+        return core(*(B.contiguous_grad(t) for t in (q, k, v)))
+
+    return _local_heads(attend, q, k, v) if B.is_dtensor(q) \
+        else attend(q, k, v)
 
 
 def cross_kv(cfg: B.ArchConfig, p, enc_out):
@@ -654,6 +691,60 @@ def _mesh_attend(mode, cfg, q, k, v, ck, cv, positions, dtype, pages=None,
     o = o.redistribute(mesh, [Replicate() if r == "part" else p
                               for r, p in zip(roles, o_pl)])
     return o.to(dtype)
+
+
+def _cross_mesh_attend(q, ck, cv, dtype):
+    """The cross-attention of a decode step on each rank's block of an
+    encoder-decoder's cross cache ``ck``/``cv`` ``[B, F, K, dh]``, laid out
+    by ``plans.cache_shardings``; it reads the cache and writes nothing.
+    Returns ``o`` ``[B, Sq, H, dh]`` as a DTensor.
+
+    Per mesh dim, the cache's placement says what this rank holds: its
+    slots (``rows``), its KV heads (``heads``) or a part of the frames
+    (``part``, where neither divides: Whisper's 6 heads on a ``model``
+    axis of 4).  The query is laid out to match, replicated over a
+    ``part`` dim.  With no ``part`` dim the plain core runs on the blocks
+    unchanged.  With one, the softmax spans ranks, as in
+    :func:`_mesh_attend`'s: each rank scores its own frames, the scores are
+    gathered, the softmax is the plain one over the whole row, and each
+    rank's share of P·V is summed in f32 across the ``part`` dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ck.device_mesh
+    roles = B.shard_roles(ck, {0: "rows", 1: "part", 2: "heads"})
+
+    def table(rows, heads, part):
+        return [rows if r == "rows" else heads if r == "heads"
+                else part if r == "part" else Replicate() for r in roles]
+
+    if "part" not in roles:
+        # as in _mesh_attend: a mesh dim of size 1 keeps the query's
+        # placement, a larger one cuts it as the cache is cut
+        pl = [t if mesh.size(i) > 1 else p for i, (t, p) in enumerate(
+            zip(table(Shard(0), Shard(2), Replicate()), q.placements))]
+
+        def core(ckl, cvl, ql):
+            return _cross_core(ql, ckl, cvl)
+
+        return B.local_cache_call(core, (ck, cv), (q,), [pl], pl)
+
+    dh = q.shape[-1]
+
+    def scores_fn(ckl, cvl, ql):
+        return _gqa_scores_einsum(ql, ckl).float() / math.sqrt(dh)
+
+    def pv_fn(cvl, pr):
+        return _gqa_out_einsum(pr.float(), cvl.float())
+
+    sc_pl = table(Shard(0), Shard(1), Shard(3))       # [B, H, Sq, frames]
+    sc = B.local_cache_call(scores_fn, (ck, cv), (q,),
+                            [table(Shard(0), Shard(2), Replicate())], sc_pl)
+    sc = sc.redistribute(mesh, table(Shard(0), Shard(1), Replicate()))
+    probs = torch.softmax(sc, dim=-1).to(dtype)
+    o_pl = table(Shard(0), Shard(2), Partial())
+    o = B.local_cache_call(pv_fn, (cv,), (probs,), [sc_pl], o_pl)
+    return o.redistribute(mesh, table(Shard(0), Shard(2), Replicate())
+                          ).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ from . import mlp as M
 from . import stacked as ST
 from .common import (apply_norm, embed_init, embed_lookup, norm_axes,
                      norm_params)
-from .transformer import _pad_cache_seq, _stacked_norm, _with_layer_axis
+from .transformer import (_pad_cache_seq, _residual, _stacked_norm,
+                          _with_layer_axis)
 
 
 def _init_enc_block(cfg, gen, lead):
@@ -108,49 +109,102 @@ class EncDecLM(B.Model):
         }
 
     # -- forward pieces ------------------------------------------------------
-    def encode(self, params, frames):
-        """frames ``[B, F, D]`` stub embeddings -> the encoder's states."""
+    def _mesh_inputs(self, params, mesh_ctx, decode: bool = False):
+        """Under a mesh: (the params with their unstacked leaves gathered,
+        the learned position tables among them, and a gather for each
+        layer's leaves in its loop); with no mesh (the params, None).
+        ``decode``: no encoder leaf (a decode step reads none)."""
+        if mesh_ctx is None or mesh_ctx.mesh is None:
+            return params, None
+        stacks = ("enc_blocks", "dec_blocks")
+        skip = ("enc_blocks", "enc_pos_embed", "enc_norm") if decode else ()
+        return ({k: v if k in stacks else B.gather_fsdp(v, mesh_ctx)
+                 for k, v in params.items() if k not in skip},
+                lambda lp: B.gather_fsdp(lp, mesh_ctx))
+
+    def encode(self, params, frames, mesh_ctx=None):
+        """frames ``[B, F, D]`` stub embeddings -> the encoder's states.
+        Under a mesh the residual stream is laid out where JAX's
+        ``encode`` constrains it (plain frames taken as replicated)."""
+        params, gather = self._mesh_inputs(params, mesh_ctx)
+        return self._encode(params, frames, mesh_ctx, gather)
+
+    def _encode(self, params, frames, mesh_ctx, gather):
         cfg = self.cfg
-        x = frames.to(self.act_dtype)
-        x = x + params["enc_pos_embed"][: x.shape[1]].to(x.dtype)
+        pe = params["enc_pos_embed"]
+        x = B.replicate_like(frames, pe).to(self.act_dtype)
+        x = B.constrain(x + pe[: x.shape[1]].to(x.dtype), mesh_ctx)
 
         def body(x, bp):
+            x = B.constrain(x, mesh_ctx)
             h = apply_norm(cfg, bp["attn_norm"], x)
-            x = x + A.bidir_forward(cfg, bp["attn"], h)
+            x = _residual(x, A.bidir_forward(cfg, bp["attn"], h), mesh_ctx)
             h = apply_norm(cfg, bp["mlp_norm"], x)
-            return x + M.mlp_forward(cfg, bp["mlp"], h)
+            return B.constrain(x + M.mlp_forward(cfg, bp["mlp"], h), mesh_ctx)
 
-        stack = ST.Stacked(body, cfg.n_encoder_layers, remat=cfg.remat)
+        stack = ST.Stacked(body, cfg.n_encoder_layers, remat=cfg.remat,
+                           gather=gather)
         return apply_norm(cfg, params["enc_norm"],
                           stack.fold(params["enc_blocks"], x))
 
-    def _decoder_in(self, params, tokens):
-        x = embed_lookup(params["embed"], tokens.long(), self.act_dtype)
-        return x + params["pos_embed"][: x.shape[1]].to(x.dtype)
+    def _decoder_in(self, params, tokens, mesh_ctx=None):
+        table = params["embed"]
+        x = embed_lookup(table, B.replicate_like(tokens, table).long(),
+                         self.act_dtype)
+        x = x + params["pos_embed"][: x.shape[1]].to(x.dtype)
+        return B.constrain(x, mesh_ctx)
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, mesh_ctx=None):
         x = apply_norm(self.cfg, params["final_norm"], x)
-        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+        out = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+        if mesh_ctx is not None and mesh_ctx.tp_axis is not None:
+            out = B.constrain(out, mesh_ctx, None, mesh_ctx.tp_axis)
+        return out
 
-    def apply(self, params, batch):
-        """Training forward: (logits ``[B, S, vocab]``, {})."""
+    def _dec_body(self, bp, x, self_fn, cross_fn, mesh_ctx):
+        """One decoder layer around its self-attention ``self_fn`` (the
+        training or prefill forward, or the decode step, returning (out,
+        extra)) and its cross-attention ``cross_fn``, then the MLP; returns
+        (x, extra).  Under a mesh the residual stream is laid out at the
+        layer's ends and the attentions' partial sums over ``model``
+        reduced where they meet it (``transformer._residual``)."""
         cfg = self.cfg
-        enc = self.encode(params, batch["frames"])
-        x = self._decoder_in(params, batch["tokens"])
+        x = B.constrain(x, mesh_ctx)
+        h, extra = self_fn(apply_norm(cfg, bp["self_norm"], x))
+        x = _residual(x, h, mesh_ctx)
+        h = cross_fn(apply_norm(cfg, bp["cross_norm"], x))
+        x = _residual(x, h, mesh_ctx)
+        h = apply_norm(cfg, bp["mlp_norm"], x)
+        return B.constrain(x + M.mlp_forward(cfg, bp["mlp"], h),
+                           mesh_ctx), extra
+
+    def apply(self, params, batch, mesh_ctx=None, storage_axes=()):
+        """Training forward: (logits ``[B, S, vocab]``, {}).  Under a mesh
+        (the params and the batch, ``frames`` with the tokens, DTensors
+        laid out by a sharding plan) the unstacked leaves are gathered
+        here, each layer's in its loop, and the activations constrained
+        where JAX constrains them; the decoder's self-attention runs its
+        kernel on each rank's heads, the encoder's and the
+        cross-attention the plain path on them."""
+        cfg = self.cfg
+        params, gather = self._mesh_inputs(params, mesh_ctx)
+        enc = self._encode(params, batch["frames"], mesh_ctx, gather)
+        x = self._decoder_in(params, batch["tokens"], mesh_ctx)
         positions = torch.arange(x.shape[1], device=x.device)
 
         def body(x, bp):
-            h = apply_norm(cfg, bp["self_norm"], x)
-            x = x + A.gqa_forward(cfg, bp["self_attn"], h, positions)
-            h = apply_norm(cfg, bp["cross_norm"], x)
-            kv = A.cross_kv(cfg, bp["cross_attn"], enc)
-            x = x + A.cross_forward(cfg, bp["cross_attn"], h, kv)
-            h = apply_norm(cfg, bp["mlp_norm"], x)
-            return x + M.mlp_forward(cfg, bp["mlp"], h)
+            def attend(h):
+                return A.gqa_forward(cfg, bp["self_attn"], h, positions), None
 
-        x = ST.Stacked(body, cfg.n_layers,
-                       remat=cfg.remat).fold(params["dec_blocks"], x)
-        return self._logits(params, x), {}
+            kv = A.cross_kv(cfg, bp["cross_attn"], enc)
+            return self._dec_body(
+                bp, x, attend,
+                lambda h: A.cross_forward(cfg, bp["cross_attn"], h, kv),
+                mesh_ctx)[0]
+
+        x = ST.Stacked(body, cfg.n_layers, remat=cfg.remat,
+                       gather=gather).fold(params["dec_blocks"], x)
+        return self._logits(params, x, mesh_ctx), {}
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -169,11 +223,15 @@ class EncDecLM(B.Model):
         }
 
     @torch.no_grad()
-    def prefill_cross(self, params, cache, frames):
-        """Encode ``frames`` and fill the cross-attention K/V of ``cache``."""
-        enc = self.encode(params, frames)
+    def prefill_cross(self, params, cache, frames, mesh_ctx=None):
+        """Encode ``frames`` and fill the cross-attention K/V of ``cache``
+        (under a mesh as DTensors laid out as the encoder's states)."""
+        params, gather = self._mesh_inputs(params, mesh_ctx)
+        enc = self._encode(params, frames, mesh_ctx, gather)
 
         def body(_, bp):
+            if gather is not None:
+                bp = gather(bp)
             return None, A.cross_kv(self.cfg, bp["cross_attn"], enc)
 
         _, (ks, vs) = ST.layer_loop(body, params["dec_blocks"], None,
@@ -182,33 +240,41 @@ class EncDecLM(B.Model):
                 "cross_v": vs.to(cache["cross_v"].dtype)}
 
     @torch.no_grad()
-    def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16):
+    def prefill(self, params, batch, max_len=None, cache_dtype=torch.bfloat16,
+                mesh_ctx=None, storage_axes=()):
         """Encode the frames and run the decoder's prompt: (last-token
-        logits ``[B, vocab]``, decode cache)."""
+        logits ``[B, vocab]``, decode cache).  Under a mesh as ``apply``
+        runs; the cache's leaves come back DTensors laid out as the
+        activations they were cut from (the serving shim lays them out by
+        ``plans.cache_shardings``)."""
         cfg = self.cfg
-        enc = self.encode(params, batch["frames"])
-        x = self._decoder_in(params, batch["tokens"])
+        params, gather = self._mesh_inputs(params, mesh_ctx)
+        enc = self._encode(params, batch["frames"], mesh_ctx, gather)
+        x = self._decoder_in(params, batch["tokens"], mesh_ctx)
         S = x.shape[1]
         max_len = max_len or S
         positions = torch.arange(S, device=x.device)
 
         def body(x, bp):
-            h = apply_norm(cfg, bp["self_norm"], x)
-            h, (k, v) = A.gqa_forward(cfg, bp["self_attn"], h, positions,
-                                      return_kv=True)
-            x = x + h
-            h = apply_norm(cfg, bp["cross_norm"], x)
+            if gather is not None:
+                bp = gather(bp)
+
+            def attend(h):
+                return A.gqa_forward(cfg, bp["self_attn"], h, positions,
+                                     return_kv=True)
+
             ck, cv = A.cross_kv(cfg, bp["cross_attn"], enc)
-            x = x + A.cross_forward(cfg, bp["cross_attn"], h, (ck, cv))
-            h = apply_norm(cfg, bp["mlp_norm"], x)
-            x = x + M.mlp_forward(cfg, bp["mlp"], h)
+            x, (k, v) = self._dec_body(
+                bp, x, attend,
+                lambda h: A.cross_forward(cfg, bp["cross_attn"], h, (ck, cv)),
+                mesh_ctx)
             return x, ({"k": _pad_cache_seq(k.to(cache_dtype), max_len, 0),
                         "v": _pad_cache_seq(v.to(cache_dtype), max_len, 0)},
                        ck.to(cache_dtype), cv.to(cache_dtype))
 
         x, (self_c, cks, cvs) = ST.layer_loop(body, params["dec_blocks"], x,
                                               cfg.n_layers)
-        logits = self._logits(params, x[:, -1:])[:, 0]
+        logits = self._logits(params, x[:, -1:], mesh_ctx)[:, 0]
         return logits, {"self": self_c, "cross_k": cks, "cross_v": cvs}
 
     @torch.no_grad()
@@ -216,29 +282,39 @@ class EncDecLM(B.Model):
         """One token for every row: logits ``[B, vocab]``; the self cache is
         updated in place.  Activations follow the cache's dtype, and the
         learned position is read at the position clipped to the table.
-        Under a mesh it raises naming ROADMAP A8b, as training does."""
-        if mesh_ctx is not None and mesh_ctx.mesh is not None:
-            from .transformer import refuse_mesh
-
-            refuse_mesh(self.cfg)
+        Under a mesh (the cache laid out by ``plans.cache_shardings``) each
+        rank attends over its own block of the self and the cross cache
+        and writes its own rows of the self cache
+        (``attention._mesh_attend``)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens[:, None].long(),
-                         cache["cross_k"].dtype)
+        params, gather = self._mesh_inputs(params, mesh_ctx, decode=True)
+        table = params["embed"]
+        dtype = cache["cross_k"].dtype
+        x = embed_lookup(table, B.replicate_like(tokens, table)[:, None].long(),
+                         dtype)
         pe = params["pos_embed"]
         idx = torch.clamp(positions, 0, pe.shape[0] - 1).long()
-        x = x + pe[idx].to(x.dtype)[:, None, :]
+        x = x + embed_lookup(pe, B.replicate_like(idx, pe), dtype)[:, None, :]
 
         def body(x, inp):
             bp, sc, ck, cv = inp
-            h = apply_norm(cfg, bp["self_norm"], x)
-            h, _ = A.gqa_decode(cfg, bp["self_attn"], sc, h, positions)
-            x = x + h
-            h = apply_norm(cfg, bp["cross_norm"], x)
-            x = x + A.cross_forward(cfg, bp["cross_attn"], h, (ck, cv))
-            h = apply_norm(cfg, bp["mlp_norm"], x)
-            return x + M.mlp_forward(cfg, bp["mlp"], h), None
+            if gather is not None:
+                bp = gather(bp)
 
-        x, _ = ST.layer_loop(body, (params["dec_blocks"], cache["self"],
-                                    cache["cross_k"], cache["cross_v"]), x,
-                             cfg.n_layers)
-        return self._logits(params, x)[:, 0], cache
+            def attend(h):
+                return A.gqa_decode(cfg, bp["self_attn"], sc, h, positions)
+
+            def cross(h):
+                return A.cross_decode(cfg, bp["cross_attn"], h, ck, cv)
+
+            return self._dec_body(bp, x, attend, cross, mesh_ctx)[0], None
+
+        # a decode step reads no cross K/V projection (its K/V are cached):
+        # ``jax.jit`` prunes them, and a dryrun counts no bytes for them
+        blocks = params["dec_blocks"]
+        blocks = {**blocks, "cross_attn": {
+            k: v for k, v in blocks["cross_attn"].items()
+            if k in ("wq", "bq", "wo")}}
+        x, _ = ST.layer_loop(body, (blocks, cache["self"], cache["cross_k"],
+                                    cache["cross_v"]), x, cfg.n_layers)
+        return self._logits(params, x, mesh_ctx)[:, 0], cache

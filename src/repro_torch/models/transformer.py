@@ -301,21 +301,6 @@ def init_cache_block(cfg, kind, batch, max_len, dtype, device=None):
     return A.gqa_init_cache(cfg, batch, max_len, dtype, device)
 
 
-def refuse_mesh(cfg: B.ArchConfig) -> None:
-    """The archs a mesh runs: the dense decoders, Mamba2 and the MoE (with
-    expert parallelism where the plan has it), MLA among them.  The
-    hybrid's weight-shared stack, the encoder-decoder and the VLM under a
-    mesh come with ROADMAP A8b."""
-    if cfg.arch_type in ("dense", "ssm", "moe"):
-        return
-    from ..sharding.plans import A8B
-
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.arch_type} arch under a mesh comes with "
-        f"{A8B}; the dense decoders, Mamba2, the MoE and MLA train under "
-        f"every plan")
-
-
 class DecoderLM(B.Model):
     """Decoder-only language model: ``dense``, ``moe``, ``ssm``,
     ``hybrid`` and ``vlm`` archs."""
@@ -413,7 +398,11 @@ class DecoderLM(B.Model):
         ``_scan_stack``); returns (x, summed aux).  With ``shared_attn`` the
         weight-shared dense block runs after each group, inside its remat
         wrap, so the backward recomputes it too.  Under a mesh each layer's
-        FSDP shards are gathered in the loop (``B.gather_fsdp``).  With
+        FSDP shards are gathered in the loop (``B.gather_fsdp``); the
+        shared block comes in gathered once, outside the fold
+        (:meth:`_gathered`), so no recompute gathers it again, its uses'
+        gradients add up in that one gathered tree, and the gather's
+        backward reduce-scatters their sum once.  With
         ``stats`` (a ``[n, 2, E]`` shift register) each MoE layer's router
         statistics go in at its end and the oldest row out, and the
         register comes back in place of the aux."""
@@ -430,7 +419,8 @@ class DecoderLM(B.Model):
 
         def tail(carry):
             x, aux = carry
-            x, _ = apply_block(cfg, "dense_block", shared_attn, x, positions)
+            x, _ = apply_block(cfg, "dense_block", shared_attn, x, positions,
+                               mesh_ctx)
             return x, aux
 
         stack = ST.Stacked(body, n_layers,
@@ -462,7 +452,8 @@ class DecoderLM(B.Model):
             return self._scan_stack(params["ssm_blocks"], "ssm", x, positions,
                                     n_groups * seg,
                                     shared_attn=params["shared_attn"],
-                                    force_group=seg)
+                                    force_group=seg, mesh_ctx=mesh_ctx,
+                                    storage_axes=storage_axes)
         aux_total = None
         for name, kind, idxs in self._stacks():
             x, aux = self._scan_stack(params[name], kind, x, positions,
@@ -545,14 +536,15 @@ class DecoderLM(B.Model):
         patches' rows).
 
         Under a mesh (``mesh_ctx``, the params and the batch DTensors laid
-        out by a sharding plan) the dense and ssm archs run the same code
-        on DTensors: the unstacked leaves are gathered here, each layer's
-        in the loop, and the activations constrained where JAX constrains
-        them.  ``storage_axes`` are the mesh axes the experts' ``d_model``
-        dim is stored sharded over (the EP plans' ``ep_storage_axes``).
+        out by a sharding plan) every arch runs the same code on DTensors:
+        the unstacked leaves are gathered here (the hybrid's shared block
+        among them), each layer's in the loop, and the activations
+        constrained where JAX constrains them; a VLM's ``patch_embeds``
+        are laid out with the tokens (``plans.batch_shardings``).
+        ``storage_axes`` are the mesh axes the experts' ``d_model`` dim is
+        stored sharded over (the EP plans' ``ep_storage_axes``).
         """
         if mesh_ctx is not None and mesh_ctx.mesh is not None:
-            refuse_mesh(self.cfg)
             params = self._gathered(params, mesh_ctx,
                                     mtp="labels" in batch)
         x = self._with_patches(batch, self.embed_tokens(
@@ -611,9 +603,11 @@ class DecoderLM(B.Model):
     def _with_patches(self, batch, x):
         """``batch["patch_embeds"]``, cast to the activations' dtype, in
         front of the token embeddings ``x`` when the arch has patches and
-        the batch carries them (JAX's ``apply`` and ``prefill``)."""
+        the batch carries them (JAX's ``apply`` and ``prefill``).  Under a
+        mesh plain patches (the serving shim's) are taken as replicated."""
         if self.cfg.n_patches and "patch_embeds" in batch:
-            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+            patches = B.replicate_like(batch["patch_embeds"], x)
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x
 
     def logits(self, params, x, mesh_ctx=None):
@@ -638,7 +632,6 @@ class DecoderLM(B.Model):
         params, no gather, the tokens."""
         if mesh_ctx is None or mesh_ctx.mesh is None:
             return params, None, tokens
-        refuse_mesh(self.cfg)
         params = self._gathered(params, mesh_ctx, mtp=False)
         return (params, lambda lp: B.gather_fsdp(lp, mesh_ctx),
                 B.replicate_like(tokens, params["embed"]))
@@ -660,10 +653,10 @@ class DecoderLM(B.Model):
         + S`` rows, and decoding goes on at position ``n_patches + S``.
 
         Under a mesh (``mesh_ctx``, the params and the batch DTensors laid
-        out by a sharding plan) the dense and ssm archs run as in
-        ``apply``: unstacked leaves gathered here, each layer's in the
-        loop; the MoE's experts as in ``apply``.  A plan's pipe axis plays
-        no part: prefill runs the layers in order (as JAX's)."""
+        out by a sharding plan) every arch runs as in ``apply``: unstacked
+        leaves gathered here, each layer's in the loop; the MoE's experts
+        as in ``apply``.  A plan's pipe axis plays no part: prefill runs
+        the layers in order (as JAX's)."""
         cfg = self.cfg
         params, gather, tokens = self._serve_inputs(params, batch["tokens"],
                                                     mesh_ctx)
@@ -674,8 +667,8 @@ class DecoderLM(B.Model):
         positions = torch.arange(S, device=x.device)
         if cfg.arch_type == "hybrid":
             x, cache = self._prefill_hybrid(params, x, positions, max_len,
-                                            cache_dtype)
-            return self.logits(params, x[:, -1:])[:, 0], cache
+                                            cache_dtype, gather, mesh_ctx)
+            return self.logits(params, x[:, -1:], mesh_ctx)[:, 0], cache
         cache: Dict[str, Any] = {}
         for name, kind, idxs in self._stacks():
 
@@ -696,21 +689,26 @@ class DecoderLM(B.Model):
         logits = self.logits(params, x[:, -1:], mesh_ctx)[:, 0]
         return logits, cache
 
-    def _prefill_hybrid(self, params, x, positions, max_len, cache_dtype):
+    def _prefill_hybrid(self, params, x, positions, max_len, cache_dtype,
+                        gather=None, mesh_ctx=None):
         """Each group's Mamba2 layers, then the shared block, whose K/V of
         this use go to row ``g`` of the ``shared_attn`` cache ``[n_attn, B,
-        max_len, K, dh]`` (JAX's ``_prefill_hybrid``)."""
+        max_len, K, dh]`` (JAX's ``_prefill_hybrid``).  Under a mesh each
+        Mamba2 layer's params are gathered as it runs (``gather``), the
+        shared block's came gathered (:meth:`_serve_inputs`)."""
         cfg = self.cfg
         n_groups, seg = self._hybrid_groups()
         ssm_c, attn_c = [], []
         for g in range(n_groups):
             for i in range(seg):
                 lp = ST.take_layer(params["ssm_blocks"], g * seg + i)
+                if gather is not None:
+                    lp = gather(lp)
                 x, c = prefill_block(cfg, "ssm", lp, x, positions, max_len,
-                                     cache_dtype)
+                                     cache_dtype, mesh_ctx)
                 ssm_c.append(c)
             x, c = prefill_block(cfg, "dense_block", params["shared_attn"], x,
-                                 positions, max_len, cache_dtype)
+                                 positions, max_len, cache_dtype, mesh_ctx)
             attn_c.append(c)
         return x, {"ssm_blocks": ST.stack_layers(ssm_c),
                    "shared_attn": ST.stack_layers(attn_c)}
@@ -824,11 +822,11 @@ class DecoderLM(B.Model):
         ``model`` under TP."""
         cfg = self.cfg
         params, gather, tokens = self._serve_inputs(params, tokens, mesh_ctx)
-        x = self.embed_tokens(params, tokens[:, None])
+        x = B.constrain(self.embed_tokens(params, tokens[:, None]), mesh_ctx)
         if cfg.arch_type == "hybrid" and pages is None:
-            x = self._decode_hybrid(params, cache, x, positions)
-            return self.logits(params, x)[:, 0], cache
-        x = B.constrain(x, mesh_ctx)
+            x = self._decode_hybrid(params, cache, x, positions, gather,
+                                    mesh_ctx)
+            return self.logits(params, x, mesh_ctx)[:, 0], cache
         for name, kind, idxs in self._stacks():
 
             def body(x, inp, kind=kind):
@@ -848,20 +846,26 @@ class DecoderLM(B.Model):
                                  len(idxs))
         return self.logits(params, x, mesh_ctx)[:, 0], cache
 
-    def _decode_hybrid(self, params, cache, x, positions):
+    def _decode_hybrid(self, params, cache, x, positions, gather=None,
+                       mesh_ctx=None):
         """One token through each group's Mamba2 layers and the shared
         block, with that use's K/V cache (JAX's ``_decode_hybrid``); the
-        cache is updated in place."""
+        cache is updated in place.  Under a mesh as :meth:`_prefill_hybrid`
+        runs, each rank on its own block of the cache: row ``g`` of the
+        ``shared_attn`` leaves, laid out by ``plans.cache_shardings``, is
+        use ``g``'s (``attention._mesh_attend``)."""
         cfg = self.cfg
         n_groups, seg = self._hybrid_groups()
         for g in range(n_groups):
             for i in range(seg):
                 li = g * seg + i
-                x, _ = decode_block(cfg, "ssm",
-                                    ST.take_layer(params["ssm_blocks"], li),
+                lp = ST.take_layer(params["ssm_blocks"], li)
+                if gather is not None:
+                    lp = gather(lp)
+                x, _ = decode_block(cfg, "ssm", lp,
                                     ST.take_layer(cache["ssm_blocks"], li),
-                                    x, positions)
+                                    x, positions, mesh_ctx)
             x, _ = decode_block(cfg, "dense_block", params["shared_attn"],
                                 ST.take_layer(cache["shared_attn"], g), x,
-                                positions)
+                                positions, mesh_ctx)
         return x

@@ -230,11 +230,9 @@ def make_dpo_step(model, optimizer, mesh_ctx=None, storage_axes=(),
     mesh.  Gradients are laid out like their params and the metrics come
     back plain, as in ``train.steps.make_train_step``."""
     from ..models.base import is_dtensor
-    from ..train.steps import laid_out, refuse_mesh_model, value_and_grad
+    from ..train.steps import laid_out, value_and_grad
 
     trainable = getattr(optimizer, "trainable", None)
-    if mesh_ctx is not None:
-        refuse_mesh_model(model)
 
     def dpo_loss(margin):
         return -torch.mean(F.logsigmoid(beta * margin))

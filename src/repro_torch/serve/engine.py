@@ -148,7 +148,6 @@ class ServeEngine:
         if mesh is not None and plan is not None:
             from ..sharding import plans as PL
 
-            ST.refuse_mesh_model(model)
             self.mesh_ctx = PL.mesh_context(plan, mesh)
             psh, self.shard_warnings = PL.param_shardings(
                 plan, mesh, params, model.param_axes())

@@ -31,11 +31,6 @@ from ..models import base as B
 TP_AXES = {B.HEADS, B.KV_HEADS, B.D_FF, B.VOCAB, B.D_INNER, B.CONV_DIM,
            B.D_EXPERT}
 
-#: what the rest of the parallelism item brings (the hybrid, Whisper and
-#: LLaVA under a mesh), after the GPipe schedule, expert parallelism,
-#: sharded serving, post-training under a plan and MLA under a mesh
-A8B = "ROADMAP A8b (the hybrid, Whisper and LLaVA under a mesh)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:

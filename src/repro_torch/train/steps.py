@@ -28,6 +28,8 @@ def compute_loss(model, params, batch, mesh_ctx=None, storage_axes=(),
     else:
         logits, aux = model.apply(params, batch, mesh_ctx, storage_axes)
     if model.cfg.n_patches:
+        # the patches' rows off the sequence dim, which no plan splits in
+        # a training batch (its batch dim lies over the dp axes)
         logits = logits[:, model.cfg.n_patches:]
     loss = sharded_cross_entropy(logits, batch["labels"],
                                  batch.get("loss_mask"))
@@ -110,8 +112,6 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
     """
 
     trainable = getattr(optimizer, "trainable", None)
-    if mesh_ctx is not None:
-        refuse_mesh_model(model)
 
     def loss_fn(params, batch):
         return compute_loss(model, params, batch, mesh_ctx, storage_axes)
@@ -158,21 +158,6 @@ def laid_out(mesh_ctx, grads, params, metrics):
                      grads, params)
     return grads, {k: v.full_tensor() if is_dtensor(v) else v
                    for k, v in metrics.items()}
-
-
-def refuse_mesh_model(model) -> None:
-    """Raise naming ROADMAP A8b for a model a mesh does not run yet: one
-    that is not a ``DecoderLM`` or a ``LoRAModel`` over one, or an arch
-    ``refuse_mesh`` names."""
-    from ..models.transformer import DecoderLM, refuse_mesh
-    from ..posttrain.lora import LoRAModel
-    from ..sharding.plans import A8B
-
-    base = model.base if isinstance(model, LoRAModel) else model
-    if not isinstance(base, DecoderLM):
-        raise NotImplementedError(
-            f"{type(base).__name__} under a mesh comes with {A8B}")
-    refuse_mesh(base.cfg)
 
 
 def opt_state_shardings(opt_shapes, pspecs, rep):

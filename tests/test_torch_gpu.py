@@ -1050,3 +1050,49 @@ def test_card_step_counts_what_its_dryrun_counts(cuda, arch):
     assert mem["mem_argument_size_in_bytes"] == \
         dry["mem_argument_size_in_bytes"]
     assert torch.isfinite(out[1]["loss"])
+
+
+def test_hybrid_fsdp_tp_step_through_both_kernels_equals_the_no_mesh_step(
+        cuda):
+    """One ``fsdp_tp`` train step of reduced-depth Zamba2 (2 Mamba2 layers,
+    each followed by a use of the shared block) through ``flash_fwd`` and
+    ``ssd_scan`` on a ``(1, 1)`` mesh over a one-rank NCCL group: each
+    kernel launches once a use or a Mamba2 layer, forward and remat
+    recompute, on the local blocks, and the loss and every updated param
+    ``==`` the step with no mesh."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding import plans as PL
+    from repro_torch.train import steps as ST
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(get_reduced("zamba2_2p7b").with_(
+        use_flash_kernel=True))
+    opt = AdamW(lr=1e-3)
+    state = ST.init_train_state(
+        model, opt, torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(3, model.cfg.vocab, (4, 128), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    plain = tree_map(torch.clone, state)
+    _, want = ST.make_train_step(model, opt)(plain, batch)
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cuda")
+        plan = PL.make_plan("fsdp_tp")
+        sh, _ = PL.train_state_shardings(plan, mesh, model, opt)
+        sharded = PL.distribute(state, sh)
+        step = ST.make_train_step(model, opt, PL.mesh_context(plan, mesh))
+        before = (ops.launches, ssd_ops.launches)
+        _, got = step(sharded, PL.distribute(
+            batch, PL.batch_shardings(plan, mesh, batch)))
+        assert (ops.launches - before[0], ssd_ops.launches - before[1]) == \
+            (2 * 2, 2 * 2)
+        assert torch.equal(got["loss"], want["loss"])
+        for a, b in zip(tree_leaves(sharded["params"]),
+                        tree_leaves(plain["params"])):
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        MESH.shutdown()

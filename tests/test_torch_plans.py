@@ -16,9 +16,9 @@
   post-training under a plan build: a pipe axis of the plan's extent
   gives JAX's pipelined context, an ep plan's train step, the MoE and MLA
   under a mesh, the engine under ``serve_ep``, LoRA's train step, its
-  engine and ``load_adapter(shardings=)`` build.  The parts of
-  parallelism that come with the rest of ROADMAP A8b (the hybrid, Whisper
-  and LLaVA under a mesh) raise naming it.
+  engine and ``load_adapter(shardings=)`` build, and since the rest of
+  ROADMAP A8b the hybrid's, Whisper's and LLaVA's steps and a LoRA
+  model's over Whisper (they raised naming A8b before).
 """
 import functools
 
@@ -304,12 +304,59 @@ def test_mesh_providers_are_lazy_and_never_shrink():
 
 
 # ---------------------------------------------------------------------------
-# the GPipe schedule and expert parallelism, and what comes with the rest
-# of ROADMAP A8b
+# the GPipe schedule, expert parallelism and the rest of ROADMAP A8b: every
+# model the port builds runs under a mesh
 # ---------------------------------------------------------------------------
 def _fake_ctx(**kw):
     return B.MeshContext(mesh=_FakeMesh({"data": 2, "model": 2}),
                          dp_axes=("data",), **kw)
+
+
+def _batch_for(cfg, B_=2, S=16):
+    """Seeded tokens and labels, with the encoder's frames or the patch
+    prefix where the arch reads them."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    toks = rng.integers(3, cfg.vocab, (B_, S))
+    out = {"tokens": toks.astype(np.int32),
+           "labels": np.roll(toks, -1, 1).astype(np.int32)}
+    if cfg.arch_type == "audio":
+        out["frames"] = rng.standard_normal(
+            (B_, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        out["patch_embeds"] = rng.standard_normal(
+            (B_, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.as_tensor(v) for k, v in out.items()}
+
+
+def _step_losses(model, opt, plan_name):
+    """One train step's loss from the seed-0 init with no mesh, then under
+    ``plan_name`` on a one-rank ``(1, 1)`` mesh (a gloo group of one, as
+    the card runs a plan; taken down after), with its params laid out by
+    the plan.  At world size 1 every op runs on whole blocks, so the two
+    losses are ``==``."""
+    from repro_torch.train import steps as ST
+
+    batch = _batch_for(model.cfg)
+    losses = []
+    try:
+        mesh = MESH.make_local_mesh(1, 1, device_type="cpu")
+        for plan in (None, PL.make_plan(plan_name)):
+            state = ST.init_train_state(model, opt,
+                                        torch.Generator().manual_seed(0))
+            b, ctx = batch, None
+            if plan is not None:
+                sh, _ = PL.train_state_shardings(plan, mesh, model, opt)
+                state = PL.distribute(state, sh)
+                b = PL.distribute(batch, PL.batch_shardings(plan, mesh,
+                                                            batch))
+                ctx = PL.mesh_context(plan, mesh)
+            _, m = ST.make_train_step(model, opt, ctx)(state, b)
+            losses.append(float(m["loss"]))
+    finally:
+        MESH.shutdown()
+    return losses
 
 
 def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
@@ -320,8 +367,12 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
     through expert parallelism.  LoRA under a plan builds too
     (``tests/test_torch_lora_mesh.py``): its train step, its engine (the
     adapters DTensors beside the base) and ``load_adapter(shardings=)``
-    (the adapter a DTensor with the given placements).  A model that is
-    not a decoder, nor a LoRA model over one, still raises naming A8b."""
+    (the adapter a DTensor with the given placements).  A LoRA model over
+    Whisper's encoder-decoder builds its step too (JAX's LoRA is
+    model-agnostic; Whisper under a plan: ``tests/test_torch_mm_mesh.py``):
+    its step under ``fsdp_tp`` on a one-rank mesh gives the no-mesh step's
+    loss, where it raised naming A8b before the hybrid, Whisper and LLaVA
+    ran under a mesh."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.ckpt import write_checkpoint
@@ -342,9 +393,9 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
     assert callable(ST.make_train_step(lora, frozen, _fake_ctx()))
     whisper = build_model(get_reduced("whisper_tiny"))
     assert isinstance(whisper, EncDecLM)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        ST.make_train_step(LO.LoRAModel(whisper, LO.LoRAConfig()), frozen,
-                           _fake_ctx())
+    plain, laid = _step_losses(LO.LoRAModel(whisper, LO.LoRAConfig()),
+                               frozen, "fsdp_tp")
+    assert plain == laid and plain > 0
     moe = build_model(get_reduced("deepseek_moe_16b"))
     plan = PL.make_plan("serve_ep")
     try:
@@ -377,20 +428,16 @@ def test_ep_and_lora_training_and_sharded_serving_name_a8b(tmp_path):
                                   "llava_next_34b"])
 def test_non_dense_archs_under_a_mesh_name_a8b(arch):
     """The MoE and MLA (DeepSeek-V3, its MTP head too) train under a mesh
-    (their steps build: ``tests/test_torch_mla_mesh.py``); the hybrid,
-    Whisper and LLaVA still raise naming A8b."""
+    (``tests/test_torch_mla_mesh.py``), and since the last part of ROADMAP
+    A8b so do the hybrid, Whisper and LLaVA, which raised naming A8b
+    before (``tests/test_torch_hybrid_mesh.py``,
+    ``tests/test_torch_mm_mesh.py``): one step of each under ``fsdp_tp``
+    on a one-rank mesh gives the no-mesh step's loss."""
     from repro_torch.optim.adamw import AdamW
-    from repro_torch.train import steps as ST
 
-    def build():
-        return ST.make_train_step(build_model(get_reduced(arch)), AdamW(),
-                                  _fake_ctx(tp_axis="model"))
-
-    if arch in ("deepseek_moe_16b", "deepseek_v3_671b"):
-        assert callable(build())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        build()
+    plain, laid = _step_losses(build_model(get_reduced(arch)),
+                               AdamW(lr=1e-3), "fsdp_tp")
+    assert plain == laid and plain > 0
 
 
 def test_pipe_axis_training_names_a8b():
