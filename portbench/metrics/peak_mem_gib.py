@@ -1,0 +1,6 @@
+"""The card's peak allocated memory over the run
+(``torch.cuda.max_memory_allocated``, reset at its start), in GiB."""
+
+
+def read(run):
+    return run["peak_bytes"] / 2 ** 30 if run["peak_bytes"] else None
