@@ -3191,11 +3191,11 @@ def _mesh_doc(data_dir, key, spec, plan):
     return train_doc(data_dir, f"mesh_{key}", *sets)
 
 
-def _mesh_run(data_dir, key, spec, plan):
+def _mesh_run(data_dir, key, spec, plan, telemetry=None):
     """One full-width run of ``spec['steps']`` on the card through the gym
-    the document resolves to, with the launch counters set to 0 just before
-    it; returns (gym, run output, launches, peak GiB, median ms/step,
-    ms/step)."""
+    the document resolves to (recording into ``telemetry`` when given),
+    with the launch counters set to 0 just before it; returns (gym, run
+    output, launches, peak GiB, median ms/step, ms/step)."""
     import statistics
 
     import torch
@@ -3203,6 +3203,7 @@ def _mesh_run(data_dir, key, spec, plan):
     graph = _train_graph(_mesh_doc(data_dir, key, spec, plan))
     gym = graph["gym"]
     gym.device = "cuda"
+    gym.telemetry = telemetry
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3219,6 +3220,34 @@ def _mesh_run(data_dir, key, spec, plan):
 
 def _mesh_shape(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+MESH_PHASES = ("forward", "backward", "exchange", "optimizer")
+
+
+def _mesh_phases(rows, steps: int):
+    """The train step's phases in a recorded run under a mesh: each
+    ``gym/step`` holds ``step/forward``, ``step/backward``,
+    ``step/exchange`` and ``step/optimizer`` in that order, and each has
+    its ``device/*`` row; returns (ok, the device ms of each phase, a mean
+    over the steps)."""
+    spans = [r for r in rows if r["type"] == "span"]
+    ok = True
+    for st in (r for r in spans if r["name"] == "gym/step"):
+        kids = sorted((r for r in spans if r["parent_id"] == st["span_id"]),
+                      key=lambda r: r["t0_s"])
+        ok &= [r["name"] for r in kids] == [f"step/{p}" for p in MESH_PHASES]
+    ms = {}
+    for p in MESH_PHASES:
+        dev = [r for r in spans if r["name"] == f"device/{p}"]
+        ok &= len(dev) == steps
+        ms[p] = sum(1e3 * (r["t1_s"] - r["t0_s"]) for r in dev) / max(
+            len(dev), 1)
+    return bool(ok), ms
+
+
+def _rounded(ms: dict) -> dict:
+    return {k: round(v, 3) for k, v in ms.items()}
 
 
 def _flat(tree, prefix=""):
@@ -3247,7 +3276,10 @@ def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
     no mesh: every param and moment leaf a DTensor with the plan's
     placements, the kernel's launches a step, losses and final params
     against the no-mesh run (bit equality required, ``MESH_TOL``; the
-    largest differences printed), ms/step and peak memory.
+    largest differences printed), ms/step and peak memory.  The runs
+    under a plan record telemetry: each step's phases (forward, backward,
+    the exchange, the optimizer) in order, each with its ``device/*`` row,
+    whose ms a step are printed.
     Then a checkpoint of the ``fsdp_tp`` Qwen state restores under ``ddp``
     and with no mesh, equal to the saved params, its manifest's specs the
     plan's (JAX's ``spec_to_json`` strings).  The group is destroyed at
@@ -3259,6 +3291,7 @@ def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
 
     from repro_torch.launch import mesh as MESH
     from repro_torch.sharding import plans as PL
+    from repro_torch.telemetry import TelemetryRecorder
 
     ok = True
     try:
@@ -3284,8 +3317,13 @@ def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
             del gym, out
             _free()
             for plan in spec["plans"]:
+                # spans on under the plan, off in the no-mesh run: the
+                # bit equality also holds the phases' marks to no change
+                rec = TelemetryRecorder(run=f"mesh_{key}_{plan}",
+                                        kind="train")
                 gym, out, counts, peak, pmed, ms = _mesh_run(
-                    data_dir, key, spec, plan)
+                    data_dir, key, spec, plan, telemetry=rec)
+                phases_ok, phase_ms = _mesh_phases(rec.rows, steps)
                 state = out["state"]
                 losses = [h["loss"] for h in out["history"]]
                 # every param and moment leaf laid out as the plan says
@@ -3308,7 +3346,7 @@ def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
                     dparam = max(dparam, float(
                         (full.float() - base[k].float()).abs().max()))
                 plan_ok = (layout_ok and counts == want
-                           and bit_loss and bit_param)
+                           and bit_loss and bit_param and phases_ok)
                 print(f"mesh {key} {plan}: {PL.make_plan(plan).describe()} "
                       f"on mesh {_mesh_shape(gym._mesh)} "
                       f"({torch.distributed.get_backend()}, "
@@ -3325,7 +3363,9 @@ def phase_mesh(data_dir: str, results: dict, card: str) -> bool:
                       f"median {pmed:.3f} (no mesh {med:.3f}, x"
                       f"{pmed / med:.3f}); peak {peak:.3f} GiB (no mesh "
                       f"{base_peak:.3f}); shard warnings "
-                      f"{len(gym.shard_warnings)} [{card}]: "
+                      f"{len(gym.shard_warnings)}; phases in order with "
+                      f"their device rows {phases_ok}, device ms a step "
+                      f"{json.dumps(_rounded(phase_ms))} [{card}]: "
                       f"{'ok' if plan_ok else 'FAILED'}", flush=True)
                 add_launches(results, counts)
                 run_ok &= plan_ok

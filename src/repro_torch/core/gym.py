@@ -21,6 +21,14 @@ schedules deterministic failures through the same paths the real ones
 take.  A ``profiler`` (:class:`repro_torch.telemetry.ProfilerHook`) traces
 a window of steps.
 
+With a ``telemetry`` recorder that records spans, ``run`` writes
+``gym/run_enter`` (from its entry to the first data wait),
+``gym/data_wait``, ``gym/step`` (holding the step's phases,
+:mod:`repro_torch.telemetry.phases`: ``step/*`` on the host and, on a
+card, ``device/*`` timed by events), ``gym/flush``, ``gym/ckpt`` and
+``gym/run_exit`` (from the end of its steps' issue to its last read of the
+step counter).
+
 With a ``mesh`` (a ``DeviceMesh``, or a mesh provider the gym builds on its
 device's type) and a sharding ``plan``, the train state is laid out by
 ``plans.train_state_shardings`` (params, moments and the counters as
@@ -32,6 +40,7 @@ says.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -45,8 +54,12 @@ from ..data.prefetch import PrefetchLoader, place_batch
 from ..device import resolve_device
 from ..launch.mesh import process_rank
 from ..sharding import plans as PL
+from ..telemetry import phases as PH
 from ..train import checkpoint as CK
 from ..train import steps as ST
+
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -249,7 +262,14 @@ class Gym:
         run."""
         if state is None:
             state = self.setup()
+        tel = self.telemetry
+        do_spans = tel is not None and tel.spans
+        t_enter = time.perf_counter()
         start = int(state["step"])
+        # the card is idle after that read: the phases' anchor goes here
+        phases = PH.StepPhases(tel, PH.cuda_events(self._device)) \
+            if do_spans else None
+        t_exit = None   # where the last segment's loop over steps ended
         target = start + steps
         history: List[Dict[str, Any]] = []
         events: List[Dict[str, Any]] = []
@@ -258,8 +278,6 @@ class Gym:
         dispatched = 0   # every step the loop issued, replays included
         data_offset = 0  # grows when skip_window drops anomalous batches
         t_run0 = time.perf_counter()
-        tel = self.telemetry
-        do_spans = tel is not None and tel.spans
         inj = self.fault_injector
         guard = self.preempt_guard
         if guard is None and inj is not None and inj.pending("preempt"):
@@ -272,6 +290,7 @@ class Gym:
         ckpt = self._ckpt()
         rank0 = process_rank() == 0
         try:
+            PH.set_current(phases)
             while True:
                 current = int(state["step"])
                 if target - current <= 0:
@@ -311,6 +330,9 @@ class Gym:
                         if self.logger and rank0:
                             self.logger(m)
                     if do_spans:
+                        # the copy waited for the card: the phases' events
+                        # are read here
+                        phases.flush()
                         tel.span_row("gym/flush", t_f0, time.perf_counter(),
                                      step=last_step)
 
@@ -324,26 +346,32 @@ class Gym:
                         # manual next() so the host-side wait for data is
                         # its own span, apart from the step's dispatch
                         t_wait0 = time.perf_counter()
+                        if do_spans and t_enter is not None:
+                            # the run's entry ends at its first data wait
+                            tel.span_row("gym/run_enter", t_enter, t_wait0,
+                                         step=step + 1)
+                            t_enter = None
                         try:
                             batch = next(it)
                         except StopIteration:
                             break
                         t_wait1 = time.perf_counter()
                         step += 1
-                        if self.profiler is not None:
-                            self.profiler.step_begin(step)
-                        if inj is not None and \
-                                inj.fire("nan_params", step) is not None:
-                            state = inj.corrupt_params(state)
-                        # a loader that does not prefetch yields host numpy
-                        state, metrics = self._step(state, batch)
-                        dispatched += 1
                         if do_spans:
-                            t_disp = time.perf_counter()
                             tel.span_row("gym/data_wait", t_wait0, t_wait1,
                                          step=step)
-                            tel.span_row("gym/step", t_wait1, t_disp,
-                                         step=step)
+                            phases.step = step
+                        with tel.span("gym/step", step=step) if do_spans \
+                                else _NO_SPAN:
+                            if self.profiler is not None:
+                                self.profiler.step_begin(step)
+                            if inj is not None and \
+                                    inj.fire("nan_params", step) is not None:
+                                state = inj.corrupt_params(state)
+                            # a loader that does not prefetch yields host
+                            # numpy
+                            state, metrics = self._step(state, batch)
+                        dispatched += 1
                         if self.log_every and (step % self.log_every == 0
                                                or step == start + 1):
                             # fetch the PREVIOUS window now (long since
@@ -380,6 +408,7 @@ class Gym:
                         if guard is not None and guard.requested:
                             stop_step = step
                             break
+                    t_exit = time.perf_counter()
                     flush()
                 except _Rollback as rb:
                     # the loop lets go of the corrupted tensors before the
@@ -409,6 +438,7 @@ class Gym:
                     guard.clear()
                 break
         finally:
+            PH.set_current(None)
             if self.profiler is not None:
                 self.profiler.close()
             if ckpt is not None:
@@ -416,6 +446,10 @@ class Gym:
                 # thread must not outlive the run, even when the loop raised
                 ckpt.close()
         final_step = int(state["step"])
+        if do_spans and t_exit is not None:
+            phases.flush()
+            tel.span_row("gym/run_exit", t_exit, time.perf_counter(),
+                         step=final_step)
         return {"state": state, "history": history, "events": events,
                 "rollbacks": rollbacks, "preempted": preempted,
                 "steps_dispatched": dispatched,

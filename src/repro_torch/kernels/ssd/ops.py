@@ -20,7 +20,9 @@ Differentiable on every device: ``ssd_scan`` always goes through
 plain version on the CPU) and whose backward recomputes the gradients of x,
 dt, A, Bm, Cm and D through ``ssd_chunked``, as JAX's ``custom_vjp`` does
 (``repro.kernels.ssd.ops._bwd``).  ``h_final`` is marked
-non-differentiable: JAX's ``ssd`` returns y only.
+non-differentiable: JAX's ``ssd`` returns y only.  Inside a train step's
+marked backward, each backward call is the phase ``step/ssd_backward``
+(``telemetry.phases``).
 
 The forward is the custom op ``repro_torch::ssd_scan``: the kernel for CUDA
 tensors, ``ssd_chunked`` for CPU tensors, and for ``meta`` (and fake)
@@ -38,6 +40,7 @@ from typing import Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from ...telemetry import phases as PH
 from ..build import load, refuse_dtensor
 from .ref import ssd_chunked
 
@@ -138,7 +141,7 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, _gh):
-        with torch.enable_grad():
+        with PH.mark("step/ssd_backward", nested=True), torch.enable_grad():
             ins = [t.detach().requires_grad_(need) for t, need in
                    zip(ctx.saved_tensors, ctx.needs_input_grad)]
             y, _ = ssd_chunked(*ins, chunk=ctx.chunk)

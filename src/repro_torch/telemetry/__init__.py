@@ -1,5 +1,6 @@
 """Unified telemetry of the port (``repro.telemetry`` counterpart): typed
 metric/span/event rows through one recorder into one sink per run, the
+phases of a train step on the host and the card (:mod:`.phases`), the
 ``torch.profiler`` window (``telemetry.profile``, :class:`ProfilerHook`)
 and the ``mfu``/``goodput`` accounting (:mod:`.accounting`)."""
 from __future__ import annotations
@@ -10,13 +11,13 @@ from typing import Any, Optional
 from .events import SCHEMA_VERSION, SchemaError, validate_row, validate_rows
 from .profiler import ProfilerHook
 from .recorder import TelemetryRecorder
-from .sinks import (CallbackSink, CsvSink, JsonlSink, ListSink, MultiSink,
-                    StdoutSink, TelemetrySink, read_csv, read_jsonl)
+from .sinks import (CsvSink, JsonlSink, ListSink, MultiSink, StdoutSink,
+                    TelemetrySink, read_csv, read_jsonl)
 
 __all__ = [
     "SCHEMA_VERSION", "SchemaError", "validate_row", "validate_rows",
     "TelemetryRecorder", "TelemetrySink", "JsonlSink", "CsvSink",
-    "StdoutSink", "MultiSink", "ListSink", "CallbackSink", "read_jsonl",
+    "StdoutSink", "MultiSink", "ListSink", "read_jsonl",
     "read_csv", "build_recorder", "build_sink", "ProfilerHook",
 ]
 

@@ -3,8 +3,7 @@
 A sink is anything with ``write(row)`` and ``close()``.  Sinks are
 registry components (``sink/jsonl``, ``sink/csv``, ``sink/stdout``,
 ``sink/multi``, ``sink/memory``) so a run document picks one
-declaratively; :class:`CallbackSink` adapts the gym's legacy ``logger``
-callable (a ``tracker`` component) into the unified pipeline.
+declaratively.
 
 The CSV sink flattens every row into one fixed-width table — nested
 ``data``/``attrs`` payloads are JSON-encoded in their column, so a row
@@ -134,23 +133,6 @@ class MultiSink(TelemetrySink):
     def close(self) -> None:
         for s in self.sinks:
             s.close()
-
-
-class CallbackSink(TelemetrySink):
-    """Adapt a legacy metrics callable (``tracker`` component / gym
-    ``logger``) into a sink.  Only ``metric`` rows are forwarded, in the
-    flat ``{step, **data}`` shape trackers always received."""
-
-    def __init__(self, fn) -> None:
-        self.fn = fn
-
-    def write(self, row: Dict[str, Any]) -> None:
-        if row.get("type") != "metric":
-            return
-        flat = dict(row.get("data") or {})
-        if row.get("step") is not None:
-            flat["step"] = row["step"]
-        self.fn(flat)
 
 
 # ---------------------------------------------------------------------------

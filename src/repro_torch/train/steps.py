@@ -13,6 +13,7 @@ import torch
 
 from ..models.base import is_dtensor
 from ..models.common import sharded_cross_entropy
+from ..telemetry import phases as PH
 from ..tree import tree_leaves, tree_map, tree_select, tree_unflatten
 
 
@@ -61,15 +62,19 @@ def value_and_grad(loss_fn, params, *args, trainable=None):
     aux tensors detached.  Gradients come from ``torch.autograd.grad`` over
     the param leaves; with a ``trainable`` path predicate over those only
     (the others take no gradient, and ``grads`` holds the trainable subtree
-    alone — what ``FrozenBaseOptimizer`` updates)."""
+    alone — what ``FrozenBaseOptimizer`` updates).  The loss and the
+    gradients are the ``step/forward`` and ``step/backward`` phases
+    (``telemetry.phases``)."""
     leaves = [p.detach() for p in tree_leaves(params)]
     tree = tree_unflatten(params, leaves)
     wrt = tree if trainable is None else tree_select(tree, trainable)
     for leaf in tree_leaves(wrt):
         leaf.requires_grad_(True)
-    total, aux = loss_fn(tree, *args)
-    grads = torch.autograd.grad(total, tree_leaves(wrt), allow_unused=True,
-                                materialize_grads=True)
+    with PH.mark("step/forward"):
+        total, aux = loss_fn(tree, *args)
+    with PH.mark("step/backward"):
+        grads = torch.autograd.grad(total, tree_leaves(wrt),
+                                    allow_unused=True, materialize_grads=True)
     return ({k: v.detach() for k, v in aux.items()},
             tree_unflatten(wrt, grads))
 
@@ -109,6 +114,12 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
     under a plan the same way: the merge runs on each rank's blocks
     (``posttrain.lora``) and the gradients of the trainable leaves alone
     are laid out like their params.
+
+    The step opens its phases through ``telemetry.phases.mark``:
+    ``step/forward`` and ``step/backward`` for each microbatch,
+    ``step/exchange`` under a mesh and ``step/optimizer``; they record
+    nothing outside a ``Gym.run`` that records spans.  Under the GPipe
+    schedule the forward and backward phases hold the whole schedule.
     """
 
     trainable = getattr(optimizer, "trainable", None)
@@ -135,8 +146,9 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
             metrics, grads = value_and_grad(loss_fn, state["params"], batch,
                                             trainable=trainable)
         grads, metrics = laid_out(mesh_ctx, grads, state["params"], metrics)
-        new_params, new_opt = optimizer.update(grads, state["opt"],
-                                               state["params"])
+        with PH.mark("step/optimizer"):
+            new_params, new_opt = optimizer.update(grads, state["opt"],
+                                                   state["params"])
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         metrics = dict(metrics)
@@ -151,13 +163,16 @@ def make_train_step(model, optimizer, mesh_ctx=None, storage_axes=(),
 def laid_out(mesh_ctx, grads, params, metrics):
     """Under a mesh: each gradient laid out like its param (the
     data-parallel all-reduce or the FSDP reduce-scatter) and the metrics
-    plain replicated tensors; with no mesh, both as they are."""
+    plain replicated tensors; with no mesh, both as they are.  Under a
+    mesh this is the ``step/exchange`` phase (``telemetry.phases``)."""
     if mesh_ctx is None or mesh_ctx.mesh is None:
         return grads, metrics
-    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
-                     grads, params)
-    return grads, {k: v.full_tensor() if is_dtensor(v) else v
-                   for k, v in metrics.items()}
+    with PH.mark("step/exchange"):
+        grads = tree_map(
+            lambda g, p: g.redistribute(p.device_mesh, p.placements),
+            grads, params)
+        return grads, {k: v.full_tensor() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
 
 
 def opt_state_shardings(opt_shapes, pspecs, rep):

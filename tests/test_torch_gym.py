@@ -41,6 +41,7 @@ from repro_torch.run.cli import main as cli_main
 from repro_torch.run.config import parse_run_doc
 from repro_torch.run.overrides import apply_overrides, parse_overrides
 from repro_torch.telemetry import TelemetryRecorder, validate_rows
+from repro_torch.tree import tree_leaves
 
 QUICKSTART = os.path.join(os.path.dirname(__file__), "..", "examples",
                           "configs", "quickstart.yaml")
@@ -219,6 +220,94 @@ def test_gym_flushes_once_per_window_one_window_late(loader):
     assert int(out["state"]["step"]) == 9
 
 
+def _mamba2_gym(loader, **kw):
+    return Gym(model=build_model(get_reduced("mamba2_780m")),
+               optimizer=AdamW(lr=1e-3), loader=loader, log_every=2,
+               prefetch=2, device="cpu", **kw)
+
+
+def test_gym_marks_the_phases_of_each_step(loader):
+    """3 steps of reduced Mamba2 with a recorder: each ``gym/step`` holds
+    one ``step/forward``, ``step/backward`` and ``step/optimizer``, in that
+    order, disjoint and inside it, and each backward one
+    ``step/ssd_backward`` per layer; the run's entry and exit are spans;
+    on the CPU no ``device/*`` row."""
+    rec = TelemetryRecorder(run="t", kind="train")
+    gym = _mamba2_gym(loader, telemetry=rec)
+    gym.run(3, state=gym.setup())
+    assert validate_rows(rec.rows) == len(rec.rows)
+    spans = [r for r in rec.rows if r["type"] == "span"]
+    assert not [r for r in spans if r["name"].startswith("device/")]
+    by_id = {r["span_id"]: r for r in spans}
+    steps = [r for r in spans if r["name"] == "gym/step"]
+    assert [r["step"] for r in steps] == [1, 2, 3]
+    n_layers = gym.model.cfg.n_layers
+    for st in steps:
+        kids = sorted((r for r in spans if r["parent_id"] == st["span_id"]),
+                      key=lambda r: r["t0_s"])
+        assert [r["name"] for r in kids] == ["step/forward", "step/backward",
+                                             "step/optimizer"]
+        assert all(r["step"] == st["step"] and r["depth"] == 1 for r in kids)
+        assert st["t0_s"] <= kids[0]["t0_s"] and kids[-1]["t1_s"] <= st["t1_s"]
+        for a, b in zip(kids, kids[1:]):
+            assert a["t0_s"] <= a["t1_s"] <= b["t0_s"] <= b["t1_s"]
+        bwd = kids[1]
+        ssd = [r for r in spans if r["name"] == "step/ssd_backward"
+               and r["step"] == st["step"]]
+        assert len(ssd) == n_layers
+        for r in ssd:
+            assert by_id[r["parent_id"]] is bwd and r["depth"] == 2
+            assert bwd["t0_s"] <= r["t0_s"] <= r["t1_s"] <= bwd["t1_s"]
+    enter, = [r for r in spans if r["name"] == "gym/run_enter"]
+    leave, = [r for r in spans if r["name"] == "gym/run_exit"]
+    assert enter["t1_s"] <= steps[0]["t0_s"] and steps[-1]["t1_s"] <= \
+        leave["t0_s"] and (enter["step"], leave["step"]) == (1, 3)
+
+
+def test_gym_marks_the_exchange_under_a_mesh(loader):
+    """Under ``ddp`` on a one-rank gloo mesh each ``gym/step`` holds one
+    ``step/exchange`` (``laid_out``'s redistribution), between its
+    backward and its optimizer; on the CPU still no ``device/*`` row."""
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.sharding import plans as PL
+
+    mesh = MESH.make_local_mesh(1, 1, device_type="cpu")
+    try:
+        rec = TelemetryRecorder(run="t", kind="train")
+        gym = _mamba2_gym(loader, telemetry=rec, mesh=mesh,
+                          plan=PL.make_plan("ddp"))
+        gym.run(2, state=gym.setup())
+    finally:
+        MESH.shutdown()
+    assert validate_rows(rec.rows) == len(rec.rows)
+    spans = [r for r in rec.rows if r["type"] == "span"]
+    assert not [r for r in spans if r["name"].startswith("device/")]
+    steps = [r for r in spans if r["name"] == "gym/step"]
+    assert [r["step"] for r in steps] == [1, 2]
+    for st in steps:
+        kids = sorted((r for r in spans if r["parent_id"] == st["span_id"]),
+                      key=lambda r: r["t0_s"])
+        assert [r["name"] for r in kids] == [
+            "step/forward", "step/backward", "step/exchange",
+            "step/optimizer"]
+        for a, b in zip(kids, kids[1:]):
+            assert a["t0_s"] <= a["t1_s"] <= b["t0_s"] <= b["t1_s"]
+
+
+def test_gym_phases_leave_the_steps_bit_equal(loader):
+    """Losses and params after 3 steps with the phases recorded ``==``
+    those with no recorder."""
+    outs = []
+    for rec in (TelemetryRecorder(run="t", kind="train"), None):
+        gym = _mamba2_gym(loader, telemetry=rec)
+        outs.append(gym.run(3, state=gym.setup()))
+    on, off = outs
+    assert [h["loss"] for h in on["history"]] == \
+        [h["loss"] for h in off["history"]]
+    a, b = (tree_leaves(o["state"]["params"]) for o in outs)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_perplexity_evaluator_matches_jax(tmp_path):
     PD.synthetic_dataset(20000, 512, str(tmp_path / "e"), seed=2)
     jds = JD.ChunkedLMDataset(JD.PackedDataset(str(tmp_path / "e")), 32)
@@ -258,8 +347,11 @@ def test_cli_trains_the_quickstart_on_the_cpu(tmp_path, capsys):
     from repro_torch.telemetry import read_jsonl
 
     rows = read_jsonl(str(tmp_path / "out" / "telemetry.jsonl"))
+    # the gym's spans and the phases of the (attention) step; on the CPU
+    # no device/* row
     assert {r["name"] for r in rows if r["type"] == "span"} == \
-        {"gym/data_wait", "gym/step", "gym/flush"}
+        {"gym/run_enter", "gym/data_wait", "gym/step", "gym/flush",
+         "gym/run_exit", "step/forward", "step/backward", "step/optimizer"}
 
 
 def test_train_without_device_needs_a_card(tmp_path):

@@ -10,6 +10,8 @@ the same error messages as JAX's and the same materialized document.
 import dataclasses
 import json
 import os
+import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -44,6 +46,7 @@ from repro_torch.run.fingerprint import materialize
 from repro_torch.run.overrides import apply_overrides, parse_overrides
 from repro_torch.telemetry import ListSink, ProfilerHook, TelemetryRecorder
 from repro_torch.telemetry import accounting as ACC
+from repro_torch.telemetry import phases as PH
 from repro_torch.telemetry import read_jsonl, validate_rows
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -194,6 +197,153 @@ def test_goodput_below_one_under_an_injected_rollback(tmp_path):
     with open(tmp_path / "rb" / "events.jsonl") as f:
         assert [json.loads(line)["kind"] for line in f] == ["fault",
                                                             "anomaly"]
+
+
+# ---------------------------------------------------------------------------
+# the phases of a train step (telemetry.phases)
+# ---------------------------------------------------------------------------
+class _FakeCard:
+    """Timing events on a card whose clock the test sets (seconds):
+    an event takes ``now`` when recorded and has completed once the card
+    has ``reached`` that time."""
+
+    def __init__(self):
+        self.now, self.reached = 100.0, float("inf")
+
+    def event(self):
+        card = self
+
+        class Event:
+            def record(self):
+                self.t = card.now
+
+            def query(self):
+                return self.t <= card.reached
+
+            def elapsed_time(self, other):
+                return 1e3 * (other.t - self.t)
+
+        return Event()
+
+
+def test_step_phases_put_the_cards_times_on_the_host_clock():
+    """A step's phases with fake timing events: the anchor (recorded on an
+    idle card as the phases are built) is its host time, so a device row
+    lies at that time plus the events' elapsed time; marks made on another
+    thread (autograd's device thread) and device rows are written at the
+    flush alone, from the loop's thread, and only for events that have
+    completed; ``device/ssd_backward`` is parented by its
+    ``device/backward``."""
+    card = _FakeCard()
+    sink, writers = ListSink(), set()
+    write = sink.write
+    sink.write = lambda row: (writers.add(threading.get_ident()), write(row))
+    rec = TelemetryRecorder(sink, run="r", kind="train")
+    h0 = time.perf_counter()
+    phases = PH.StepPhases(rec, card.event)
+    h1 = time.perf_counter()
+
+    def ssd(t0, t1):
+        card.now = t0
+        with PH.mark("step/ssd_backward", nested=True):
+            card.now = t1
+
+    def spans():
+        return {r["name"]: r for r in rec.rows if r["type"] == "span"}
+
+    PH.set_current(phases)
+    try:
+        with PH.mark("step/ssd_backward", nested=True):
+            pass    # inside no phase: nothing
+        phases.step = 7
+        with rec.span("gym/step", step=7):
+            card.now = 100.5
+            with PH.mark("step/forward"):
+                card.now = 101.0
+            with PH.mark("step/backward"):
+                for t in ((101.25, 101.5), (102.0, 102.25)):
+                    th = threading.Thread(target=ssd, args=t)
+                    th.start()
+                    th.join()
+                card.now = 103.0
+            with PH.mark("step/optimizer"):
+                card.now = 103.5
+        assert set(spans()) == {"gym/step", "step/forward", "step/backward",
+                                "step/optimizer"}
+        card.reached = 102.9        # the backward's last event has not run
+        phases.flush()
+        assert {n for n in spans() if n.startswith("device/")} == \
+            {"device/forward"}
+        card.reached = float("inf")
+        phases.flush()
+    finally:
+        PH.set_current(None)
+    assert writers == {threading.get_ident()}
+    assert validate_rows(rec.rows) == len(rec.rows)
+    rows = [r for r in rec.rows if r["type"] == "span"]
+    by_id = {r["span_id"]: r for r in rows}
+    host = {r["name"]: r for r in rows if r["name"].startswith("step/")}
+    ssd_host = [r for r in rows if r["name"] == "step/ssd_backward"]
+    assert len(ssd_host) == 2 and all(
+        by_id[r["parent_id"]] is host["step/backward"] and r["depth"] == 2
+        for r in ssd_host)
+    dev = {}
+    for r in rows:
+        if r["name"].startswith("device/"):
+            dev.setdefault(r["name"], []).append(r)
+    want = {"device/forward": [(0.5, 1.0)],
+            "device/backward": [(1.0, 3.0)],
+            "device/ssd_backward": [(1.25, 1.5), (2.0, 2.25)],
+            "device/optimizer": [(3.0, 3.5)]}
+    assert sorted(dev) == sorted(want)
+    for name, ivs in want.items():
+        assert len(dev[name]) == len(ivs)
+        for r, (a, b) in zip(dev[name], ivs):
+            t0, t1 = rec.t0 + r["t0_s"], rec.t0 + r["t1_s"]
+            assert h0 + a <= t0 <= h1 + a and h0 + b <= t1 <= h1 + b
+            assert r["dur_s"] == pytest.approx(b - a, abs=1e-9)
+            assert r["step"] == 7
+            phase = name.split("/")[1]
+            parent = by_id[r["parent_id"]]
+            if phase == "ssd_backward":
+                assert parent is dev["device/backward"][0]
+            else:
+                assert parent is host["step/" + phase]
+
+
+def _mamba2_loader(tmp_path):
+    from repro_torch.data import packed_dataset as PD
+
+    PD.synthetic_dataset(4000, 97, str(tmp_path / "p"), seed=7)
+    return PD.ShardedLoader(PD.ChunkedLMDataset(
+        PD.PackedDataset(str(tmp_path / "p")), 16), global_batch=2)
+
+
+def test_marks_record_nothing_without_a_recorder(tmp_path, monkeypatch):
+    """With no recorder, or one with spans off, a step of reduced Mamba2
+    (its SSD backward included) builds no phases, records no CUDA event
+    and opens no ``record_function`` range; a mark is the one null
+    context."""
+    from repro_torch.core.gym import Gym
+    from repro_torch.optim.adamw import AdamW
+
+    def refuse(*a, **k):
+        raise AssertionError("a mark recorded with no recorder")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(PH, "StepPhases", refuse)
+    assert PH._current is None
+    assert PH.mark("step/forward") is PH.mark("step/ssd_backward", True)
+    loader = _mamba2_loader(tmp_path)
+    for tel in (None, TelemetryRecorder(run="r", kind="train", spans=False)):
+        gym = Gym(model=build_model(get_reduced("mamba2_780m")),
+                  optimizer=AdamW(lr=1e-3), loader=loader, log_every=1,
+                  device="cpu", telemetry=tel)
+        out = gym.run(2, state=gym.setup())
+        assert int(out["state"]["step"]) == 2 and PH._current is None
+        if tel is not None:
+            assert tel.counts["span"] == 0
 
 
 # ---------------------------------------------------------------------------
